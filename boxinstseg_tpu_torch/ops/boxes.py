@@ -1,0 +1,41 @@
+"""Box transforms and IoU math, counterpart of
+``boxinstseg_tpu/ops/boxes.py`` (reference: mmdet/core/bbox/transforms.py,
+mmdet/models/losses/iou_loss.py)."""
+from __future__ import annotations
+
+import torch
+
+
+def distance2bbox(points: torch.Tensor, distance: torch.Tensor
+                  ) -> torch.Tensor:
+    """Decode (l, t, r, b) distances at ``points`` (..., 2) as (x, y) into
+    xyxy boxes."""
+    return torch.stack([points[..., 0] - distance[..., 0],
+                        points[..., 1] - distance[..., 1],
+                        points[..., 0] + distance[..., 2],
+                        points[..., 1] + distance[..., 3]], dim=-1)
+
+
+def bbox_area(boxes: torch.Tensor) -> torch.Tensor:
+    return (boxes[..., 2] - boxes[..., 0]).clamp(min=0) * \
+        (boxes[..., 3] - boxes[..., 1]).clamp(min=0)
+
+
+def aligned_iou(a: torch.Tensor, b: torch.Tensor, mode: str = 'iou',
+                eps: float = 1e-6) -> torch.Tensor:
+    """Elementwise IoU / GIoU between aligned (..., 4) box tensors."""
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = bbox_area(a) + bbox_area(b) - inter
+    iou = inter / union.clamp(min=eps)
+    if mode == 'iou':
+        return iou
+    if mode == 'giou':
+        lt_e = torch.minimum(a[..., :2], b[..., :2])
+        rb_e = torch.maximum(a[..., 2:], b[..., 2:])
+        wh_e = (rb_e - lt_e).clamp(min=0)
+        enclose = (wh_e[..., 0] * wh_e[..., 1]).clamp(min=eps)
+        return iou - (enclose - union) / enclose
+    raise ValueError(mode)

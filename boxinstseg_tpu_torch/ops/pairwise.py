@@ -1,0 +1,272 @@
+"""BoxInst pairwise affinity loss: plain PyTorch version and the CUDA
+kernel pair (``csrc/pairwise.cu``).
+
+Math (reference condinst_head.py:86-114, 1316-1325): with
+p = sigmoid(logit), P(same) = p_i p_j + (1-p_i)(1-p_j); the term is
+-log P(same) in log space, over the dilated neighbour offsets of
+``neighbor_offsets``, weighted by [colour similarity >= thresh] * box
+bitmask * valid, and normalised by max(sum of weights, 1). Out-of-image
+neighbours see zero log-probs, so their term vanishes.
+
+``boxinst_pairwise_loss`` dispatches on the device of the logits: a CUDA
+tensor goes through the kernels (``PairwiseLossFunction``), a CPU tensor
+through the plain version (``PlainPairwiseLossFunction``). Both have the
+same analytic backward (the dual of the reference's
+pairwise_nlog_backward, pairwise.cu:52-66).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ._native import check, load_library
+from .color import neighbor_offsets, shift2d
+
+
+# ------------------------------------------------------------ plain version
+
+def _log_probs(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return F.logsigmoid(x), F.logsigmoid(-x)
+
+
+def _neighbour(xp: torch.Tensor, dy: int, dx: int, r: int, h: int, w: int):
+    """xp[..., r+dy : r+dy+h, r+dx : r+dx+w] of a tensor padded by r."""
+    return xp[..., r + dy:r + dy + h, r + dx:r + dx + w]
+
+
+def pairwise_num_den_plain(mask_logits, color_sim, bitmasks, valid,
+                           color_thresh=0.3, kernel_size=3, dilation=2):
+    """(numerator, denominator) of the weighted pairwise loss.
+
+    mask_logits, bitmasks: (B, K, H, W); color_sim: (B, K^2-1, H, W);
+    valid: (B, K) bool."""
+    h, w = mask_logits.shape[-2:]
+    r = (kernel_size // 2) * dilation
+    log_fg, log_bg = _log_probs(mask_logits)
+    fg_p = F.pad(log_fg, (r, r, r, r))
+    bg_p = F.pad(log_bg, (r, r, r, r))
+    base_w = bitmasks * valid.to(mask_logits.dtype)[..., None, None]
+    num = mask_logits.new_zeros(())
+    den = mask_logits.new_zeros(())
+    for k, (dy, dx) in enumerate(neighbor_offsets(kernel_size, dilation)):
+        nb_fg = _neighbour(fg_p, dy, dx, r, h, w)
+        nb_bg = _neighbour(bg_p, dy, dx, r, h, w)
+        log_same = torch.logaddexp(log_fg + nb_fg, log_bg + nb_bg)
+        gate = (color_sim[:, k] >= color_thresh).to(mask_logits.dtype)
+        w_ = base_w * gate[:, None]
+        num = num + torch.sum(-log_same * w_)
+        den = den + torch.sum(w_)
+    return num, den
+
+
+def pairwise_grad_plain(mask_logits, color_sim, bitmasks, valid,
+                        color_thresh=0.3, kernel_size=3, dilation=2):
+    """Unscaled d(num)/d(logits) (the caller multiplies by
+    g / max(den, 1)). Per offset o the gradient at p is
+    w_o(p) (s(p) - pA_o(p)) + w_o(p-o) (s(p) - pA_o(p-o)) with
+    s = sigmoid(x) and pA the normalised same-foreground probability."""
+    h, w = mask_logits.shape[-2:]
+    r = (kernel_size // 2) * dilation
+    log_fg, log_bg = _log_probs(mask_logits)
+    s = torch.sigmoid(mask_logits)
+    fg_p = F.pad(log_fg, (r, r, r, r))
+    bg_p = F.pad(log_bg, (r, r, r, r))
+    s_p = F.pad(s, (r, r, r, r))
+    base_w = bitmasks * valid.to(mask_logits.dtype)[..., None, None]
+    grad = torch.zeros_like(mask_logits)
+    for k, (dy, dx) in enumerate(neighbor_offsets(kernel_size, dilation)):
+        nb_fg = _neighbour(fg_p, dy, dx, r, h, w)
+        nb_bg = _neighbour(bg_p, dy, dx, r, h, w)
+        a = log_fg + nb_fg
+        m = torch.logaddexp(a, log_bg + nb_bg)
+        p_a = torch.exp(a - m)
+        gate = (color_sim[:, k] >= color_thresh).to(mask_logits.dtype)
+        w_ = base_w * gate[:, None]
+        grad = grad + w_ * (s - p_a)                       # p as centre
+        nb_s = _neighbour(s_p, dy, dx, r, h, w)
+        grad = grad + shift2d(w_ * (nb_s - p_a), -dy, -dx)  # p as neighbour
+    return grad
+
+
+class PlainPairwiseLossFunction(torch.autograd.Function):
+    """Plain PyTorch forward with the analytic backward."""
+
+    @staticmethod
+    def forward(ctx, mask_logits, color_sim, bitmasks, valid, color_thresh,
+                kernel_size, dilation):
+        num, den = pairwise_num_den_plain(mask_logits, color_sim, bitmasks,
+                                          valid, color_thresh, kernel_size,
+                                          dilation)
+        ctx.save_for_backward(mask_logits, color_sim, bitmasks, valid, den)
+        ctx.cfg = (color_thresh, kernel_size, dilation)
+        return num / torch.clamp(den, min=1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        mask_logits, color_sim, bitmasks, valid, den = ctx.saved_tensors
+        grad = pairwise_grad_plain(mask_logits, color_sim, bitmasks, valid,
+                                   *ctx.cfg)
+        return grad * (g / torch.clamp(den, min=1.0)), None, None, None, \
+            None, None, None
+
+
+# ------------------------------------------------------------- CUDA kernels
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """Build (first call) and type the C interface of csrc/pairwise.cu."""
+    lib = load_library('pairwise')
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.pairwise_forward.argtypes = [p] * 6 + [i] * 7 + [f, p]
+    lib.pairwise_forward.restype = i
+    lib.pairwise_backward.argtypes = [p] * 6 + [i] * 7 + [f, p]
+    lib.pairwise_backward.restype = i
+    lib.pairwise_tiles.argtypes = [i, i]
+    lib.pairwise_tiles.restype = i
+    return lib
+
+
+def _check_inputs(mask_logits, color_sim, bitmasks, valid, kernel_size,
+                  dilation):
+    """Raise on what the kernels do not take. The C side refuses a halo
+    (kernel_size // 2 * dilation) above 16 with cudaErrorInvalidValue."""
+    for name, t in (('mask_logits', mask_logits), ('color_sim', color_sim),
+                    ('bitmasks', bitmasks), ('valid', valid)):
+        if not t.is_cuda:
+            raise ValueError(f'{name} must be a CUDA tensor')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+        if t.device != mask_logits.device:
+            raise ValueError(f'{name} is on {t.device}, logits on '
+                             f'{mask_logits.device}')
+    for name, t in (('mask_logits', mask_logits), ('color_sim', color_sim),
+                    ('bitmasks', bitmasks)):
+        if t.dtype != torch.float32:
+            raise ValueError(f'{name} must be float32, got {t.dtype}')
+    if valid.dtype != torch.bool:
+        raise ValueError(f'valid must be bool, got {valid.dtype}')
+    if mask_logits.dim() != 4:
+        raise ValueError(f'mask_logits must be (B, K, H, W), got '
+                         f'{tuple(mask_logits.shape)}')
+    b, k, h, w = mask_logits.shape
+    g = kernel_size * kernel_size - 1
+    if kernel_size % 2 != 1 or kernel_size < 3:
+        raise ValueError(f'kernel_size must be odd and >= 3: {kernel_size}')
+    if tuple(bitmasks.shape) != (b, k, h, w):
+        raise ValueError(f'bitmasks {tuple(bitmasks.shape)} != logits '
+                         f'{(b, k, h, w)}')
+    if tuple(color_sim.shape) != (b, g, h, w):
+        raise ValueError(f'color_sim {tuple(color_sim.shape)} != '
+                         f'{(b, g, h, w)}')
+    if tuple(valid.shape) != (b, k):
+        raise ValueError(f'valid {tuple(valid.shape)} != {(b, k)}')
+    if b > 65535 or k > 65535:
+        raise ValueError(f'B={b} and K={k} must each be <= 65535')
+
+
+def pairwise_forward_cuda(mask_logits, color_sim, bitmasks, valid,
+                          color_thresh=0.3, kernel_size=3, dilation=2):
+    """K1: (num, den) scalars of the weighted pairwise loss."""
+    _check_inputs(mask_logits, color_sim, bitmasks, valid, kernel_size,
+                  dilation)
+    lib = _lib()
+    b, k, h, w = mask_logits.shape
+    tiles = lib.pairwise_tiles(h, w)
+    part = torch.empty((2, b, k, tiles), dtype=torch.float32,
+                       device=mask_logits.device)
+    stream = torch.cuda.current_stream(mask_logits.device).cuda_stream
+    with torch.cuda.device(mask_logits.device):
+        err = lib.pairwise_forward(
+            mask_logits.data_ptr(), color_sim.data_ptr(),
+            bitmasks.data_ptr(), valid.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), b, k, h, w, kernel_size * kernel_size - 1,
+            kernel_size // 2, dilation, float(color_thresh), stream)
+    check(err, 'pairwise_forward')
+    pairwise_forward_cuda.launches += 1
+    sums = part.sum(dim=(1, 2, 3))
+    return sums[0], sums[1]
+
+
+pairwise_forward_cuda.launches = 0
+
+
+def pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid, scale,
+                       color_thresh=0.3, kernel_size=3, dilation=2):
+    """K2: d(num)/d(logits) * scale, where ``scale`` is a one-element
+    float32 CUDA tensor (read on the device: no host sync)."""
+    _check_inputs(mask_logits, color_sim, bitmasks, valid, kernel_size,
+                  dilation)
+    if scale.numel() != 1 or scale.dtype != torch.float32 \
+            or scale.device != mask_logits.device:
+        raise ValueError('scale must be one float32 on the logits device')
+    scale = scale.contiguous()
+    lib = _lib()
+    b, k, h, w = mask_logits.shape
+    grad = torch.empty_like(mask_logits)
+    stream = torch.cuda.current_stream(mask_logits.device).cuda_stream
+    with torch.cuda.device(mask_logits.device):
+        err = lib.pairwise_backward(
+            mask_logits.data_ptr(), color_sim.data_ptr(),
+            bitmasks.data_ptr(), valid.data_ptr(), scale.data_ptr(),
+            grad.data_ptr(), b, k, h, w, kernel_size * kernel_size - 1,
+            kernel_size // 2, dilation, float(color_thresh), stream)
+    check(err, 'pairwise_backward')
+    pairwise_grad_cuda.launches += 1
+    return grad
+
+
+pairwise_grad_cuda.launches = 0
+
+
+class PairwiseLossFunction(torch.autograd.Function):
+    """K1 forward, K2 backward."""
+
+    @staticmethod
+    def forward(ctx, mask_logits, color_sim, bitmasks, valid, color_thresh,
+                kernel_size, dilation):
+        num, den = pairwise_forward_cuda(mask_logits, color_sim, bitmasks,
+                                         valid, color_thresh, kernel_size,
+                                         dilation)
+        ctx.save_for_backward(mask_logits, color_sim, bitmasks, valid, den)
+        ctx.cfg = (color_thresh, kernel_size, dilation)
+        return num / torch.clamp(den, min=1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        mask_logits, color_sim, bitmasks, valid, den = ctx.saved_tensors
+        scale = (g / torch.clamp(den, min=1.0)).to(torch.float32)
+        grad = pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid,
+                                  scale.reshape(1), *ctx.cfg)
+        return grad, None, None, None, None, None, None
+
+
+def boxinst_pairwise_loss(mask_logits: torch.Tensor,
+                          color_sim: torch.Tensor,
+                          bitmasks: torch.Tensor,
+                          valid: torch.Tensor,
+                          color_thresh: float = 0.3,
+                          kernel_size: int = 3,
+                          dilation: int = 2) -> torch.Tensor:
+    """BoxInst pairwise loss over sampled instances.
+
+    Args:
+      mask_logits: (B, K, H, W) sampled-instance mask logits.
+      color_sim: (B, K^2-1, H, W) per-image colour similarity.
+      bitmasks: (B, K, H, W) GT box bitmasks of the sampled instances.
+      valid: (B, K) bool sample validity.
+
+    A CUDA tensor launches the kernels (and raises on what they do not
+    take); a CPU tensor takes the plain version."""
+    args = (mask_logits, color_sim, bitmasks, valid, color_thresh,
+            kernel_size, dilation)
+    if mask_logits.is_cuda:
+        return PairwiseLossFunction.apply(
+            mask_logits.contiguous(), color_sim.contiguous(),
+            bitmasks.contiguous(), valid.contiguous(), *args[4:])
+    if mask_logits.device.type == 'cpu':
+        return PlainPairwiseLossFunction.apply(*args)
+    raise ValueError(f'no pairwise loss for device {mask_logits.device}')
