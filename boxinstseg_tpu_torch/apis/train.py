@@ -2,7 +2,8 @@
 ``train_detector`` (reference: mmdet/apis/train.py:117-244).
 
 One process: ``StaticBatcher`` + ``TrainLoader`` (the numpy data layer
-shared with the JAX package), the LR schedule, SGD, the train step, a text
+shared with the JAX package; box bitmasks at stride 4 when the config asks
+for GT masks), the LR schedule, SGD or AdamW, the train step, a text
 log line per iteration and a final ``torch.save`` checkpoint that keeps
 ``_iter``. Distributed data parallelism, the teacher-student step and the
 evaluation hook are not ported yet.
@@ -143,7 +144,10 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
         canvases=cfg.get('canvases', default_canvases(cfg)),
         max_gts=cfg.get('max_gts', 100),
         bottom_pixels_removed=mask_head_cfg.get('bottom_pixels_removed', 10),
-        with_masks=False, mask_stride=4, gt_buckets=cfg.get('gt_buckets'))
+        with_masks=bool(cfg.get('with_gt_masks',
+                                not mask_head_cfg.get('boxinst_enabled',
+                                                      True))),
+        mask_stride=4, gt_buckets=cfg.get('gt_buckets'))
     loader = TrainLoader(dataset, batch_size, batcher,
                          num_workers=data_cfg.get('workers_per_gpu', 2) * 4,
                          seed=cfg.get('seed', 0),
@@ -157,7 +161,7 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
                               max_iters=max_iters)
 
     model.to(device)
-    optimizer = build_optimizer(cfg.optimizer, model.parameters())
+    optimizer = build_optimizer(cfg.optimizer, model.named_parameters())
     grad_clip = (cfg.get('optimizer_config') or {}).get('grad_clip')
     step_fn = make_train_step(model, optimizer, lr_fn, grad_clip)
 

@@ -2,6 +2,8 @@
 ``make_train_step``: loss, gradients, the LR of this step and the SGD
 update, with the BoxInst warmup counter equal to the step count BEFORE the
 update (reference: the ``_iter`` buffer, condinst_head.py:1104,1331).
+Each parameter group's LR is the scheduled LR times its ``lr_mult``
+(``engine.optimizers``), as optax scales a paramwise update.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ def make_train_step(model: torch.nn.Module,
     SGD's weight decay and momentum move them as optax moves every leaf of
     the JAX param tree. ``logs`` holds detached 0-dim tensors: every loss,
     'loss' (the total), 'grad_norm' (global L2 norm of the gradients,
-    before clipping) and 'lr'.
+    before clipping) and 'lr' (the scheduled LR, before ``lr_mult``).
     """
     params = [p for group in optimizer.param_groups for p in group['params']]
     max_norm = float(grad_clip['max_norm']) if grad_clip else None
@@ -44,7 +46,7 @@ def make_train_step(model: torch.nn.Module,
             torch.nn.utils.clip_grad_norm_(params, max_norm)
         lr = lr_fn(step)
         for group in optimizer.param_groups:
-            group['lr'] = lr
+            group['lr'] = lr * group['lr_mult']
         optimizer.step()
         logs = {k: v.detach() for k, v in losses.items()}
         logs['loss'] = total.detach()

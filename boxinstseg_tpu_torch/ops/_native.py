@@ -39,31 +39,52 @@ def _nvcc() -> str:
                        'toolkit (set PATH to include its bin directory)')
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
+def _library_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f'{name}.cu')
+    with open(src, 'rb') as f:
+        digest = hashlib.sha256(
+            f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f'lib{name}-{digest}.so')
+
+
+def build_all(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one ``nvcc`` process per source, all started together; then load
+    them."""
     with _LOCK:
-        if name in _LIBS:
-            return _LIBS[name]
-        src = os.path.join(CSRC_DIR, f'{name}.cu')
-        with open(src, 'rb') as f:
-            digest = hashlib.sha256(
-                f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = os.path.join(BUILD_DIR, f'lib{name}-{digest}.so')
-        if not os.path.exists(out):
+        procs = {}
+        for name in names:
+            out = _library_path(name)
+            if name in _LIBS or os.path.exists(out):
+                BUILD_SECONDS.setdefault(name, 0.0)
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f'{out}.{os.getpid()}.tmp'
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
-                                  capture_output=True, text=True)
+            src = os.path.join(CSRC_DIR, f'{name}.cu')
+            procs[name] = (out, tmp, src, time.perf_counter(),
+                           subprocess.Popen(
+                               [_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True))
+        errors = []
+        for name, (out, tmp, src, t0, proc) in procs.items():
+            _, stderr = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f'nvcc failed on {src}:\n{proc.stderr}')
+                errors.append(f'nvcc failed on {src}:\n{stderr}')
+                continue
             os.replace(tmp, out)
             BUILD_SECONDS[name] = time.perf_counter() - t0
-        else:
-            BUILD_SECONDS.setdefault(name, 0.0)
-        lib = ctypes.CDLL(out)
-        _LIBS[name] = lib
-        return lib
+        if errors:
+            raise RuntimeError('\n'.join(errors))
+        for name in names:
+            if name not in _LIBS:
+                _LIBS[name] = ctypes.CDLL(_library_path(name))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
+    build_all([name])
+    return _LIBS[name]
 
 
 def check(err: int, what: str) -> None:

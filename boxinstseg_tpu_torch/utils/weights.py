@@ -1,7 +1,8 @@
-"""JAX CondInst variables -> port ``state_dict``.
+"""JAX CondInst and Box2Mask variables -> port ``state_dict``.
 
 The inverse of ``boxinstseg_tpu.utils.checkpoint_convert.
-convert_condinst_checkpoint``: it takes the JAX package's ``params`` and
+convert_condinst_checkpoint`` and ``convert_box2mask_head``: it takes the
+JAX package's ``params`` and
 ``batch_stats`` as nested dicts of numpy arrays and returns the port's
 ``state_dict`` (mmdet reference key names, OIHW conv weights), so both
 packages can compute from the same weights. Only numpy and torch are
@@ -119,12 +120,96 @@ def _mask_branch(sd, params, stats):
         _conv_module(sd, f'{prefix}.{i}', node, stats.get(name, {}))
 
 
+def _linear(sd, prefix, node):
+    """flax Dense (kernel (in, out)) -> torch Linear (weight (out, in))."""
+    sd[f'{prefix}.weight'] = _t(np.asarray(node['kernel']).T)
+    if 'bias' in node:
+        sd[f'{prefix}.bias'] = _t(node['bias'])
+
+
+def _layer_norm(sd, prefix, node):
+    sd[f'{prefix}.weight'] = _t(node['scale'])
+    sd[f'{prefix}.bias'] = _t(node['bias'])
+
+
+def _ffn(sd, prefix, node):
+    _linear(sd, f'{prefix}.ffns.0.layers.0.0', node['fc1'])
+    _linear(sd, f'{prefix}.ffns.0.layers.1', node['fc2'])
+
+
+def _mha(sd, prefix, node):
+    """q/k/v/out projections -> torch's packed in_proj and out_proj."""
+    sd[f'{prefix}.attn.in_proj_weight'] = torch.cat(
+        [_t(np.asarray(node[k]['kernel']).T)
+         for k in ('q_proj', 'k_proj', 'v_proj')])
+    sd[f'{prefix}.attn.in_proj_bias'] = torch.cat(
+        [_t(node[k]['bias']) for k in ('q_proj', 'k_proj', 'v_proj')])
+    _linear(sd, f'{prefix}.attn.out_proj', node['out_proj'])
+
+
+def _pixel_decoder(sd, prefix, params):
+    for name, node in params.items():
+        m = re.match(r'^(input_conv|lateral_conv|output_conv)_(\d+)$', name)
+        if m:
+            _conv_module(sd, f'{prefix}.{m.group(1)}s.{m.group(2)}', node,
+                         {})
+            continue
+        m = re.match(r'^encoder_layer_(\d+)$', name)
+        if m:
+            layer = f'{prefix}.encoder.layers.{m.group(1)}'
+            for sub in ('sampling_offsets', 'attention_weights',
+                        'value_proj', 'output_proj'):
+                _linear(sd, f'{layer}.attentions.0.{sub}',
+                        node['attn'][sub])
+            _ffn(sd, layer, node['ffn'])
+            for i in range(2):
+                _layer_norm(sd, f'{layer}.norms.{i}', node[f'norm{i + 1}'])
+        elif name == 'level_encoding':
+            sd[f'{prefix}.level_encoding.weight'] = _t(node)
+        elif name == 'mask_feature':
+            _emit_conv(sd, f'{prefix}.mask_feature', node)
+        else:
+            raise KeyError(f'unknown pixel decoder entry {name}')
+
+
+_MASK_EMBED = {'mask_embed_0': 0, 'mask_embed_1': 2, 'mask_embed_out': 4}
+
+
+def _box2mask_head(sd, params):
+    prefix = 'panoptic_head'
+    for name, node in params.items():
+        m = re.match(r'^decoder_layer_(\d+)$', name)
+        if m:
+            layer = f'{prefix}.transformer_decoder.layers.{m.group(1)}'
+            _mha(sd, f'{layer}.attentions.0', node['cross_attn'])
+            _mha(sd, f'{layer}.attentions.1', node['self_attn'])
+            _ffn(sd, layer, node['ffn'])
+            for i in range(3):
+                _layer_norm(sd, f'{layer}.norms.{i}', node[f'norm{i + 1}'])
+        elif name == 'pixel_decoder':
+            _pixel_decoder(sd, f'{prefix}.pixel_decoder', node)
+        elif name == 'post_norm':
+            _layer_norm(sd, f'{prefix}.transformer_decoder.post_norm', node)
+        elif name in ('query_embed', 'query_feat', 'level_embed'):
+            sd[f'{prefix}.{name}.weight'] = _t(node)
+        elif name == 'cls_embed':
+            _linear(sd, f'{prefix}.cls_embed', node)
+        elif name in _MASK_EMBED:
+            _linear(sd, f'{prefix}.mask_embed.{_MASK_EMBED[name]}', node)
+        elif name == 'levelset_bottom':
+            _emit_conv(sd, f'{prefix}.levelset_bottom', node)
+        else:
+            raise KeyError(f'unknown Box2Mask head entry {name}')
+
+
 def params_from_jax(params: Mapping, batch_stats: Mapping
                     ) -> Dict[str, torch.Tensor]:
-    """JAX CondInst ``params`` / ``batch_stats`` -> port ``state_dict``.
+    """JAX CondInst or Box2Mask ``params`` / ``batch_stats`` -> port
+    ``state_dict``.
 
-    Each submodule tree (backbone_m, neck_m, bbox_head_m, mask_branch_m)
-    is converted when present, so a lone backbone or head converts too."""
+    Each submodule tree (backbone_m, neck_m, bbox_head_m, mask_branch_m,
+    panoptic_head_m) is converted when present, so a lone backbone or head
+    converts too."""
     batch_stats = batch_stats or {}
     sd: Dict[str, torch.Tensor] = {}
     if 'backbone_m' in params:
@@ -137,4 +222,6 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
     if 'mask_branch_m' in params:
         _mask_branch(sd, params['mask_branch_m'],
                      batch_stats.get('mask_branch_m', {}))
+    if 'panoptic_head_m' in params:
+        _box2mask_head(sd, params['panoptic_head_m'])
     return sd

@@ -5,17 +5,27 @@
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
-1. device   - card name and power limit (nvidia-smi), torch / CUDA versions;
-              TF32 off for matmuls and convolutions.
-2. build    - compiles the hand-written kernels (csrc/*.cu) with nvcc.
-3. kernels  - each kernel against its plain PyTorch version on the card, at
-              the main path's shape and at ragged ones; errors and times.
-4. slice    - BoxInst R-50-FPN 1x at full width (random init from a seed)
-              trained for 5 SGD steps through tools/train_torch.py on seeded
-              synthetic 800x1333 images; the kernels' launch counts over
-              that run must equal the step count.
-5. reference- a small CondInst's loss dict on the card (kernels) against
-              the same weights and batch on the CPU (plain versions).
+1. device    - card name and power limit (nvidia-smi), torch / CUDA
+               versions; TF32 off for matmuls and convolutions.
+2. build     - compiles the hand-written kernels (csrc/*.cu), one nvcc per
+               source, all started together.
+3. kernels   - each kernel against its plain PyTorch version on the card, at
+               the main path's shapes and at ragged ones: the pairwise pair
+               (K1/K2), the MSDA forward and backward, the LCM forward and
+               adjoint (with the identity <A x, y> = <x, A^T y>); errors,
+               times and each kernel's bound.
+4. slice     - BoxInst R-50-FPN 1x at full width (random init from a seed)
+               trained for 5 SGD steps through tools/train_torch.py on
+               seeded synthetic 800x1333 images; the pairwise kernels'
+               launch counts over that run must equal the step count.
+5. reference - a small CondInst's loss dict on the card (kernels) against
+               the same weights and batch on the CPU (plain versions).
+6. box2mask  - Box2Mask R-50 LSJ at full width trained for 5 AdamW steps
+               through tools/train_torch.py on seeded synthetic 1024x1024
+               images; the MSDA and LCM kernels' launch counts over that run
+               must equal their per-step counts times the step count.
+7. box2mask reference - a small Box2Mask's loss dict on the card against the
+               CPU.
 
 Prints a JSON line with one entry per kernel, the card's nvidia-smi line,
 and as its last line {"ok": true, "device": {...}}.
@@ -33,6 +43,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, 'configs/boxinst/boxinst_r50_fpn_1x_coco.py')
+B2M_CONFIG = os.path.join(ROOT,
+                          'configs/box2mask/box2mask_r50_lsj_8x2_50e_coco.py')
 STEPS = 5
 MAIN_SHAPE = (2, 64, 200, 336)     # B, K=topk_per_img, 800/4, 1344/4
 RAGGED_SHAPES = ((1, 3, 37, 53), (2, 5, 37, 53))
@@ -41,6 +53,54 @@ VALUE_RTOL = 1e-5                  # fp32, summation order
 # through autograd it is divided by max(den, 1), and so is GRAD_ATOL
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-5
 REF_RTOL, REF_ATOL = 1e-4, 1e-6    # cuDNN vs CPU conv summation order
+
+# Box2Mask R-50 LSJ: batch 2 x 8 heads, 32 channels a head, 4 points, the
+# encoder levels at strides 8, 16, 32 of the 1024x1024 canvas
+MSDA_BH, MSDA_C, MSDA_P = 16, 32, 4
+MSDA_LEVELS = ((128, 128), (64, 64), (32, 32))
+# (bh, h, w, c, queries, points, spread): odd maps, channels that are not a
+# warp's width, samples spread up to `spread` map widths outside
+MSDA_RAGGED = ((3, 13, 7, 32, 37, 4, 0.6), (2, 5, 11, 48, 19, 3, 1.5))
+LCM_MAIN = (2, 80, 96, 96)         # B, 10 outputs x 8 GT slots, tf_size
+LCM_RAGGED = ((1, 3, 37, 53), (2, 5, 3, 5))
+LCM_ITERS = 10
+# MSDA and LCM kernels against their plain versions: atol is 1e-5 of the
+# reference's largest entry (1e-5 at least), rtol 1e-4. fp32 sums in
+# another order, and the MSDA d(value) with float atomics in an order that
+# changes from run to run; d(loc) carries the map's width or height as a
+# factor, so a fixed atol would not scale with it.
+KERNEL_ATOL, KERNEL_RTOL = 1e-5, 1e-4
+ADJOINT_RTOL = 1e-5                # <A x, y> vs <x, A^T y>, float64 sums
+
+# the least time of a kernel: bytes over the memory rate or operations over
+# the fp32 rate (NVIDIA H100 SXM data sheet, at its 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# operations a kernel does per unit of work, counted from its source
+# (a transcendental counts as one): per (pixel, instance) for the pairwise
+# pair (two log-sigmoids, then per offset a pair log-prob, a logaddexp and
+# the weighted sum; K2 adds the pair probability and the gradient terms),
+# per kept sample for MSDA (four corners times a multiply-add per channel,
+# plus the corner weights; the backward adds the row-dots), per pixel, round
+# and offset for LCM (a multiply-add)
+K1_OPS, K2_OPS = 90, 120
+
+REPLACES = {
+    'pairwise_forward': 'boxinstseg_tpu/ops/pallas_kernels.py:32',
+    'pairwise_backward': 'boxinstseg_tpu/ops/pallas_kernels.py:119',
+    'msda_forward': 'boxinstseg_tpu/ops/msda_pallas.py:274',
+    'msda_backward': 'boxinstseg_tpu/ops/msda_pallas.py:397',
+    'lcm_forward': 'boxinstseg_tpu/ops/pallas_kernels.py:380',
+    'lcm_adjoint': 'boxinstseg_tpu/ops/pallas_kernels.py:380',
+}
+SOURCES = {
+    'pairwise_forward': 'boxinstseg_tpu_torch/csrc/pairwise.cu',
+    'pairwise_backward': 'boxinstseg_tpu_torch/csrc/pairwise.cu',
+    'msda_forward': 'boxinstseg_tpu_torch/csrc/msda.cu',
+    'msda_backward': 'boxinstseg_tpu_torch/csrc/msda.cu',
+    'lcm_forward': 'boxinstseg_tpu_torch/csrc/lcm.cu',
+    'lcm_adjoint': 'boxinstseg_tpu_torch/csrc/lcm.cu',
+}
 
 
 def fail(msg):
@@ -60,6 +120,19 @@ def load_train_tool():
     return mod
 
 
+def bound(nbytes, ops):
+    """The least time (ms) for moving ``nbytes`` and doing ``ops`` fp32
+    operations, and which of the two bounds it."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by='bytes' if t_bytes >= t_ops else 'operations')
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 class SyntheticBoxDataset:
     """Seeded stand-in for CocoDataset with the interface TrainLoader uses
     (``flag``, ``__len__``, ``prepare(idx, rng, scale)``).
@@ -68,8 +141,9 @@ class SyntheticBoxDataset:
     32x32 colour blocks with 1-8 solid-colour boxes on top (flat regions
     give the colour-similarity gates something to pass), sent through the
     config's train pipeline after the file-loading and resize steps, which
-    the synthesis replaces: RandomFlip, Normalize, Pad, DefaultFormatBundle
-    and Collect. No cv2 is needed."""
+    the synthesis replaces (for BoxInst: RandomFlip, Normalize, Pad,
+    DefaultFormatBundle and Collect; Box2Mask adds GenerateBoxMask,
+    RandomCrop and FilterAnnotations). No cv2 is needed."""
 
     SKIP = ('LoadImageFromFile', 'LoadAnnotations', 'Resize')
 
@@ -122,6 +196,23 @@ def cuda_ms(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def compare(what, got, want):
+    """Max abs error of a kernel's output against its plain version, within
+    KERNEL_ATOL * max(1, max |want|) + KERNEL_RTOL * |want|; fails on a
+    reference too small to make the check meaningful."""
+    import torch
+    ref = want.abs().max().item()
+    if not ref > 0.1:
+        fail(f'{what}: plain reference max {ref}: check is vacuous')
+    diff = (got - want).abs()
+    err = diff.max().item()
+    tol = KERNEL_ATOL * max(ref, 1.0) + KERNEL_RTOL * want.abs()
+    if not bool(torch.isfinite(got).all()) or not bool((diff <= tol).all()):
+        fail(f'{what}: kernel differs from plain: max abs err {err} '
+             f'(max |ref| {ref})')
+    return err
 
 
 def kernel_inputs(shape, gen):
@@ -178,31 +269,271 @@ def phase_kernels():
             fail(f'K2 through autograd differs from plain at {shape}')
         if shape == MAIN_SHAPE:
             scale = torch.full((1,), inv_den, device='cuda')
+            pixels = x.numel()
+            # K1 writes a (2, B, K, tiles) buffer of partial sums
+            partials = 2 * x.numel() // (32 * 8) * 4
             report['pairwise_forward'] = dict(
                 max_abs_err=v_err,
                 ms=cuda_ms(lambda: pw.pairwise_forward_cuda(x, sim, bm,
                                                             valid)),
                 plain_ms=cuda_ms(lambda: pw.pairwise_num_den_plain(
-                    x, sim, bm, valid)))
+                    x, sim, bm, valid)),
+                library_ms=None,
+                **bound(nbytes(x, sim, bm, valid) + partials,
+                        K1_OPS * pixels))
             report['pairwise_backward'] = dict(
                 max_abs_err=g_err,
                 ms=cuda_ms(lambda: pw.pairwise_grad_cuda(x, sim, bm, valid,
                                                          scale)),
                 plain_ms=cuda_ms(lambda: pw.pairwise_grad_plain(
-                    x, sim, bm, valid) * scale))
+                    x, sim, bm, valid) * scale),
+                library_ms=None,
+                **bound(nbytes(x, sim, bm, valid, x), K2_OPS * pixels))
     for name, r in report.items():
         print(f'{name} at {MAIN_SHAPE}: kernel {r["ms"]:.4f} ms, plain '
-              f'{r["plain_ms"]:.4f} ms')
+              f'{r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
+              f'({r["bound_by"]})')
     return report
+
+
+def msda_main_inputs(hh, ww, gen):
+    """One level's call of the Box2Mask encoder: every query of the three
+    levels samples this (hh, ww) map around its own grid centre, at offsets
+    of up to 4 cells (the init bias) plus noise; weights of the size a
+    softmax over 12 (level, point) logits gives."""
+    import torch
+    dev = 'cuda'
+    refs = []
+    for h, w in MSDA_LEVELS:
+        ys = (torch.arange(h, device=dev, dtype=torch.float32) + 0.5) / h
+        xs = (torch.arange(w, device=dev, dtype=torch.float32) + 0.5) / w
+        refs.append(torch.stack(torch.meshgrid(xs, ys, indexing='xy'),
+                                -1).reshape(-1, 2))
+    ref = torch.cat(refs)                                  # (L, 2)
+    l = ref.shape[0]
+    shape = (MSDA_BH, MSDA_P, l)
+    cells = torch.randint(-4, 5, (2,) + shape, generator=gen, device=dev)
+    off = cells + 0.5 * torch.randn((2,) + shape, generator=gen, device=dev)
+    lx = (ref[:, 0] + off[0] / ww).reshape(MSDA_BH, -1)
+    ly = (ref[:, 1] + off[1] / hh).reshape(MSDA_BH, -1)
+    value = torch.randn((MSDA_BH, hh, ww, MSDA_C), generator=gen, device=dev)
+    weight = torch.rand(lx.shape, generator=gen, device=dev) / 6
+    grad = torch.randn((MSDA_BH, l, MSDA_C), generator=gen, device=dev)
+    return value, lx.contiguous(), ly.contiguous(), weight, grad
+
+
+def msda_ragged_inputs(bh, h, w, c, l, p, spread, gen):
+    import torch
+    dev = 'cuda'
+    loc = torch.rand((2, bh, p * l), generator=gen, device=dev) * (
+        1 + 2 * spread) - spread
+    return (torch.randn((bh, h, w, c), generator=gen, device=dev),
+            loc[0].contiguous(), loc[1].contiguous(),
+            torch.rand((bh, p * l), generator=gen, device=dev),
+            torch.randn((bh, l, c), generator=gen, device=dev))
+
+
+def check_msda(tag, value, lx, ly, weight, grad, p):
+    """The MSDA kernels against the plain versions (and the backward
+    against autograd through the plain forward); returns the forward and
+    backward max abs errors."""
+    import torch
+    from boxinstseg_tpu_torch.ops import msda
+    out_k = msda.msda_forward_cuda(value, lx, ly, weight, p)
+    out_p = msda.msda_forward_plain(value, lx, ly, weight, p)
+    f_err = compare(f'MSDA forward {tag}', out_k, out_p)
+    grads_k = msda.msda_backward_cuda(value, lx, ly, weight, grad, p)
+    grads_p = msda.msda_backward_plain(value, lx, ly, weight, grad, p)
+    leaves = [t.clone().requires_grad_(True) for t in (value, lx, ly, weight)]
+    grads_a = torch.autograd.grad(msda.msda_forward_plain(*leaves, p),
+                                  leaves, grad)
+    b_err = 0.0
+    for name, gk, gp, ga in zip(('d_value', 'd_loc_x', 'd_loc_y',
+                                 'd_weight'), grads_k, grads_p, grads_a):
+        b_err = max(b_err, compare(f'MSDA backward {name} {tag}', gk, gp))
+        compare(f'MSDA backward {name} {tag} vs autograd', gk, ga)
+    # the kernels through their autograd.Function
+    leaves = [t.clone().requires_grad_(True) for t in (value, lx, ly, weight)]
+    out_f = msda.MSDAFunction.apply(*leaves, p)
+    out_f.backward(grad)
+    compare(f'MSDAFunction forward {tag}', out_f.detach(), out_p)
+    for name, t, gp in zip(('value', 'loc_x', 'loc_y', 'weight'), leaves,
+                           grads_p):
+        compare(f'MSDAFunction d_{name} {tag}', t.grad, gp)
+    x0 = torch.floor(lx * value.shape[2] - 0.5)
+    y0 = torch.floor(ly * value.shape[1] - 0.5)
+    kept = ((x0 >= -1) & (x0 <= value.shape[2] - 1) & (y0 >= -1)
+            & (y0 <= value.shape[1] - 1))
+    print(f'MSDA {tag}: forward max abs err {f_err:.3g}, backward '
+          f'{b_err:.3g} (max |d_loc_x| '
+          f'{grads_p[1].abs().max().item():.3g}); samples kept '
+          f'{kept.float().mean().item():.4f}')
+    return f_err, b_err, int(kept.sum().item())
+
+
+def phase_msda_kernels():
+    import torch
+    from boxinstseg_tpu_torch.ops import msda
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    report = {}
+    for (hh, ww) in MSDA_LEVELS:
+        value, lx, ly, weight, grad = msda_main_inputs(hh, ww, gen)
+        tag = f'(BH {MSDA_BH}, {hh}x{ww}, C {MSDA_C}, L {grad.shape[1]}, ' \
+              f'P {MSDA_P})'
+        f_err, b_err, kept = check_msda(tag, value, lx, ly, weight, grad,
+                                        MSDA_P)
+        fwd_ms = cuda_ms(lambda: msda.msda_forward_cuda(value, lx, ly,
+                                                        weight, MSDA_P))
+        bwd_ms = cuda_ms(lambda: msda.msda_backward_cuda(
+            value, lx, ly, weight, grad, MSDA_P))
+        fwd_plain = cuda_ms(lambda: msda.msda_forward_plain(
+            value, lx, ly, weight, MSDA_P), iters=5)
+        bwd_plain = cuda_ms(lambda: msda.msda_backward_plain(
+            value, lx, ly, weight, grad, MSDA_P), iters=5)
+        # each input read once, each output written once
+        io = nbytes(value, lx, ly, weight)
+        fwd_bound = bound(io + nbytes(grad),
+                          kept * (8 * MSDA_C + 16))
+        bwd_bound = bound(io + nbytes(grad) + io,
+                          kept * (16 * MSDA_C + 30))
+        print(f'MSDA {tag}: forward kernel {fwd_ms:.4f} ms, plain '
+              f'{fwd_plain:.4f} ms, bound {fwd_bound["bound_ms"]:.4f} ms '
+              f'({fwd_bound["bound_by"]}); backward kernel {bwd_ms:.4f} ms,'
+              f' plain {bwd_plain:.4f} ms, bound '
+              f'{bwd_bound["bound_ms"]:.4f} ms ({bwd_bound["bound_by"]})')
+        if (hh, ww) == MSDA_LEVELS[0]:
+            report['msda_forward'] = dict(max_abs_err=f_err, ms=fwd_ms,
+                                          plain_ms=fwd_plain,
+                                          library_ms=None, **fwd_bound)
+            report['msda_backward'] = dict(max_abs_err=b_err, ms=bwd_ms,
+                                           plain_ms=bwd_plain,
+                                           library_ms=None, **bwd_bound)
+    for shape in MSDA_RAGGED:
+        bh, h, w, c, l, p, spread = shape
+        check_msda(f'ragged (BH {bh}, {h}x{w}, C {c}, L {l}, P {p}, '
+                   f'spread {spread})',
+                   *msda_ragged_inputs(*shape, gen), p)
+    return report
+
+
+def lcm_inputs(shape, gen):
+    import torch
+    from boxinstseg_tpu_torch.models.losses.levelset_loss import \
+        LocalConsistencyModule
+    b, c, h, w = shape
+    module = LocalConsistencyModule(dilations=(2,), num_iter=LCM_ITERS)
+    imgs = torch.rand((b, 3, h, w), generator=gen, device='cuda')
+    aff = module.affinity(imgs).contiguous()
+    phi = torch.rand(shape, generator=gen, device='cuda')
+    g = torch.randn(shape, generator=gen, device='cuda')
+    return module.offsets(), aff, phi, g
+
+
+def check_lcm(shape, gen):
+    """LCM forward and adjoint kernels against the plain rounds, the
+    adjoint identity, and the backward of the autograd.Function."""
+    import torch
+    from boxinstseg_tpu_torch.ops import lcm
+    offs, aff, phi, g = lcm_inputs(shape, gen)
+    f_err = compare(f'LCM forward {shape}',
+                    lcm.lcm_forward_cuda(aff, phi, offs, LCM_ITERS),
+                    lcm.lcm_forward_plain(aff, phi, offs, LCM_ITERS))
+    a_err = compare(f'LCM adjoint {shape}',
+                    lcm.lcm_adjoint_cuda(aff, g, offs, LCM_ITERS),
+                    lcm.lcm_adjoint_plain(aff, g, offs, LCM_ITERS))
+    # <A x, y> = <x, A^T y>, positive x and y so that the sums do not cancel
+    x, y = phi, torch.rand(shape, generator=gen, device='cuda')
+    lhs = (lcm.lcm_forward_cuda(aff, x, offs, LCM_ITERS).double()
+           * y.double()).sum().item()
+    rhs = (x.double() * lcm.lcm_adjoint_cuda(aff, y, offs, LCM_ITERS)
+           .double()).sum().item()
+    if not abs(lhs - rhs) <= ADJOINT_RTOL * abs(lhs):
+        fail(f'LCM adjoint identity at {shape}: <Ax, y> {lhs} vs '
+             f'<x, A^T y> {rhs}')
+    p = phi.clone().requires_grad_(True)
+    lcm.lcm_refine(aff, p, offs, LCM_ITERS).backward(g)
+    compare(f'LCM autograd backward {shape}', p.grad,
+            lcm.lcm_adjoint_plain(aff, g, offs, LCM_ITERS))
+    print(f'LCM {shape}: forward max abs err {f_err:.3g}, adjoint '
+          f'{a_err:.3g}; <Ax, y> {lhs:.10g} vs <x, A^T y> {rhs:.10g}')
+    return offs, aff, phi, g, f_err, a_err
+
+
+def phase_lcm_kernels():
+    import torch
+    from boxinstseg_tpu_torch.ops import lcm
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    offs, aff, phi, g, f_err, a_err = check_lcm(LCM_MAIN, gen)
+    for shape in LCM_RAGGED:
+        check_lcm(shape, gen)
+    ops = LCM_ITERS * len(offs) * 2 * phi.numel()
+    b = bound(nbytes(aff, phi, phi), ops)
+    report = {
+        'lcm_forward': dict(
+            max_abs_err=f_err,
+            ms=cuda_ms(lambda: lcm.lcm_forward_cuda(aff, phi, offs,
+                                                    LCM_ITERS)),
+            plain_ms=cuda_ms(lambda: lcm.lcm_forward_plain(
+                aff, phi, offs, LCM_ITERS), iters=5),
+            library_ms=None, **b),
+        'lcm_adjoint': dict(
+            max_abs_err=a_err,
+            ms=cuda_ms(lambda: lcm.lcm_adjoint_cuda(aff, g, offs,
+                                                    LCM_ITERS)),
+            plain_ms=cuda_ms(lambda: lcm.lcm_adjoint_plain(
+                aff, g, offs, LCM_ITERS), iters=5),
+            library_ms=None, **b)}
+    for name, r in report.items():
+        print(f'{name} at {LCM_MAIN}: kernel {r["ms"]:.4f} ms, plain '
+              f'{r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
+              f'({r["bound_by"]})')
+    return report
+
+
+def register_dataset():
+    from boxinstseg_tpu_torch.registry import DATASETS
+    if 'SyntheticBoxDataset' not in DATASETS:
+        DATASETS.register_module(module=SyntheticBoxDataset)
+
+
+def check_history(result, steps, required=()):
+    if result.step != steps:
+        fail(f'ran {result.step} steps, expected {steps}')
+    for i, logs in enumerate(result.history):
+        bad = [k for k, v in logs.items() if not math.isfinite(v)]
+        if bad:
+            fail(f'step {i}: non-finite {bad}')
+        for k in required:
+            if i > 0 and not logs[k] > 0:
+                fail(f'step {i}: {k} {logs[k]}')
+
+
+def changed_tensors(tool, cfg, seed, result):
+    import torch
+    init = tool.build_model(cfg, seed).state_dict()
+    final = torch.load(result.checkpoint, map_location='cpu')
+    if final['_iter'] != result.step:
+        fail(f'checkpoint _iter {final["_iter"]}')
+    return [k for k, v in final['state_dict'].items()
+            if v.is_floating_point() and not torch.equal(v, init[k])]
+
+
+def print_steps(result, peak):
+    step_ms = [1e3 * (h['time'] - h['data_time']) for h in result.history]
+    print(f'losses at step {result.step}: ' + ', '.join(
+        f'{k} {v:.5f}' for k, v in result.history[-1].items()
+        if k.startswith('loss')))
+    print(f'step ms (compute + sync, data excluded): '
+          f'{[round(t, 3) for t in step_ms]}; median of steps 2-'
+          f'{result.step} {statistics.median(step_ms[1:]):.3f} ms; peak '
+          f'memory {peak / 2**30:.3f} GiB')
 
 
 def phase_slice(tool):
     """5 SGD steps of BoxInst R-50-FPN 1x through the train entry point."""
     import torch
     from boxinstseg_tpu_torch.ops import pairwise as pw
-    from boxinstseg_tpu_torch.registry import DATASETS
-    if 'SyntheticBoxDataset' not in DATASETS:
-        DATASETS.register_module(module=SyntheticBoxDataset)
+    register_dataset()
     work_dir = tempfile.mkdtemp(prefix='chip_smoke_')
     seed = 0
     opts = ['model.mask_head.pairwise_warmup=1',
@@ -227,36 +558,74 @@ def phase_slice(tool):
         launches = {'pairwise_forward': pw.pairwise_forward_cuda.launches,
                     'pairwise_backward': pw.pairwise_grad_cuda.launches}
         peak = torch.cuda.max_memory_allocated()
-        if result.step != STEPS:
-            fail(f'ran {result.step} steps, expected {STEPS}')
-        for i, logs in enumerate(result.history):
-            bad = [k for k, v in logs.items() if not math.isfinite(v)]
-            if bad:
-                fail(f'step {i}: non-finite {bad}')
-            if i > 0 and not logs['loss_pairwise'] > 0:
-                fail(f'step {i}: loss_pairwise {logs["loss_pairwise"]}')
+        check_history(result, STEPS, required=('loss_pairwise',))
         for name, n in launches.items():
             if n != STEPS:
                 fail(f'{name} launched {n} times in {STEPS} steps')
-        init = tool.build_model(cfg, seed).state_dict()
-        final = torch.load(result.checkpoint, map_location='cpu')
-        if final['_iter'] != STEPS:
-            fail(f'checkpoint _iter {final["_iter"]}')
-        changed = [k for k, v in final['state_dict'].items()
-                   if v.is_floating_point() and not torch.equal(v, init[k])]
+        changed = changed_tensors(tool, cfg, seed, result)
         if not changed:
             fail('no parameter changed in training')
-        step_ms = [1e3 * (h['time'] - h['data_time'])
-                   for h in result.history]
-        print(f'losses at step {STEPS}: ' + ', '.join(
-            f'{k} {v:.5f}' for k, v in result.history[-1].items()
-            if k.startswith('loss')))
         print(f'{len(changed)} tensors changed; launches {launches}')
-        print(f'step ms (compute + sync, data excluded): '
-              f'{[round(t, 3) for t in step_ms]}; median of steps 2-{STEPS}'
-              f' {statistics.median(step_ms[1:]):.3f} ms; peak memory '
-              f'{peak / 2**30:.3f} GiB')
+        print_steps(result, peak)
         return launches
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+
+def phase_box2mask(tool):
+    """5 AdamW steps of Box2Mask R-50 LSJ through the train entry point on
+    1024x1024 synthetic images. Returns the launches of the MSDA and LCM
+    kernels over the run and their expected per-step counts."""
+    import torch
+    from boxinstseg_tpu_torch.ops import lcm, msda
+    register_dataset()
+    work_dir = tempfile.mkdtemp(prefix='chip_smoke_b2m_')
+    seed = 0
+    opts = ['runner.type=IterBasedRunner', f'runner.max_iters={STEPS}',
+            'data.samples_per_gpu=2', 'data.train.type=SyntheticBoxDataset',
+            'data.train.img_h=1024', 'data.train.img_w=1024']
+    counters = {'msda_forward': msda.msda_forward_cuda,
+                'msda_backward': msda.msda_backward_cuda,
+                'lcm_forward': lcm.lcm_forward_cuda,
+                'lcm_adjoint': lcm.lcm_adjoint_cuda}
+    try:
+        cfg = tool.load_config(B2M_CONFIG, opts, work_dir, seed)
+        head = cfg.model.panoptic_head
+        pd, td = head.pixel_decoder, head.transformer_decoder
+        levels = head.num_transformer_feat_level
+        print(f'model: {cfg.model.backbone.type}-{cfg.model.backbone.depth}'
+              f', pixel decoder {pd.num_encoder_layers} MSDeformAttn layers'
+              f' x {levels} levels, {td.num_layers}-layer decoder, '
+              f'{head.num_queries} queries, {head.feat_channels} channels, '
+              f'FFN {td.transformerlayers.feedforward_channels}, '
+              f'{head.num_things_classes} classes, canvas '
+              f'{cfg.canvases[0]}, optimizer {cfg.optimizer.type}, grad '
+              f'clip {cfg.optimizer_config.grad_clip.max_norm}')
+        # one MSDA launch per encoder layer and level; one LCM refinement
+        per_step = {'msda_forward': pd.num_encoder_layers * levels,
+                    'msda_backward': pd.num_encoder_layers * levels,
+                    'lcm_forward': 1, 'lcm_adjoint': 1}
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        result = tool.main([B2M_CONFIG, '--work-dir', work_dir, '--seed',
+                            str(seed), '--device', 'cuda',
+                            '--cfg-options', *opts])
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        check_history(result, STEPS,
+                      required=('loss_cls', 'loss_project',
+                                'loss_levelset'))
+        changed = changed_tensors(tool, cfg, seed, result)
+        for part in ('backbone.', 'panoptic_head.pixel_decoder.encoder.',
+                     'panoptic_head.transformer_decoder.'):
+            if not any(k.startswith(part) for k in changed):
+                fail(f'no {part}* tensor changed in training')
+        print(f'{len(changed)} tensors changed; launches {launches} '
+              f'(per step {per_step})')
+        print_steps(result, peak)
+        return launches, per_step
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -279,11 +648,33 @@ def tiny_cfg():
                        topk_per_img=8, pairwise_warmup=100))
 
 
+def compare_loss_dicts(cfg, batch, iteration=None):
+    """The model's loss dict on the card against the CPU, same weights."""
+    import torch
+    from boxinstseg_tpu_torch.registry import build_detector
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_detector(cfg).train()
+    losses = {}
+    for dev in ('cpu', 'cuda'):
+        model.to(dev)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        args = () if iteration is None else (iteration,)
+        losses[dev] = {k: v.item() for k, v in model.loss(tb, *args).items()}
+        model.load_state_dict(state)      # undo the BN running-stat update
+    for k, want in losses['cpu'].items():
+        got = losses['cuda'][k]
+        print(f'{k}: cuda {got:.7g} cpu {want:.7g}')
+        if not math.isfinite(got) or abs(got - want) > REF_ATOL \
+                + REF_RTOL * abs(want):
+            fail(f'{k} on the card {got} vs CPU {want}')
+    return losses['cuda']
+
+
 def phase_reference():
     """Small CondInst: loss dict on the card vs the CPU plain path."""
     import numpy as np
-    import torch
-    from boxinstseg_tpu_torch.registry import build_detector
     rng = np.random.RandomState(0)
     b, h, w, g = 2, 128, 160, 5
     boxes = np.zeros((b, g, 4), np.float32)
@@ -299,22 +690,56 @@ def phase_reference():
                  pixels_removed=np.array([5] * b, np.int32),
                  gt_bboxes=boxes, gt_labels=rng.randint(0, 4, (b, g)),
                  gt_valid=valid)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        model = build_detector(tiny_cfg()).train()
-    losses = {}
-    for dev in ('cpu', 'cuda'):
-        model.to(dev)
-        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        state = {k: v.clone() for k, v in model.state_dict().items()}
-        losses[dev] = {k: v.item() for k, v in model.loss(tb, 50).items()}
-        model.load_state_dict(state)      # undo the BN running-stat update
-    for k, want in losses['cpu'].items():
-        got = losses['cuda'][k]
-        print(f'{k}: cuda {got:.7g} cpu {want:.7g}')
-        if not math.isfinite(got) or abs(got - want) > REF_ATOL \
-                + REF_RTOL * abs(want):
-            fail(f'{k} on the card {got} vs CPU {want}')
+    compare_loss_dicts(tiny_cfg(), batch, 50)
+
+
+def tiny_box2mask_cfg():
+    """ResNet-18, 32 channels, 2 encoder and 3 decoder layers, 10 queries,
+    a 24x24 tree filter with a binding depth cap."""
+    return dict(
+        type='Box2Mask',
+        backbone=dict(type='ResNet', depth=18, num_stages=4,
+                      out_indices=(0, 1, 2, 3), frozen_stages=-1),
+        panoptic_head=dict(
+            type='Box2MaskHead', in_channels=[64, 128, 256, 512],
+            strides=[4, 8, 16, 32], feat_channels=32, out_channels=32,
+            num_things_classes=4, num_stuff_classes=0, num_queries=10,
+            num_transformer_feat_level=3,
+            pixel_decoder=dict(num_outs=3, num_encoder_layers=2),
+            transformer_decoder=dict(
+                num_layers=3, transformerlayers=dict(
+                    attn_cfgs=dict(num_heads=4), feedforward_channels=64)),
+            loss_cls=dict(type='CrossEntropyLoss', loss_weight=2.0),
+            loss_box=dict(type='BoxProjectionLoss', loss_weight=5.0),
+            loss_mask=dict(type='LevelsetLoss', loss_weight=1.0),
+            max_matched=4, tf_size=(24, 24), tf_max_depth=64),
+        train_cfg=dict(assigner=dict(cls_cost=dict(weight=2.0),
+                                     dice_cost=dict(weight=5.0))))
+
+
+def phase_box2mask_reference():
+    """Small Box2Mask: loss dict on the card (kernels) vs the CPU (plain
+    versions)."""
+    import numpy as np
+    from boxinstseg_tpu_torch.ops import lcm, msda
+    rng = np.random.RandomState(0)
+    b, h, w, g = 2, 128, 128, 4
+    masks = np.zeros((b, g, h // 4, w // 4), np.float32)
+    valid = np.zeros((b, g), bool)
+    for i in range(b):
+        for j in range(rng.randint(1, g + 1)):
+            x1, y1 = rng.randint(0, w - 48), rng.randint(0, h - 48)
+            x2, y2 = x1 + rng.randint(24, 48), y1 + rng.randint(24, 48)
+            masks[i, j, y1 // 4:y2 // 4 + 1, x1 // 4:x2 // 4 + 1] = 1
+            valid[i, j] = True
+    batch = dict(image=rng.rand(b, 3, h, w).astype(np.float32) * 4 - 2,
+                 gt_masks=masks, gt_labels=rng.randint(0, 4, (b, g)),
+                 gt_valid=valid)
+    before = msda.msda_forward_cuda.launches, lcm.lcm_forward_cuda.launches
+    compare_loss_dicts(tiny_box2mask_cfg(), batch)
+    if (msda.msda_forward_cuda.launches, lcm.lcm_forward_cuda.launches) \
+            == before:
+        fail('the small Box2Mask on the card launched no MSDA / LCM kernel')
 
 
 def main():
@@ -324,6 +749,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this smoke needs a GPU')
+    t_start = time.perf_counter()
 
     phase('device')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -339,30 +765,40 @@ def main():
           f'{torch.backends.cudnn.allow_tf32}')
 
     phase('build')
-    from boxinstseg_tpu_torch.ops import _native, pairwise as pw
+    from boxinstseg_tpu_torch.ops import _native
     t0 = time.perf_counter()
-    pw._lib()
-    print(f'pairwise.cu: {time.perf_counter() - t0:.2f} s '
-          f'(nvcc {_native.BUILD_SECONDS["pairwise"]:.2f} s)')
+    _native.build_all(['pairwise', 'msda', 'lcm'])
+    print(f'pairwise.cu, msda.cu, lcm.cu: {time.perf_counter() - t0:.2f} s '
+          f'(nvcc ' + ', '.join(f'{k} {v:.2f} s' for k, v in
+                                _native.BUILD_SECONDS.items()) + ')')
 
     phase('kernels')
     report = phase_kernels()
+    report.update(phase_msda_kernels())
+    report.update(phase_lcm_kernels())
 
+    tool = load_train_tool()
     phase('slice')
-    launches = phase_slice(load_train_tool())
+    launches = phase_slice(tool)
 
     phase('reference')
     phase_reference()
 
-    replaces = {'pairwise_forward':
-                'boxinstseg_tpu/ops/pallas_kernels.py:32',
-                'pairwise_backward':
-                'boxinstseg_tpu/ops/pallas_kernels.py:119'}
-    kernels = [dict(name=name, route='cuda',
-                    source='boxinstseg_tpu_torch/csrc/pairwise.cu',
-                    replaces=replaces[name], launches=launches[name],
-                    **report[name]) for name in ('pairwise_forward',
-                                                 'pairwise_backward')]
+    phase('box2mask')
+    b2m_launches, per_step = phase_box2mask(tool)
+    for name, n in b2m_launches.items():
+        if n != per_step[name] * STEPS:
+            fail(f'{name} launched {n} times in {STEPS} steps, expected '
+                 f'{per_step[name]} a step')
+    launches.update(b2m_launches)
+
+    phase('box2mask reference')
+    phase_box2mask_reference()
+
+    kernels = [dict(name=name, route='cuda', source=SOURCES[name],
+                    replaces=REPLACES[name], launches=launches[name],
+                    **report[name]) for name in REPLACES]
+    print(f'smoke wall time {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi[0])
     print(json.dumps({'ok': True, 'device': {

@@ -5,15 +5,21 @@ is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances (fp32, summation order): value rtol 1e-5; gradient atol 1e-6 /
-rtol 1e-5 on the unnormalised gradient d(num)/d(logits), whose entries are
-O(1). Through autograd the gradient is divided by max(den, 1), so there the
-absolute term is divided by it too.
+Tolerances (fp32, summation order): pairwise value rtol 1e-5; gradient
+atol 1e-6 / rtol 1e-5 on the unnormalised gradient d(num)/d(logits), whose
+entries are O(1). Through autograd the gradient is divided by max(den, 1),
+so there the absolute term is divided by it too. MSDA and LCM: atol 1e-5
+of the reference's largest entry (1e-5 at least) and rtol 1e-4: the MSDA
+d(value) sums with float atomics in an order that changes between runs, and
+d(loc) carries the map's width or height as a factor.
 """
 import numpy as np
 import pytest
 import torch
 
+from boxinstseg_tpu_torch.models.losses.levelset_loss import \
+    LocalConsistencyModule
+from boxinstseg_tpu_torch.ops import lcm, msda
 from boxinstseg_tpu_torch.ops import pairwise as pw
 
 pytestmark = pytest.mark.cuda
@@ -105,3 +111,99 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     # the C side refuses it and the wrapper raises
     with pytest.raises(RuntimeError, match='CUDA error'):
         pw.pairwise_forward_cuda(logits, sim, masks, valid, 0.3, 3, 17)
+
+
+def _close_scaled(got, want):
+    ref = want.abs().max().item()
+    assert ref > 0.1, 'reference too small for a meaningful check'
+    torch.testing.assert_close(got, want, atol=1e-5 * max(ref, 1.0),
+                               rtol=1e-4)
+
+
+def _msda_inputs(seed, device, bh, h, w, c, l, p, spread):
+    rng = np.random.RandomState(seed)
+    arrays = (rng.randn(bh, h, w, c),
+              rng.uniform(-spread, 1 + spread, (bh, p * l)),
+              rng.uniform(-spread, 1 + spread, (bh, p * l)),
+              rng.rand(bh, p * l) / p, rng.randn(bh, l, c))
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in arrays]
+
+
+# a level of the Box2Mask encoder (8 heads x batch 2, 32 channels, 4
+# points) and ragged ones: odd maps, channels off the warp's width, samples
+# far outside
+@pytest.mark.parametrize('shape', [(16, 32, 32, 32, 1344, 4, 0.05),
+                                   (3, 13, 7, 32, 37, 4, 0.6),
+                                   (2, 5, 11, 48, 19, 3, 1.5)])
+def test_msda_kernels_match_plain(cuda, shape):
+    value, lx, ly, wt, g = _msda_inputs(0, cuda, *shape)
+    p = shape[5]
+    _close_scaled(msda.msda_forward_cuda(value, lx, ly, wt, p),
+                  msda.msda_forward_plain(value, lx, ly, wt, p))
+    leaves = [t.clone().requires_grad_(True) for t in (value, lx, ly, wt)]
+    want = torch.autograd.grad(msda.msda_forward_plain(*leaves, p), leaves,
+                               g)
+    got = msda.msda_backward_cuda(value, lx, ly, wt, g, p)
+    for gk, gp, ga in zip(got, msda.msda_backward_plain(value, lx, ly, wt,
+                                                         g, p), want):
+        _close_scaled(gk, gp)
+        _close_scaled(gk, ga)
+
+
+def _lcm_inputs(seed, device, shape):
+    rng = np.random.RandomState(seed)
+    b = shape[0]
+    module = LocalConsistencyModule(dilations=(2,), num_iter=10)
+    imgs = torch.from_numpy(rng.rand(b, 3, *shape[2:]).astype(np.float32))
+    aff = module.affinity(imgs.to(device)).contiguous()
+    x, y = (torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(device)
+            for _ in range(2))
+    return module.offsets(), aff, x, y
+
+
+# the Box2Mask shape (10 outputs x 8 GT slots at 96x96) and planes that
+# are odd or smaller than the dilation-2 offsets
+@pytest.mark.parametrize('shape', [(2, 80, 96, 96), (1, 3, 37, 53),
+                                   (2, 5, 3, 5)])
+def test_lcm_kernels_match_plain_and_are_adjoint(cuda, shape):
+    offs, aff, x, y = _lcm_inputs(1, cuda, shape)
+    ax = lcm.lcm_forward_cuda(aff, x, offs, 10)
+    aty = lcm.lcm_adjoint_cuda(aff, y, offs, 10)
+    _close_scaled(ax, lcm.lcm_forward_plain(aff, x, offs, 10))
+    _close_scaled(aty, lcm.lcm_adjoint_plain(aff, y, offs, 10))
+    lhs = (ax.double() * y.double()).sum().item()
+    rhs = (x.double() * aty.double()).sum().item()
+    assert lhs == pytest.approx(rhs, rel=1e-5)
+
+
+def test_box2mask_ops_launch_kernels_for_cuda_tensors(cuda):
+    value, lx, ly, wt, g = _msda_inputs(2, cuda, 2, 6, 5, 32, 7, 2, 0.2)
+    fwd, bwd = msda.msda_forward_cuda.launches, msda.msda_backward_cuda.launches
+    v = value.requires_grad_(True)
+    msda.msda_sample_psum_pm(v, lx, ly, wt, 2).backward(g)
+    assert (msda.msda_forward_cuda.launches,
+            msda.msda_backward_cuda.launches) == (fwd + 1, bwd + 1)
+    offs, aff, x, _ = _lcm_inputs(3, cuda, (1, 2, 9, 11))
+    fwd, adj = lcm.lcm_forward_cuda.launches, lcm.lcm_adjoint_cuda.launches
+    x.requires_grad_(True)
+    lcm.lcm_refine(aff, x, offs, 10).sum().backward()
+    assert (lcm.lcm_forward_cuda.launches,
+            lcm.lcm_adjoint_cuda.launches) == (fwd + 1, adj + 1)
+
+
+def test_box2mask_wrappers_reject_what_they_do_not_take(cuda):
+    value, lx, ly, wt, g = _msda_inputs(4, cuda, 2, 6, 5, 32, 7, 2, 0.2)
+    with pytest.raises(ValueError, match='float32'):
+        msda.msda_forward_cuda(value.double(), lx, ly, wt, 2)
+    with pytest.raises(ValueError, match='P-major'):
+        msda.msda_forward_cuda(value, lx, ly, wt, 3)
+    with pytest.raises(ValueError, match='CUDA'):
+        msda.msda_forward_cuda(value, lx.cpu(), ly, wt, 2)
+    offs, aff, x, _ = _lcm_inputs(5, cuda, (1, 2, 9, 11))
+    with pytest.raises(ValueError, match='contiguous'):
+        lcm.lcm_forward_cuda(aff, x.transpose(2, 3), offs, 10)
+    big = torch.zeros((1, 1, 200, 200), device=cuda)
+    with pytest.raises(ValueError, match='shared memory'):
+        lcm.lcm_forward_cuda(torch.zeros((1, 8, 200, 200), device=cuda), big,
+                             offs, 10)

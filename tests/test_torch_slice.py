@@ -10,8 +10,9 @@ A tiny CondInst (ResNet-18, narrow FPN and heads) with the same weights
   (rtol 1e-4, atol 1e-6); a heavy-decay step moves the frozen stages by
   lr * wd * p exactly as optax does;
 - ``params_from_jax`` round-trips through ``convert_reference_checkpoint``;
-- importing the port and running its train step leaves JAX, flax, optax
-  and cv2 out of ``sys.modules`` (in a subprocess: this suite imports JAX);
+- importing every module of the port and running its CondInst and
+  Box2Mask train steps leaves JAX, flax, optax and cv2 out of
+  ``sys.modules`` (in a subprocess: this suite imports JAX);
 - ``train_detector`` runs the loop on the CPU and saves ``_iter``.
 """
 import os
@@ -181,7 +182,7 @@ def _run_both(pair, opt, lr_cfg, steps):
     tx = j_optimizer(opt, j_lr, params_example=v['params'])
     state = create_train_state(jm, v, tx)
     j_step = j_train_step(jm, tx, donate=False)
-    optimizer = build_optimizer(opt, tm.parameters())
+    optimizer = build_optimizer(opt, tm.named_parameters())
     t_step = make_train_step(tm, optimizer, build_lr_schedule(
         lr_cfg, opt['lr'], 100, by_epoch=False))
     j_logs, t_logs = [], []
@@ -244,6 +245,20 @@ def test_params_from_jax_round_trips_through_converter(pair):
         params_from_jax(v['params'], v['batch_stats']))
 
 
+def tiny_box2mask_cfg():
+    return dict(
+        type='Box2Mask',
+        backbone=dict(type='ResNet', depth=18, num_stages=4,
+                      out_indices=(0, 1, 2, 3), frozen_stages=-1),
+        panoptic_head=dict(
+            type='Box2MaskHead', in_channels=[64, 128, 256, 512],
+            feat_channels=32, out_channels=32, num_things_classes=3,
+            num_queries=6, pixel_decoder=dict(num_encoder_layers=1),
+            transformer_decoder=dict(num_layers=2, transformerlayers=dict(
+                attn_cfgs=dict(num_heads=4), feedforward_channels=32)),
+            max_matched=2, tf_size=(12, 12)))
+
+
 def test_port_never_imports_jax_or_cv2():
     code = textwrap.dedent(f'''
         import sys
@@ -257,7 +272,7 @@ def test_port_never_imports_jax_or_cv2():
         cfg = {tiny_cfg(1)!r}
         model = build_detector(cfg)
         opt = build_optimizer(dict(type='SGD', lr=0.01, momentum=0.9),
-                              model.parameters())
+                              model.named_parameters())
         step = make_train_step(model, opt, lambda i: 0.01)
         g = torch.Generator().manual_seed(0)
         boxes = torch.tensor([[[8., 8., 48., 40.]]] * 2)
@@ -268,6 +283,32 @@ def test_port_never_imports_jax_or_cv2():
                      gt_valid=torch.ones(2, 1, dtype=torch.bool))
         logs = step(batch, 1)
         assert all(torch.isfinite(v) for v in logs.values()), logs
+
+        # every module of the port, and the Box2Mask train path: AdamW
+        # with paramwise multipliers through the tree filter, the host
+        # MST and Hungarian solves, MSDA and LCM
+        import pkgutil, importlib
+        for mod in pkgutil.walk_packages(boxinstseg_tpu_torch.__path__,
+                                         'boxinstseg_tpu_torch.'):
+            importlib.import_module(mod.name)
+        b2m = {tiny_box2mask_cfg()!r}
+        model = build_detector(b2m)
+        opt = build_optimizer(dict(
+            type='AdamW', lr=1e-4, weight_decay=0.05,
+            paramwise_cfg=dict(custom_keys=dict(backbone=dict(lr_mult=0.1)),
+                               norm_decay_mult=0.0)),
+            model.named_parameters())
+        step = make_train_step(model, opt, lambda i: 1e-4,
+                               dict(max_norm=0.01))
+        masks = torch.zeros(2, 2, 16, 16)
+        masks[:, 0, 2:9, 3:12] = 1
+        masks[0, 1, 8:15, 1:6] = 1
+        batch = dict(image=torch.randn(2, 3, 64, 64, generator=g),
+                     gt_masks=masks, gt_labels=torch.tensor([[1, 2], [0, 0]]),
+                     gt_valid=torch.tensor([[True, True], [True, False]]))
+        logs = step(batch, 0)
+        assert all(torch.isfinite(v) for v in logs.values()), logs
+        assert 'd0.loss_levelset' in logs, sorted(logs)
         bad = [m for m in ('jax', 'flax', 'optax', 'cv2')
                if m in sys.modules]
         assert not bad, bad

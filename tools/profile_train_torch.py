@@ -3,16 +3,20 @@
 
     python tools/profile_train_torch.py [CONFIG] [--steps 8] [--warmup 3]
 
-Builds the config's model (random init from --seed), makes one batch of
-seeded synthetic 800x1333 samples through ``StaticBatcher``, runs
-``--warmup`` untimed steps, then times ``--steps`` steps on the host clock
-(each ends in ``torch.cuda.synchronize()``) and traces the same number of
-steps with ``torch.profiler``. Prints the wall ms/step, and for the traced
-steps their wall ms/step, the device-busy ms a step (union of kernel
-intervals) and the idle share (1 - busy / traced wall), and the top ops by
-device time; the forward passes of backbone, neck, bbox_head and
-mask_branch appear as ranges of their own. Writes the Chrome trace to
-``--trace`` when given.
+Builds the config's model (random init from --seed) and its optimizer
+(paramwise multipliers and grad clip as the config sets them), makes one
+batch of seeded synthetic samples of the config's first canvas size through
+``StaticBatcher`` (with box bitmasks at stride 4 when the config trains on
+GT masks, as Box2Mask does), runs ``--warmup`` untimed steps, then times
+``--steps`` steps on the host clock (each ends in
+``torch.cuda.synchronize()``) and traces the same number of steps with
+``torch.profiler``. Prints the wall ms/step, and for the traced steps their
+wall ms/step, the device-busy ms a step (union of kernel intervals) and the
+idle share (1 - busy / traced wall), and the top ops by device time. The
+forward passes of the model's parts (backbone, neck, bbox_head,
+mask_branch; panoptic_head and its pixel_decoder) and the panoptic head's
+loss appear as ranges of their own. Writes the Chrome trace to ``--trace``
+when given.
 """
 import argparse
 import importlib.util
@@ -46,23 +50,30 @@ def load_train_tool():
     return mod
 
 
-def synthetic_samples(n, rng, h=800, w=1333, num_classes=80):
+def synthetic_samples(n, rng, h, w, num_classes=80, with_masks=False):
     """Seeded stand-ins for train-pipeline results, as ``StaticBatcher``
     takes them: a normalised image of flat 32x32 colour blocks (so the
-    colour-similarity gates pass in places) with 1-8 boxes."""
+    colour-similarity gates pass in places) with 1-8 boxes, and their box
+    bitmasks when ``with_masks``."""
     import numpy as np
     samples = []
     for _ in range(n):
         blocks = rng.randn(h // 32 + 1, w // 32 + 1, 3).astype(np.float32)
         img = np.repeat(np.repeat(blocks, 32, 0), 32, 1)[:h, :w]
         k = rng.randint(1, 9)
-        x1, y1 = rng.randint(0, w - 400, k), rng.randint(0, h - 300, k)
-        boxes = np.stack([x1, y1, x1 + rng.randint(32, 400, k),
-                          y1 + rng.randint(32, 300, k)], 1)
-        samples.append(dict(img=np.ascontiguousarray(img),
-                            ori_shape=img.shape,
-                            gt_bboxes=boxes.astype(np.float32),
-                            gt_labels=rng.randint(0, num_classes, k)))
+        bw = rng.randint(32, min(400, w // 2), k)
+        bh = rng.randint(32, min(300, h // 2), k)
+        x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+        boxes = np.stack([x1, y1, x1 + bw, y1 + bh], 1)
+        sample = dict(img=np.ascontiguousarray(img), ori_shape=img.shape,
+                      gt_bboxes=boxes.astype(np.float32),
+                      gt_labels=rng.randint(0, num_classes, k))
+        if with_masks:
+            masks = np.zeros((k, h, w), np.uint8)
+            for m, (bx1, by1, bx2, by2) in zip(masks, boxes):
+                m[by1:by2 + 1, bx1:bx2 + 1] = 1
+            sample['gt_masks'] = masks
+        samples.append(sample)
     return samples
 
 
@@ -92,6 +103,17 @@ def annotate(module, name):
         lambda m, a, out: ranges.pop().__exit__(None, None, None))
 
 
+def annotate_method(obj, attr, name):
+    """Run ``obj.attr(...)`` inside a profiler range named ``name``."""
+    from torch.profiler import record_function
+    fn = getattr(obj, attr)
+
+    def wrapped(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    setattr(obj, attr, wrapped)
+
+
 def main():
     args = parse_args()
     import numpy as np
@@ -111,18 +133,30 @@ def main():
     model = tool.build_model(cfg, args.seed).cuda()
     rng = np.random.RandomState(args.seed)
     bs = cfg.data.get('samples_per_gpu', 2)
-    batcher = StaticBatcher(canvases=cfg.get('canvases'),
+    canvases = cfg.get('canvases')
+    with_masks = bool(cfg.get('with_gt_masks', False))
+    batcher = StaticBatcher(canvases=canvases,
                             max_gts=cfg.get('max_gts', 100),
-                            gt_buckets=cfg.get('gt_buckets'))
-    batch = batch_to_device(
-        batcher(synthetic_samples(bs, rng, num_classes=cfg.model.bbox_head
-                                  .num_classes)), 'cuda')
-    for name in ('backbone', 'neck', 'bbox_head', 'mask_branch'):
-        annotate(getattr(model, name), f'forward:{name}')
-    opt = build_optimizer(cfg.optimizer, model.parameters())
-    step = make_train_step(model, opt, lambda i: cfg.optimizer['lr'])
+                            gt_buckets=cfg.get('gt_buckets'),
+                            with_masks=with_masks, mask_stride=4)
+    head = cfg.model.get('bbox_head') or cfg.model.get('panoptic_head')
+    num_classes = head.get('num_classes', head.get('num_things_classes'))
+    batch = batch_to_device(batcher(synthetic_samples(
+        bs, rng, *canvases[0], num_classes=num_classes,
+        with_masks=with_masks)), 'cuda')
+    for name in ('backbone', 'neck', 'bbox_head', 'mask_branch',
+                 'panoptic_head'):
+        if getattr(model, name, None) is not None:
+            annotate(getattr(model, name), f'forward:{name}')
+    if getattr(model, 'panoptic_head', None) is not None:
+        annotate(model.panoptic_head.pixel_decoder, 'forward:pixel_decoder')
+        annotate_method(model.panoptic_head, 'loss', 'loss:panoptic_head')
+    opt = build_optimizer(cfg.optimizer, model.named_parameters())
+    step = make_train_step(model, opt, lambda i: cfg.optimizer['lr'],
+                           (cfg.get('optimizer_config') or {}).get(
+                               'grad_clip'))
     # the warmup counter past 0 so the pairwise term has a gradient
-    it = cfg.model.mask_head.get('pairwise_warmup', 10000)
+    it = (cfg.model.get('mask_head') or {}).get('pairwise_warmup', 10000)
     for _ in range(args.warmup):
         step(batch, it)
     torch.cuda.synchronize()
