@@ -1,0 +1,303 @@
+"""Swin window attention: plain PyTorch versions and the CUDA kernel pair
+(``csrc/swin_attention.cu``).
+
+Counterpart of ``window_attention`` in
+``boxinstseg_tpu/ops/swin_attention.py`` (forward ``_flash_fwd``, backward
+``_flash_bwd``), in its layout:
+
+- q, k, v (BW, N, C) with C = H * D; head h is columns [h*D, (h+1)*D);
+- bias_hnn (H, N, N) fp32, the relative-position bias;
+- regions (nW, 1, N) int32, the shift-partition ids of ``shift_regions``;
+  window bw uses region row ``bw % nW`` (windows are image-major);
+- per window and head, ``softmax(q k^T * scale + bias[h] + mask) v`` with
+  ``mask = -100`` where ``region[i] != region[j]`` (not -inf, as in mmdet);
+  padded tokens take part like any other.
+
+The backward gives dq, dk, dv and dbias summed over the BW windows;
+regions get no gradient.
+
+``window_attention_qkv`` takes the fused (BW, N, 3C) output of the qkv
+Linear, which is what the backbone passes: the kernels read q, k and v as
+its column slices (no copies) and the backward writes one (BW, N, 3C)
+gradient. It dispatches on the device: a CUDA tensor goes through the
+kernels (``WindowAttentionFunction``), a CPU tensor through the plain
+versions (``PlainWindowAttentionFunction``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ._native import check, load_library
+
+NEG = -100.0                 # the additive constant of the shift mask
+MAX_N, MAX_D = 256, 128      # the kernels' limits (csrc/swin_attention.cu)
+SMEM_LIMIT = 232448          # dynamic shared memory a block may use (H100)
+BLOCKS_TARGET = 264          # backward blocks to aim for: two per SM
+
+
+@functools.lru_cache(maxsize=None)
+def shift_regions(hp: int, wp: int, ws: int, shift: int) -> np.ndarray:
+    """(nW, 1, N) int32 region ids of the cyclically shifted 9-region
+    partition, window-partitioned exactly like the tokens. shift == 0
+    gives all-zero rows (no mask)."""
+    img = np.zeros((hp, wp), np.int32)
+    if shift > 0:
+        cnt = 0
+        for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+            for wsl in (slice(0, -ws), slice(-ws, -shift),
+                        slice(-shift, None)):
+                img[hs, wsl] = cnt
+                cnt += 1
+    r = img.reshape(hp // ws, ws, wp // ws, ws)
+    return r.transpose(0, 2, 1, 3).reshape(-1, 1, ws * ws)
+
+
+# ------------------------------------------------------------ plain version
+
+def _heads(x, h):
+    bw, n, c = x.shape
+    return x.reshape(bw, n, h, c // h).transpose(1, 2)      # (BW, H, N, D)
+
+
+def _merge_heads(x):
+    bw, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(bw, n, h * d)
+
+
+def _probs(q, k, bias_hnn, regions, scale):
+    """(BW, H, N, N) softmax of the masked, biased logits."""
+    h = bias_hnn.shape[0]
+    bw = q.shape[0]
+    r = regions[:, 0]                                        # (nW, N)
+    mask = torch.where(r[:, :, None] != r[:, None, :], NEG, 0.0).to(q.dtype)
+    mask = mask[torch.arange(bw, device=q.device) % r.shape[0]]
+    logits = torch.matmul(_heads(q, h), _heads(k, h).transpose(-1, -2)) \
+        * scale + bias_hnn[None] + mask[:, None]
+    return torch.softmax(logits, dim=-1)
+
+
+def window_attention_plain(q, k, v, bias_hnn, regions, scale):
+    """(BW, N, C) = softmax(q k^T * scale + bias[h] + mask) v per head."""
+    p = _probs(q, k, bias_hnn, regions, scale)
+    return _merge_heads(torch.matmul(p, _heads(v, bias_hnn.shape[0])))
+
+
+def window_attention_backward_plain(q, k, v, bias_hnn, regions, scale, g):
+    """(dq, dk, dv, dbias) of ``window_attention_plain``; dbias sums over
+    the windows."""
+    h = bias_hnn.shape[0]
+    p = _probs(q, k, bias_hnn, regions, scale)
+    gh = _heads(g, h)
+    dv = torch.matmul(p.transpose(-1, -2), gh)
+    dp = torch.matmul(gh, _heads(v, h).transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, _heads(k, h)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), _heads(q, h)) * scale
+    return (_merge_heads(dq), _merge_heads(dk), _merge_heads(dv),
+            ds.sum(0))
+
+
+def _split(qkv):
+    c = qkv.shape[-1] // 3
+    return qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+
+
+class PlainWindowAttentionFunction(torch.autograd.Function):
+    """Plain forward over the fused qkv, with the explicit backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias_hnn, regions, scale):
+        ctx.save_for_backward(qkv, bias_hnn, regions)
+        ctx.scale = scale
+        return window_attention_plain(*_split(qkv), bias_hnn, regions, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias_hnn, regions = ctx.saved_tensors
+        dq, dk, dv, dbias = window_attention_backward_plain(
+            *_split(qkv), bias_hnn, regions, ctx.scale, g)
+        return torch.cat((dq, dk, dv), -1), dbias, None, None
+
+
+# ------------------------------------------------------------- CUDA kernels
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """Build (first call) and type the C interface of
+    csrc/swin_attention.cu."""
+    lib = load_library('swin_attention')
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.swin_attention_forward.argtypes = ([p] * 3 + [i] + [p] * 3 + [i] * 5
+                                           + [f, p])
+    lib.swin_attention_forward.restype = i
+    lib.swin_attention_backward.argtypes = ([p] * 3 + [i] + [p] * 6
+                                            + [i] * 6 + [f, p])
+    lib.swin_attention_backward.restype = i
+    return lib
+
+
+def forward_smem(n: int, d: int) -> int:
+    """Dynamic shared memory of the forward kernel (bytes)."""
+    return (3 * n * (d + 1) + 8 * n) * 4 + n * 4
+
+
+def backward_smem(n: int, d: int) -> int:
+    """Dynamic shared memory of the backward kernel (bytes)."""
+    return (4 * n * (d + 1) + n * n) * 4 + n * 4
+
+
+def _check_inputs(q, k, v, bias_hnn, regions, g=None):
+    """Shapes, types and strides the kernels take; returns (BW, N, H, D,
+    nW, ld)."""
+    named = [('q', q), ('k', k), ('v', v), ('bias_hnn', bias_hnn),
+             ('regions', regions)] + ([('g', g)] if g is not None else [])
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f'{name} must be a CUDA tensor')
+        if t.device != q.device:
+            raise ValueError(f'{name} is on {t.device}, q on {q.device}')
+        want = torch.int32 if name == 'regions' else torch.float32
+        if t.dtype != want:
+            raise ValueError(f'{name} must be {want}, got {t.dtype}')
+    if q.dim() != 3:
+        raise ValueError(f'q must be (BW, N, C), got {tuple(q.shape)}')
+    bw, n, c = q.shape
+    ld = q.stride(1)
+    for name, t in (('q', q), ('k', k), ('v', v)):
+        if tuple(t.shape) != (bw, n, c):
+            raise ValueError(f'{name} {tuple(t.shape)} != {(bw, n, c)}')
+        if t.stride(2) != 1 or t.stride(1) != ld or t.stride(0) != n * ld:
+            raise ValueError(f'{name} must have unit column stride and the '
+                             f'row stride of q ({ld}); strides '
+                             f'{t.stride()}')
+    if bias_hnn.dim() != 3 or bias_hnn.shape[1:] != (n, n) \
+            or not bias_hnn.is_contiguous():
+        raise ValueError(f'bias_hnn must be contiguous (H, {n}, {n}), got '
+                         f'{tuple(bias_hnn.shape)}')
+    h = bias_hnn.shape[0]
+    if c % h:
+        raise ValueError(f'{c} channels do not split into {h} heads')
+    d = c // h
+    if regions.dim() != 3 or regions.shape[1:] != (1, n) \
+            or not regions.is_contiguous():
+        raise ValueError(f'regions must be contiguous (nW, 1, {n}), got '
+                         f'{tuple(regions.shape)}')
+    nw = regions.shape[0]
+    if bw % nw:
+        raise ValueError(f'{bw} windows are not whole images of {nw}')
+    if n > MAX_N or d > MAX_D:
+        raise ValueError(f'N {n} / head dim {d} exceed the kernels\' '
+                         f'{MAX_N} / {MAX_D}')
+    if g is not None:
+        if tuple(g.shape) != (bw, n, c) or not g.is_contiguous():
+            raise ValueError(f'g must be contiguous {(bw, n, c)}')
+        need = backward_smem(n, d)
+    else:
+        need = forward_smem(n, d)
+    if need > SMEM_LIMIT:
+        raise ValueError(f'N {n}, head dim {d} need {need} bytes of shared '
+                         f'memory, more than a block has ({SMEM_LIMIT})')
+    if bw * n * ld >= 2 ** 31 or bw * n * 3 * c >= 2 ** 31:
+        raise ValueError('the window attention kernels index rows with '
+                         '32-bit counts')
+    return bw, n, h, d, nw, ld
+
+
+def window_attention_forward_cuda(q, k, v, bias_hnn, regions, scale):
+    """K5 forward kernel: (BW, N, C)."""
+    bw, n, h, d, nw, ld = _check_inputs(q, k, v, bias_hnn, regions)
+    lib = _lib()
+    out = torch.empty((bw, n, h * d), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.swin_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
+            bias_hnn.data_ptr(), regions.data_ptr(), out.data_ptr(), bw, n,
+            h, d, nw, float(scale), stream)
+    check(err, 'swin_attention_forward')
+    window_attention_forward_cuda.launches += 1
+    return out
+
+
+window_attention_forward_cuda.launches = 0
+
+
+def backward_groups(bw: int, h: int) -> int:
+    """Window groups G of the backward: G * H blocks, each walking BW / G
+    windows and owning one slice of the dbias partial."""
+    return max(1, min(bw, -(-BLOCKS_TARGET // h)))
+
+
+def window_attention_backward_cuda(q, k, v, bias_hnn, regions, scale, g):
+    """K6 backward kernel: (dqkv (BW, N, 3C) = dq | dk | dv, dbias (H, N,
+    N) summed over the windows)."""
+    bw, n, h, d, nw, ld = _check_inputs(q, k, v, bias_hnn, regions, g)
+    lib = _lib()
+    groups = backward_groups(bw, h)
+    dqkv = torch.empty((bw, n, 3 * h * d), dtype=torch.float32,
+                       device=q.device)
+    partial = torch.empty((groups, h, n, n), dtype=torch.float32,
+                          device=q.device)
+    dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.swin_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
+            bias_hnn.data_ptr(), regions.data_ptr(), g.data_ptr(),
+            dqkv.data_ptr(), partial.data_ptr(), dbias.data_ptr(), bw, n, h,
+            d, nw, groups, float(scale), stream)
+    check(err, 'swin_attention_backward')
+    window_attention_backward_cuda.launches += 1
+    return dqkv, dbias
+
+
+window_attention_backward_cuda.launches = 0
+
+
+class WindowAttentionFunction(torch.autograd.Function):
+    """K5 forward, K6 backward, over the fused qkv (BW, N, 3C)."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias_hnn, regions, scale):
+        ctx.save_for_backward(qkv, bias_hnn, regions)
+        ctx.scale = scale
+        return window_attention_forward_cuda(*_split(qkv), bias_hnn, regions,
+                                             scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias_hnn, regions = ctx.saved_tensors
+        dqkv, dbias = window_attention_backward_cuda(
+            *_split(qkv), bias_hnn, regions, ctx.scale, g.contiguous())
+        return dqkv, dbias, None, None
+
+
+def window_attention_qkv(qkv: torch.Tensor, bias_hnn: torch.Tensor,
+                         regions: torch.Tensor, scale: float) -> torch.Tensor:
+    """Window attention of the fused qkv output (BW, N, 3C) -> (BW, N, C).
+
+    A CUDA tensor launches the kernels (and raises on what they do not
+    take); a CPU tensor takes the plain versions."""
+    args = (qkv.contiguous(), bias_hnn.contiguous(), regions.contiguous(),
+            float(scale))
+    if qkv.is_cuda:
+        return WindowAttentionFunction.apply(*args)
+    if qkv.device.type == 'cpu':
+        return PlainWindowAttentionFunction.apply(*args)
+    raise ValueError(f'no window attention for device {qkv.device}')
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias_hnn: torch.Tensor, regions: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """The JAX package's signature: q, k, v (BW, N, C) head-concat; bias_hnn
+    (H, N, N) fp32; regions (nW, 1, N) int32. Returns (BW, N, C).
+
+    Concatenates q, k and v into the fused layout of
+    ``window_attention_qkv``, which the backbone calls directly."""
+    return window_attention_qkv(torch.cat((q, k, v), -1), bias_hnn, regions,
+                                scale)

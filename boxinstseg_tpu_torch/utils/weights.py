@@ -1,4 +1,5 @@
-"""JAX CondInst and Box2Mask variables -> port ``state_dict``.
+"""JAX CondInst and Box2Mask variables (ResNet or Swin backbone) -> port
+``state_dict``.
 
 The inverse of ``boxinstseg_tpu.utils.checkpoint_convert.
 convert_condinst_checkpoint`` and ``convert_box2mask_head``: it takes the
@@ -15,6 +16,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from ..models.backbones.swin import _rel_pos_index
 
 
 def _conv(kernel) -> torch.Tensor:
@@ -44,6 +47,10 @@ def _emit_norm(sd, prefix, node, stats=None, tracked=False):
 
 
 def _backbone(sd, params, stats):
+    """Swin when the tree has ``stage0_block0``, else ResNet."""
+    if 'stage0_block0' in params:
+        _swin(sd, params)
+        return
     for name, node in params.items():
         st = stats.get(name, {})
         if name in ('conv1', 'bn1'):
@@ -65,6 +72,81 @@ def _backbone(sd, params, stats):
                 _emit_conv(sd, f'{block}.{sub}', leaf)
             else:
                 _emit_norm(sd, f'{block}.{sub}', leaf, st[sub])
+
+
+def _merge_perm(c: int) -> np.ndarray:
+    """JAX PatchMerging input row j (block-major concat [x00 | x10 | x01 |
+    x11], ``j = r*c + ch``) -> mmcv unfold channel ``ch*4 + (ky*2 + kx)``;
+    the map of ``checkpoint_convert._merge_perm``, which the port inverts."""
+    kmap = [0, 2, 1, 3]
+    return np.asarray([ch * 4 + kmap[r] for r in range(4)
+                       for ch in range(c)], np.int64)
+
+
+def _unmerge(rows) -> np.ndarray:
+    """Rows in the JAX concat order -> rows in mmcv's unfold order."""
+    rows = np.asarray(rows)
+    out = np.empty_like(rows)
+    out[_merge_perm(rows.shape[0] // 4)] = rows
+    return out
+
+
+def _embed_table(table, window: int) -> torch.Tensor:
+    """A JAX block's bias table -> the ``(2*window - 1)**2``-row table of
+    the port. A JAX block whose window shrank to ``ws < window`` (a map
+    smaller than the window) holds ``(2*ws - 1)**2`` rows; they go to the
+    rows of the same offsets, and the rows no offset of that window reads
+    are 0."""
+    table = np.asarray(table, np.float32)
+    span = int(round(np.sqrt(table.shape[0])))
+    ws = (span + 1) // 2
+    full = 2 * window - 1
+    out = np.zeros((full, full, table.shape[1]), np.float32)
+    lo = window - ws
+    out[lo:lo + span, lo:lo + span] = table.reshape(span, span, -1)
+    return torch.from_numpy(out.reshape(full * full, -1))
+
+
+def _swin(sd, params):
+    """JAX SwinTransformer tree -> mmdet Swin keys. The window is read from
+    the largest bias table (stage 0's, whose map is never smaller than the
+    window at a real input size)."""
+    span = max(int(round(np.sqrt(np.asarray(node['attn'][
+        'relative_position_bias_table']).shape[0])))
+        for name, node in params.items() if name.startswith('stage'))
+    window = (span + 1) // 2
+    p = 'backbone'
+    for name, node in params.items():
+        if name == 'patch_embed':
+            _emit_conv(sd, f'{p}.patch_embed.projection', node)
+        elif name == 'patch_norm':
+            _layer_norm(sd, f'{p}.patch_embed.norm', node)
+        elif re.match(r'^out_norm\d+$', name):
+            _layer_norm(sd, f'{p}.norm{name[8:]}', node)
+        elif re.match(r'^merge_norm\d+$', name):
+            sd[f'{p}.stages.{name[10:]}.downsample.norm.weight'] = \
+                _t(_unmerge(node['scale']))
+            sd[f'{p}.stages.{name[10:]}.downsample.norm.bias'] = \
+                _t(_unmerge(node['bias']))
+        elif re.match(r'^merge_reduction\d+$', name):
+            sd[f'{p}.stages.{name[15:]}.downsample.reduction.weight'] = \
+                _t(_unmerge(node['kernel']).T)
+        else:
+            m = re.match(r'^stage(\d+)_block(\d+)$', name)
+            if not m:
+                raise KeyError(f'unknown Swin backbone entry {name}')
+            blk = f'{p}.stages.{m.group(1)}.blocks.{m.group(2)}'
+            attn = node['attn']
+            _layer_norm(sd, f'{blk}.norm1', node['norm1'])
+            _layer_norm(sd, f'{blk}.norm2', node['norm2'])
+            _linear(sd, f'{blk}.attn.w_msa.qkv', attn['qkv'])
+            _linear(sd, f'{blk}.attn.w_msa.proj', attn['proj'])
+            sd[f'{blk}.attn.w_msa.relative_position_bias_table'] = \
+                _embed_table(attn['relative_position_bias_table'], window)
+            sd[f'{blk}.attn.w_msa.relative_position_index'] = \
+                torch.from_numpy(_rel_pos_index(window))
+            _linear(sd, f'{blk}.ffn.layers.0.0', node['mlp_fc1'])
+            _linear(sd, f'{blk}.ffn.layers.1', node['mlp_fc2'])
 
 
 def _neck(sd, params):

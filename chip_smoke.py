@@ -26,6 +26,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                must equal their per-step counts times the step count.
 7. box2mask reference - a small Box2Mask's loss dict on the card against the
                CPU.
+8. swin kernels - the Swin window attention pair K5/K6 against its plain
+               versions (alone, through its autograd.Function, and K6
+               against autograd through the plain forward) at Swin-L's
+               stage-0 (shifted) and stage-2 shapes, Swin-T's window 7 and a
+               ragged small case; times beside the bound and beside
+               torch's scaled_dot_product_attention as a yardstick.
+9. swin-l    - Box2Mask Swin-L LSJ at full width trained for 5 AdamW steps
+               through tools/train_torch.py on seeded synthetic 1024x1024
+               images, batch 1; then MaskFormer.predict on one image (K5
+               only, no K6).
+10. swin reference - a small Box2Mask on a tiny Swin (window 4, odd maps,
+               shifted blocks): loss dict and backbone gradients on the card
+               against the CPU.
 
 Prints a JSON line with one entry per kernel, the card's nvidia-smi line,
 and as its last line {"ok": true, "device": {...}}.
@@ -45,6 +58,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, 'configs/boxinst/boxinst_r50_fpn_1x_coco.py')
 B2M_CONFIG = os.path.join(ROOT,
                           'configs/box2mask/box2mask_r50_lsj_8x2_50e_coco.py')
+SWIN_CONFIG = os.path.join(
+    ROOT, 'configs/box2mask/box2mask_swin-l-p4-w12-384-lsj_8x1_50e_coco.py')
 STEPS = 5
 MAIN_SHAPE = (2, 64, 200, 336)     # B, K=topk_per_img, 800/4, 1344/4
 RAGGED_SHAPES = ((1, 3, 37, 53), (2, 5, 37, 53))
@@ -70,6 +85,17 @@ LCM_ITERS = 10
 # changes from run to run; d(loc) carries the map's width or height as a
 # factor, so a fixed atol would not scale with it.
 KERNEL_ATOL, KERNEL_RTOL = 1e-5, 1e-4
+# Swin window attention (K5/K6) at (hp, wp, window, shift, images, heads,
+# head dim, random region ids): Swin-L at 1024x1024, stage 0 (a shifted
+# block, 484 windows of 144 tokens, 6 heads) and stage 2 (36 windows, 24
+# heads); Swin-T's window 7; a ragged small case with three region ids. K5
+# and K6 are held to KERNEL_ATOL / KERNEL_RTOL; dbias sums the windows in a
+# fixed order (no atomics).
+SWIN_MAIN = {'stage 0': (264, 264, 12, 6, 1, 6, 32, 0),
+             'stage 2': (72, 72, 12, 0, 1, 24, 32, 0)}
+SWIN_RAGGED = {'Swin-T window 7': (56, 56, 7, 3, 2, 3, 32, 0),
+               'ragged': (8, 12, 4, 0, 2, 2, 8, 3)}
+SWIN_REF_RTOL = 1e-3   # backbone gradients card vs CPU, relative L2 error
 ADJOINT_RTOL = 1e-5                # <A x, y> vs <x, A^T y>, float64 sums
 
 # the least time of a kernel: bytes over the memory rate or operations over
@@ -92,6 +118,8 @@ REPLACES = {
     'msda_backward': 'boxinstseg_tpu/ops/msda_pallas.py:397',
     'lcm_forward': 'boxinstseg_tpu/ops/pallas_kernels.py:380',
     'lcm_adjoint': 'boxinstseg_tpu/ops/pallas_kernels.py:380',
+    'swin_attention_forward': 'boxinstseg_tpu/ops/swin_attention.py:93',
+    'swin_attention_backward': 'boxinstseg_tpu/ops/swin_attention.py:116',
 }
 SOURCES = {
     'pairwise_forward': 'boxinstseg_tpu_torch/csrc/pairwise.cu',
@@ -100,6 +128,8 @@ SOURCES = {
     'msda_backward': 'boxinstseg_tpu_torch/csrc/msda.cu',
     'lcm_forward': 'boxinstseg_tpu_torch/csrc/lcm.cu',
     'lcm_adjoint': 'boxinstseg_tpu_torch/csrc/lcm.cu',
+    'swin_attention_forward': 'boxinstseg_tpu_torch/csrc/swin_attention.cu',
+    'swin_attention_backward': 'boxinstseg_tpu_torch/csrc/swin_attention.cu',
 }
 
 
@@ -490,6 +520,167 @@ def phase_lcm_kernels():
     return report
 
 
+def swin_inputs(case, gen):
+    """qkv (BW, N, 3C), bias (H, N, N), regions (nW, 1, N), g (BW, N, C) of
+    one ``SWIN_MAIN`` / ``SWIN_RAGGED`` case, on the card."""
+    import torch
+    from boxinstseg_tpu_torch.ops.swin_attention import shift_regions
+    hp, wp, ws, shift, images, heads, d, region_ids = case
+    regions = torch.from_numpy(shift_regions(hp, wp, ws, shift)).cuda()
+    if region_ids:
+        regions = torch.randint(0, region_ids, regions.shape, generator=gen,
+                                device='cuda', dtype=torch.int32)
+    nw, _, n = regions.shape
+    c = heads * d
+    qkv = torch.randn((images * nw, n, 3 * c), generator=gen, device='cuda')
+    bias = torch.randn((heads, n, n), generator=gen, device='cuda')
+    g = torch.randn((images * nw, n, c), generator=gen, device='cuda')
+    return qkv, bias, regions, g
+
+
+def check_swin(tag, case, gen):
+    """K5 and K6 against the plain versions: alone, through
+    ``WindowAttentionFunction``, and K6 against autograd through the plain
+    forward. Returns the inputs and the forward / backward max abs
+    errors."""
+    import torch
+    from boxinstseg_tpu_torch.ops import swin_attention as swa
+    qkv, bias, regions, g = swin_inputs(case, gen)
+    scale = case[6] ** -0.5
+    q, k, v = swa._split(qkv)
+    out_p = swa.window_attention_plain(q, k, v, bias, regions, scale)
+    f_err = compare(f'K5 {tag}', swa.window_attention_forward_cuda(
+        q, k, v, bias, regions, scale), out_p)
+    dqkv, dbias = swa.window_attention_backward_cuda(q, k, v, bias, regions,
+                                                     scale, g)
+    got = (*swa._split(dqkv), dbias)
+    want = swa.window_attention_backward_plain(q, k, v, bias, regions, scale,
+                                               g)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    auto = torch.autograd.grad(swa.window_attention_plain(
+        *leaves[:3], leaves[3], regions, scale), leaves, g)
+    b_err = 0.0
+    for name, gk, gp, ga in zip(('dq', 'dk', 'dv', 'dbias'), got, want,
+                                auto):
+        b_err = max(b_err, compare(f'K6 {name} {tag}', gk, gp))
+        compare(f'K6 {name} {tag} vs autograd', gk, ga)
+    leaves = [t.clone().requires_grad_(True) for t in (qkv, bias)]
+    out_f = swa.WindowAttentionFunction.apply(leaves[0], leaves[1], regions,
+                                              scale)
+    out_f.backward(g)
+    compare(f'WindowAttentionFunction forward {tag}', out_f.detach(), out_p)
+    compare(f'WindowAttentionFunction d(qkv) {tag}', leaves[0].grad,
+            torch.cat(want[:3], -1))
+    compare(f'WindowAttentionFunction d(bias) {tag}', leaves[1].grad,
+            want[3])
+    print(f'swin {tag} (BW {qkv.shape[0]}, N {qkv.shape[1]}, heads '
+          f'{bias.shape[0]}, head dim {case[6]}, region ids '
+          f'{int(regions.max().item()) + 1}): K5 max abs err {f_err:.3g}, '
+          f'K6 {b_err:.3g} (max |dbias| {want[3].abs().max().item():.3g})')
+    return (qkv, bias, regions, g, scale), f_err, b_err
+
+
+def sdpa_backend(fn):
+    """The kernels one call of ``fn`` ran, by the profiler, and the SDPA
+    backend their names show."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type.name == 'CUDA'})
+    joined = ' '.join(names).lower()
+    for key, backend in (('flash', 'flash'), ('fmha', 'efficient'),
+                         ('efficient', 'efficient'), ('cudnn', 'cudnn')):
+        if key in joined:
+            return backend, names
+    return 'math', names
+
+
+def phase_swin_kernels():
+    """K5/K6 at the main path's shapes and ragged ones; times, bounds and
+    the SDPA yardstick at Swin-L's stage-0 and stage-2 shapes."""
+    import torch
+    import torch.nn.functional as F
+    from boxinstseg_tpu_torch.ops import swin_attention as swa
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    report = {}
+    for tag, case in SWIN_MAIN.items():
+        (qkv, bias, regions, g, scale), f_err, b_err = check_swin(tag, case,
+                                                                  gen)
+        q, k, v = swa._split(qkv)
+        bw, n = qkv.shape[:2]
+        h, d = bias.shape[0], case[6]
+        io = nbytes(qkv, bias, regions)
+        # per (window, head): q k^T and P v (4 N^2 D), the logits' scale,
+        # bias, mask, max, exponent and sum (6 N^2); the backward recomputes
+        # the logits and softmax (2 N^2 D + 6 N^2), then dV, dP, dQ, dK
+        # (8 N^2 D) and dS and the dbias sum (4 N^2)
+        pairs = bw * h
+        fwd_bound = bound(io + nbytes(g), pairs * (4 * n * n * d + 6 * n * n))
+        bwd_bound = bound(io + nbytes(g) + nbytes(qkv, bias),
+                          pairs * (10 * n * n * d + 10 * n * n))
+        fwd_ms = cuda_ms(lambda: swa.window_attention_forward_cuda(
+            q, k, v, bias, regions, scale))
+        bwd_ms = cuda_ms(lambda: swa.window_attention_backward_cuda(
+            q, k, v, bias, regions, scale, g))
+        fwd_plain = cuda_ms(lambda: swa.window_attention_plain(
+            q, k, v, bias, regions, scale), iters=5)
+        bwd_plain = cuda_ms(lambda: swa.window_attention_backward_plain(
+            q, k, v, bias, regions, scale, g), iters=5)
+        # the yardstick: one SDPA call on (BW, H, N, D) with the bias and
+        # shift mask as a (BW, H, N, N) float mask built beforehand; its
+        # backward with the mask requiring grad, the mask's gradient summed
+        # over the windows being dbias
+        heads = [swa._heads(t, h).contiguous() for t in (q, k, v)]
+        r = regions[:, 0]
+        mask = torch.where(r[:, :, None] != r[:, None, :], swa.NEG, 0.0)
+        mask = (bias[None] + mask[torch.arange(bw, device='cuda')
+                                  % r.shape[0]][:, None]).contiguous()
+        gh = swa._heads(g, h).contiguous()
+        lib_out = F.scaled_dot_product_attention(*heads, attn_mask=mask,
+                                                 scale=scale)
+        lib_err = (swa._merge_heads(lib_out) - swa.window_attention_plain(
+            q, k, v, bias, regions, scale)).abs().max().item()
+        leaves = [t.clone().requires_grad_(True) for t in heads + [mask]]
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(*heads, attn_mask=mask,
+                                                  scale=scale)
+
+        def lib_bwd():
+            out = F.scaled_dot_product_attention(*leaves[:3],
+                                                 attn_mask=leaves[3],
+                                                 scale=scale)
+            grads = torch.autograd.grad(out, leaves, gh)
+            return grads[3].sum(0)
+
+        backend_f, _ = sdpa_backend(lib_fwd)
+        backend_b, names_b = sdpa_backend(lib_bwd)
+        lib_fwd_ms = cuda_ms(lib_fwd)
+        lib_bwd_ms = cuda_ms(lib_bwd)
+        print(f'swin {tag}: K5 {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, '
+              f'bound {fwd_bound["bound_ms"]:.4f} ms '
+              f'({fwd_bound["bound_by"]}), SDPA {lib_fwd_ms:.4f} ms '
+              f'({backend_f}; max abs diff to plain {lib_err:.3g}); K6 '
+              f'{bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound '
+              f'{bwd_bound["bound_ms"]:.4f} ms ({bwd_bound["bound_by"]}), '
+              f'SDPA forward + backward + window sum {lib_bwd_ms:.4f} ms '
+              f'({backend_b}: {", ".join(n[:60] for n in names_b[:4])})')
+        if tag == 'stage 0':
+            report['swin_attention_forward'] = dict(
+                max_abs_err=f_err, ms=fwd_ms, plain_ms=fwd_plain,
+                library_ms=lib_fwd_ms, **fwd_bound)
+            report['swin_attention_backward'] = dict(
+                max_abs_err=b_err, ms=bwd_ms, plain_ms=bwd_plain,
+                library_ms=lib_bwd_ms, **bwd_bound)
+        del heads, mask, leaves, lib_out
+    for tag, case in SWIN_RAGGED.items():
+        check_swin(tag, case, gen)
+    return report
+
+
 def register_dataset():
     from boxinstseg_tpu_torch.registry import DATASETS
     if 'SyntheticBoxDataset' not in DATASETS:
@@ -509,13 +700,18 @@ def check_history(result, steps, required=()):
 
 
 def changed_tensors(tool, cfg, seed, result):
+    """The names of the tensors that training changed, and the model (on
+    the CPU) with the trained weights loaded."""
     import torch
-    init = tool.build_model(cfg, seed).state_dict()
+    model = tool.build_model(cfg, seed)
+    init = model.state_dict()
     final = torch.load(result.checkpoint, map_location='cpu')
     if final['_iter'] != result.step:
         fail(f'checkpoint _iter {final["_iter"]}')
-    return [k for k, v in final['state_dict'].items()
-            if v.is_floating_point() and not torch.equal(v, init[k])]
+    changed = [k for k, v in final['state_dict'].items()
+               if v.is_floating_point() and not torch.equal(v, init[k])]
+    model.load_state_dict(final['state_dict'])
+    return changed, model
 
 
 def print_steps(result, peak):
@@ -562,7 +758,7 @@ def phase_slice(tool):
         for name, n in launches.items():
             if n != STEPS:
                 fail(f'{name} launched {n} times in {STEPS} steps')
-        changed = changed_tensors(tool, cfg, seed, result)
+        changed, _ = changed_tensors(tool, cfg, seed, result)
         if not changed:
             fail('no parameter changed in training')
         print(f'{len(changed)} tensors changed; launches {launches}')
@@ -572,43 +768,64 @@ def phase_slice(tool):
         shutil.rmtree(work_dir, ignore_errors=True)
 
 
-def phase_box2mask(tool):
-    """5 AdamW steps of Box2Mask R-50 LSJ through the train entry point on
-    1024x1024 synthetic images. Returns the launches of the MSDA and LCM
-    kernels over the run and their expected per-step counts."""
+def describe_backbone(bb):
+    if bb.type == 'ResNet':
+        return f'ResNet-{bb.depth}'
+    return (f'{bb.type} embed {bb.embed_dims}, depths {list(bb.depths)}, '
+            f'heads {list(bb.num_heads)}, window {bb.window_size}')
+
+
+def phase_box2mask(tool, config, samples, parts):
+    """5 AdamW steps of a Box2Mask config through the train entry point on
+    1024x1024 synthetic images, ``samples`` a batch. Returns the launches of
+    the kernels over the run, their expected per-step counts, the config
+    and the trained model (on the CPU). Fails unless a tensor of each of
+    ``parts`` changed."""
     import torch
     from boxinstseg_tpu_torch.ops import lcm, msda
+    from boxinstseg_tpu_torch.ops import swin_attention as swa
     register_dataset()
     work_dir = tempfile.mkdtemp(prefix='chip_smoke_b2m_')
     seed = 0
     opts = ['runner.type=IterBasedRunner', f'runner.max_iters={STEPS}',
-            'data.samples_per_gpu=2', 'data.train.type=SyntheticBoxDataset',
+            f'data.samples_per_gpu={samples}',
+            'data.train.type=SyntheticBoxDataset',
             'data.train.img_h=1024', 'data.train.img_w=1024']
     counters = {'msda_forward': msda.msda_forward_cuda,
                 'msda_backward': msda.msda_backward_cuda,
                 'lcm_forward': lcm.lcm_forward_cuda,
                 'lcm_adjoint': lcm.lcm_adjoint_cuda}
     try:
-        cfg = tool.load_config(B2M_CONFIG, opts, work_dir, seed)
+        cfg = tool.load_config(config, opts, work_dir, seed)
         head = cfg.model.panoptic_head
         pd, td = head.pixel_decoder, head.transformer_decoder
         levels = head.num_transformer_feat_level
-        print(f'model: {cfg.model.backbone.type}-{cfg.model.backbone.depth}'
-              f', pixel decoder {pd.num_encoder_layers} MSDeformAttn layers'
-              f' x {levels} levels, {td.num_layers}-layer decoder, '
-              f'{head.num_queries} queries, {head.feat_channels} channels, '
-              f'FFN {td.transformerlayers.feedforward_channels}, '
+        bb = cfg.model.backbone
+        print(f'model: {describe_backbone(bb)}, pixel decoder '
+              f'{pd.num_encoder_layers} MSDeformAttn layers x {levels} '
+              f'levels, {td.num_layers}-layer decoder, {head.num_queries} '
+              f'queries, {head.feat_channels} channels, FFN '
+              f'{td.transformerlayers.feedforward_channels}, '
               f'{head.num_things_classes} classes, canvas '
-              f'{cfg.canvases[0]}, optimizer {cfg.optimizer.type}, grad '
-              f'clip {cfg.optimizer_config.grad_clip.max_norm}')
-        # one MSDA launch per encoder layer and level; one LCM refinement
+              f'{cfg.canvases[0]}, batch {samples}, optimizer '
+              f'{cfg.optimizer.type}, grad clip '
+              f'{cfg.optimizer_config.grad_clip.max_norm}')
+        # one MSDA launch per encoder layer and level; one LCM refinement;
+        # one K5 and one K6 per Swin block
         per_step = {'msda_forward': pd.num_encoder_layers * levels,
                     'msda_backward': pd.num_encoder_layers * levels,
                     'lcm_forward': 1, 'lcm_adjoint': 1}
+        if bb.type == 'SwinTransformer':
+            counters['swin_attention_forward'] = \
+                swa.window_attention_forward_cuda
+            counters['swin_attention_backward'] = \
+                swa.window_attention_backward_cuda
+            per_step['swin_attention_forward'] = sum(bb.depths)
+            per_step['swin_attention_backward'] = sum(bb.depths)
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        result = tool.main([B2M_CONFIG, '--work-dir', work_dir, '--seed',
+        result = tool.main([config, '--work-dir', work_dir, '--seed',
                             str(seed), '--device', 'cuda',
                             '--cfg-options', *opts])
         torch.cuda.synchronize()
@@ -617,17 +834,63 @@ def phase_box2mask(tool):
         check_history(result, STEPS,
                       required=('loss_cls', 'loss_project',
                                 'loss_levelset'))
-        changed = changed_tensors(tool, cfg, seed, result)
-        for part in ('backbone.', 'panoptic_head.pixel_decoder.encoder.',
-                     'panoptic_head.transformer_decoder.'):
-            if not any(k.startswith(part) for k in changed):
-                fail(f'no {part}* tensor changed in training')
+        for name, n in launches.items():
+            if n != per_step[name] * STEPS:
+                fail(f'{name} launched {n} times in {STEPS} steps, expected '
+                     f'{per_step[name]} a step')
+        changed, model = changed_tensors(tool, cfg, seed, result)
+        for part in parts:
+            if not any(part in k for k in changed):
+                fail(f'no *{part}* tensor changed in training')
         print(f'{len(changed)} tensors changed; launches {launches} '
               f'(per step {per_step})')
         print_steps(result, peak)
-        return launches, per_step
+        return launches, cfg, model
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+
+
+def phase_swin_predict(cfg, model):
+    """``MaskFormer.predict`` of the trained Swin-L on one 1024x1024 image:
+    K5 once per block a call, K6 never; the instance candidates' shapes;
+    the median wall time of 3 calls after 1 warm-up."""
+    import torch
+    from boxinstseg_tpu_torch.ops import swin_attention as swa
+    fwd, bwd = (swa.window_attention_forward_cuda,
+                swa.window_attention_backward_cuda)
+    blocks = sum(cfg.model.backbone.depths)
+    k = cfg.model.test_cfg.max_per_image
+    model = model.cuda().eval()
+    gen = torch.Generator().manual_seed(0)
+    batch = {'image': torch.randn((1, 3, 1024, 1024), generator=gen).cuda()}
+    fwd.launches = bwd.launches = 0
+    out = model.predict(batch)
+    torch.cuda.synchronize()
+    if (fwd.launches, bwd.launches) != (blocks, 0):
+        fail(f'predict launched K5 {fwd.launches} and K6 {bwd.launches} '
+             f'times, expected {blocks} and 0')
+    want = {'scores': (1, k), 'labels': (1, k), 'valid': (1, k),
+            'masks_logit': (1, k, 256, 256)}
+    for key, shape in want.items():
+        if tuple(out[key].shape) != shape:
+            fail(f'predict {key} {tuple(out[key].shape)}, expected {shape}')
+    if not (torch.isfinite(out['scores']).all()
+            and torch.isfinite(out['masks_logit']).all()):
+        fail('predict gave non-finite scores or mask logits')
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.predict(batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    if (fwd.launches, bwd.launches) != (4 * blocks, 0):
+        fail(f'4 predict calls launched K5 {fwd.launches} and K6 '
+             f'{bwd.launches} times')
+    print(f'predict: {k} candidates, scores {out["scores"][0, :3].tolist()}'
+          f', labels {out["labels"][0, :3].tolist()}, masks_logit '
+          f'{tuple(out["masks_logit"].shape)}; K5 {blocks} launches a call,'
+          f' K6 none; wall ms {[round(t, 3) for t in times]}, median '
+          f'{statistics.median(times):.3f} ms')
 
 
 def tiny_cfg():
@@ -648,21 +911,47 @@ def tiny_cfg():
                        topk_per_img=8, pairwise_warmup=100))
 
 
-def compare_loss_dicts(cfg, batch, iteration=None):
-    """The model's loss dict on the card against the CPU, same weights."""
+def compare_loss_dicts(cfg, batch, iteration=None, grads_of=None):
+    """The model's loss dict on the card against the CPU, same weights;
+    with ``grads_of``, also the gradients of the total loss for the
+    parameters whose names start with it (relative L2 error per tensor,
+    SWIN_REF_RTOL of the larger of its norm and a thousandth of the
+    largest norm: a bias before a GroupNorm has a gradient of rounding
+    noise)."""
     import torch
     from boxinstseg_tpu_torch.registry import build_detector
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = build_detector(cfg).train()
-    losses = {}
+    losses, grads = {}, {}
     for dev in ('cpu', 'cuda'):
         model.to(dev)
+        model.zero_grad(set_to_none=True)
         tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         state = {k: v.clone() for k, v in model.state_dict().items()}
         args = () if iteration is None else (iteration,)
-        losses[dev] = {k: v.item() for k, v in model.loss(tb, *args).items()}
+        with torch.set_grad_enabled(grads_of is not None):
+            out = model.loss(tb, *args)
+        losses[dev] = {k: v.item() for k, v in out.items()}
+        if grads_of is not None:
+            sum(v for k, v in out.items() if 'loss' in k).backward()
+            grads[dev] = {k: p.grad.detach().cpu().clone()
+                          for k, p in model.named_parameters()
+                          if k.startswith(grads_of)}
         model.load_state_dict(state)      # undo the BN running-stat update
+    if grads_of is not None:
+        largest = max(g.norm().item() for g in grads['cpu'].values())
+        worst = 0.0
+        for k, want in grads['cpu'].items():
+            err = (grads['cuda'][k] - want).norm().item()
+            scale = max(want.norm().item(), 1e-3 * largest)
+            worst = max(worst, err / scale)
+            if not err <= SWIN_REF_RTOL * scale:
+                fail(f'gradient of {k} on the card vs CPU: relative L2 '
+                     f'error {err / scale:.3g}')
+        print(f'{len(grads["cpu"])} {grads_of}* gradients: worst relative '
+              f'L2 error card vs CPU {worst:.3g} (largest norm '
+              f'{largest:.3g})')
     for k, want in losses['cpu'].items():
         got = losses['cuda'][k]
         print(f'{k}: cuda {got:.7g} cpu {want:.7g}')
@@ -742,6 +1031,40 @@ def phase_box2mask_reference():
         fail('the small Box2Mask on the card launched no MSDA / LCM kernel')
 
 
+def phase_swin_reference():
+    """The small Box2Mask on a tiny Swin (window 4; 120x136 images give
+    30x34, 15x17, 8x9 and 4x5 token maps, all padded, with shifted blocks in
+    every stage): loss dict and backbone gradients on the card (K5, K6)
+    against the CPU (plain versions)."""
+    import numpy as np
+    from boxinstseg_tpu_torch.ops import swin_attention as swa
+    rng = np.random.RandomState(1)
+    b, h, w, g = 2, 120, 136, 4
+    masks = np.zeros((b, g, h // 4, w // 4), np.float32)
+    valid = np.zeros((b, g), bool)
+    for i in range(b):
+        for j in range(rng.randint(1, g + 1)):
+            x1, y1 = rng.randint(0, w - 48), rng.randint(0, h - 48)
+            x2, y2 = x1 + rng.randint(24, 48), y1 + rng.randint(24, 48)
+            masks[i, j, y1 // 4:y2 // 4 + 1, x1 // 4:x2 // 4 + 1] = 1
+            valid[i, j] = True
+    batch = dict(image=rng.rand(b, 3, h, w).astype(np.float32) * 4 - 2,
+                 gt_masks=masks, gt_labels=rng.randint(0, 4, (b, g)),
+                 gt_valid=valid)
+    cfg = tiny_box2mask_cfg()
+    cfg['backbone'] = dict(type='SwinTransformer', embed_dims=32,
+                           depths=(2, 2, 2, 2), num_heads=(2, 2, 4, 4),
+                           window_size=4)
+    cfg['panoptic_head']['in_channels'] = [32, 64, 128, 256]
+    fwd, bwd = (swa.window_attention_forward_cuda,
+                swa.window_attention_backward_cuda)
+    fwd.launches = bwd.launches = 0
+    compare_loss_dicts(cfg, batch, grads_of='backbone.')
+    if (fwd.launches, bwd.launches) != (8, 8):
+        fail(f'the small Swin Box2Mask on the card launched K5 '
+             f'{fwd.launches} and K6 {bwd.launches} times, expected 8 each')
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, 'boxinstseg_tpu_torch')):
         fail(f'the boxinstseg_tpu_torch package is not beside {__file__}')
@@ -767,10 +1090,11 @@ def main():
     phase('build')
     from boxinstseg_tpu_torch.ops import _native
     t0 = time.perf_counter()
-    _native.build_all(['pairwise', 'msda', 'lcm'])
-    print(f'pairwise.cu, msda.cu, lcm.cu: {time.perf_counter() - t0:.2f} s '
-          f'(nvcc ' + ', '.join(f'{k} {v:.2f} s' for k, v in
-                                _native.BUILD_SECONDS.items()) + ')')
+    _native.build_all(['pairwise', 'msda', 'lcm', 'swin_attention'])
+    print(f'pairwise.cu, msda.cu, lcm.cu, swin_attention.cu: '
+          f'{time.perf_counter() - t0:.2f} s (nvcc ' + ', '.join(
+              f'{k} {v:.2f} s' for k, v in _native.BUILD_SECONDS.items())
+          + ')')
 
     phase('kernels')
     report = phase_kernels()
@@ -785,15 +1109,35 @@ def main():
     phase_reference()
 
     phase('box2mask')
-    b2m_launches, per_step = phase_box2mask(tool)
-    for name, n in b2m_launches.items():
-        if n != per_step[name] * STEPS:
-            fail(f'{name} launched {n} times in {STEPS} steps, expected '
-                 f'{per_step[name]} a step')
+    b2m_launches, _, _ = phase_box2mask(
+        tool, B2M_CONFIG, 2, ('backbone.', 'panoptic_head.pixel_decoder.'
+                              'encoder.', 'panoptic_head.transformer_decoder.'))
     launches.update(b2m_launches)
 
     phase('box2mask reference')
     phase_box2mask_reference()
+
+    phase('swin kernels')
+    report.update(phase_swin_kernels())
+
+    phase('swin-l')
+    swin_launches, cfg, model = phase_box2mask(
+        tool, SWIN_CONFIG, 1, ('backbone.stages.0.', 'backbone.stages.2.',
+                               'backbone.stages.3.',
+                               'relative_position_bias_table'))
+    bb = cfg.model.backbone
+    if (bb.embed_dims, list(bb.depths), list(bb.num_heads),
+            bb.window_size) != (192, [2, 2, 18, 2], [6, 12, 24, 48], 12):
+        fail(f'not Swin-L: {describe_backbone(bb)}')
+    launches['swin_attention_forward'] = \
+        swin_launches['swin_attention_forward']
+    launches['swin_attention_backward'] = \
+        swin_launches['swin_attention_backward']
+    phase_swin_predict(cfg, model)
+    del model
+
+    phase('swin reference')
+    phase_swin_reference()
 
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

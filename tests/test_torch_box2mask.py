@@ -12,7 +12,8 @@ batch:
   multipliers, grad clip 0.01) against ``make_train_step``: logs and every
   parameter (rtol 1e-4, atol 1e-6);
 - the per-parameter (lr_mult, decay_mult) table against the JAX
-  ``paramwise_fns`` for every leaf, with the shipped R-50 config too;
+  ``paramwise_fns`` for every leaf, with the shipped R-50 config and the
+  shipped Swin-L config (the Swin recipe's ``custom_keys``) too;
 - ``params_from_jax`` round-trips through ``convert_reference_checkpoint``.
 """
 import numpy as np
@@ -47,6 +48,7 @@ from boxinstseg_tpu_torch.registry import build_detector
 from boxinstseg_tpu_torch.utils.weights import params_from_jax
 
 SHIPPED = 'configs/box2mask/box2mask_r50_lsj_8x2_50e_coco.py'
+SWIN_L = 'configs/box2mask/box2mask_swin-l-p4-w12-384-lsj_8x1_50e_coco.py'
 
 
 def cfg_with(tf_max_depth):
@@ -185,8 +187,10 @@ def _port_leaf_multipliers(opt, model):
     names = [n for n, _ in model.named_parameters()]
     table = {n: (lr_mult(n), decay_mult(n, p))
              for n, p in model.named_parameters()}
-    sd = {k: torch.full_like(v, float(names.index(k)) if k in names
-                             else -1.0)
+    # zero-stride CPU tensors, so that a model built on the meta device
+    # converts too
+    sd = {k: torch.tensor(float(names.index(k)) if k in names
+                          else -1.0).expand(v.shape)
           for k, v in model.state_dict().items()}
     params, _ = convert_reference_checkpoint(sd)
     owner = {}
@@ -197,19 +201,26 @@ def _port_leaf_multipliers(opt, model):
     return table, owner
 
 
-@pytest.mark.parametrize('config', ['tiny', 'shipped'])
+@pytest.mark.parametrize('config', ['tiny', 'shipped', 'swin-l'])
 def test_paramwise_multipliers_match_jax_for_every_leaf(variables, config):
     opt, _, _ = _shipped_optimizer()
     if config == 'tiny':
         model, params = port_model(variables), variables['params']
     else:
-        cfg = JConfig.fromfile(SHIPPED).model
+        # Swin-L at 384x384, where no stage's map is smaller than the
+        # window of 12; the JAX tree is abstract and the port's on the meta
+        # device, so neither allocates Swin-L's weights
+        path, side = (SWIN_L, 384) if config == 'swin-l' else (SHIPPED, 64)
+        if config == 'swin-l':
+            opt = dict(Config.fromfile(SWIN_L).optimizer)
+        cfg = JConfig.fromfile(path).model
         cfg.backbone.pop('init_cfg', None)
         jm = j_build(cfg)
-        x = jnp.zeros((1, 64, 64, 3), jnp.float32)
+        x = jnp.zeros((1, side, side, 3), jnp.float32)
         params = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x))[
             'params']
-        model = build_detector(Config.fromfile(SHIPPED).model)
+        with torch.device('meta'):
+            model = build_detector(Config.fromfile(path).model)
     want = _jax_leaf_multipliers(opt, params)
     table, owner = _port_leaf_multipliers(opt, model)
     assert set(owner) == set(want)
@@ -218,6 +229,15 @@ def test_paramwise_multipliers_match_jax_for_every_leaf(variables, config):
         assert table[owner[path]] == mults, (path, owner[path])
     kinds = set(want.values())
     assert {(0.1, 1.0), (1.0, 0.0), (1.0, 1.0)} <= kinds
+    if config == 'swin-l':
+        # backbone norms and the relative-position tables: 0.1x lr, no decay
+        assert (0.1, 0.0) in kinds
+        assert table['backbone.stages.2.blocks.1.norm1.weight'] == (0.1, 0.0)
+        assert table['backbone.stages.2.blocks.10.norm1.weight'] == (0.1,
+                                                                     1.0)
+        assert table['backbone.norm3.bias'] == (0.1, 0.0)
+        assert table['backbone.stages.3.blocks.1.attn.w_msa.'
+                     'relative_position_bias_table'] == (0.1, 0.0)
 
 
 def test_params_from_jax_round_trips_through_converter(variables):

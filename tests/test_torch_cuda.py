@@ -11,7 +11,9 @@ entries are O(1). Through autograd the gradient is divided by max(den, 1),
 so there the absolute term is divided by it too. MSDA and LCM: atol 1e-5
 of the reference's largest entry (1e-5 at least) and rtol 1e-4: the MSDA
 d(value) sums with float atomics in an order that changes between runs, and
-d(loc) carries the map's width or height as a factor.
+d(loc) carries the map's width or height as a factor. The Swin window
+attention pair K5/K6 is held to the same bound; its dbias sums the windows
+in a fixed order, so it gives the same bits from run to run.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from boxinstseg_tpu_torch.models.losses.levelset_loss import \
     LocalConsistencyModule
 from boxinstseg_tpu_torch.ops import lcm, msda
 from boxinstseg_tpu_torch.ops import pairwise as pw
+from boxinstseg_tpu_torch.ops import swin_attention as swa
 
 pytestmark = pytest.mark.cuda
 
@@ -207,3 +210,82 @@ def test_box2mask_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match='shared memory'):
         lcm.lcm_forward_cuda(torch.zeros((1, 8, 200, 200), device=cuda), big,
                              offs, 10)
+
+
+def _swin_inputs(seed, device, hp, wp, ws, shift, images, heads, d,
+                 region_ids=None):
+    rng = np.random.RandomState(seed)
+    regions = swa.shift_regions(hp, wp, ws, shift)
+    if region_ids:
+        regions = rng.randint(0, region_ids, regions.shape).astype(np.int32)
+    nw, _, n = regions.shape
+    qkv, g = (rng.randn(images * nw, n, c).astype(np.float32)
+              for c in (3 * heads * d, heads * d))
+    bias = rng.randn(heads, n, n).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (qkv, bias, regions, g)]
+
+
+# (hp, wp, window, shift, images, heads, head dim, random region ids): a
+# shifted stage-1 block of Swin-T (window 7), a small ragged case with three
+# region ids, and Swin-L's stage-3 shape (window 12, 48 heads)
+@pytest.mark.parametrize('case', [(14, 21, 7, 3, 1, 6, 32, 0),
+                                  (8, 12, 4, 0, 2, 2, 8, 3),
+                                  (36, 36, 12, 6, 1, 48, 32, 0)])
+def test_swin_attention_kernels_match_plain(cuda, case):
+    qkv, bias, regions, g = _swin_inputs(0, cuda, *case)
+    scale = case[6] ** -0.5
+    c = qkv.shape[-1] // 3
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    _close_scaled(swa.window_attention_forward_cuda(q, k, v, bias, regions,
+                                                    scale),
+                  swa.window_attention_plain(q, k, v, bias, regions, scale))
+    dqkv, dbias = swa.window_attention_backward_cuda(q, k, v, bias, regions,
+                                                     scale, g)
+    want = swa.window_attention_backward_plain(q, k, v, bias, regions, scale,
+                                               g)
+    for got, ref in zip((dqkv[..., :c], dqkv[..., c:2 * c],
+                         dqkv[..., 2 * c:], dbias), want):
+        _close_scaled(got, ref)
+    # the same bits on a second run: dbias sums the windows in a fixed order
+    again = swa.window_attention_backward_cuda(q, k, v, bias, regions, scale,
+                                               g)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+
+
+def test_swin_attention_launches_kernels_for_cuda_tensors(cuda):
+    qkv, bias, regions, g = _swin_inputs(1, cuda, 8, 8, 4, 2, 2, 2, 16)
+    fwd = swa.window_attention_forward_cuda.launches
+    bwd = swa.window_attention_backward_cuda.launches
+    qkv.requires_grad_(True)
+    bias.requires_grad_(True)
+    swa.window_attention_qkv(qkv, bias, regions, 0.25).backward(g)
+    assert (swa.window_attention_forward_cuda.launches,
+            swa.window_attention_backward_cuda.launches) == (fwd + 1, bwd + 1)
+    leaves = [t.detach().cpu().requires_grad_(True) for t in (qkv, bias)]
+    swa.window_attention_qkv(leaves[0], leaves[1], regions.cpu(),
+                             0.25).backward(g.cpu())
+    _close_scaled(qkv.grad.cpu(), leaves[0].grad)
+    _close_scaled(bias.grad.cpu(), leaves[1].grad)
+
+
+def test_swin_attention_wrappers_reject_what_they_do_not_take(cuda):
+    qkv, bias, regions, g = _swin_inputs(2, cuda, 8, 8, 4, 2, 1, 2, 8)
+    c = qkv.shape[-1] // 3
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    with pytest.raises(ValueError, match='int32'):
+        swa.window_attention_forward_cuda(q, k, v, bias, regions.long(), 1.0)
+    with pytest.raises(ValueError, match='whole images'):
+        swa.window_attention_forward_cuda(q, k, v, bias, regions[:3], 1.0)
+    with pytest.raises(ValueError, match='row stride'):
+        swa.window_attention_forward_cuda(q, k.contiguous(), v, bias,
+                                          regions, 1.0)
+    with pytest.raises(ValueError, match='CUDA'):
+        swa.window_attention_forward_cuda(q, k, v, bias.cpu(), regions, 1.0)
+    # window 15: N = 225 fits the forward; the backward's P does not fit
+    big = _swin_inputs(3, cuda, 15, 15, 15, 0, 1, 1, 32)
+    c = big[0].shape[-1] // 3
+    qb, kb, vb = big[0][..., :c], big[0][..., c:2 * c], big[0][..., 2 * c:]
+    swa.window_attention_forward_cuda(qb, kb, vb, big[1], big[2], 1.0)
+    with pytest.raises(ValueError, match='shared memory'):
+        swa.window_attention_backward_cuda(qb, kb, vb, big[1], big[2], 1.0,
+                                           big[3])

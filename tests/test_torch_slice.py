@@ -49,6 +49,8 @@ from boxinstseg_tpu_torch.registry import build_detector
 from boxinstseg_tpu_torch.utils.weights import params_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SWIN_L = os.path.join(
+    ROOT, 'configs/box2mask/box2mask_swin-l-p4-w12-384-lsj_8x1_50e_coco.py')
 H, W, G, B = 128, 160, 5, 2
 
 
@@ -309,6 +311,29 @@ def test_port_never_imports_jax_or_cv2():
         logs = step(batch, 0)
         assert all(torch.isfinite(v) for v in logs.values()), logs
         assert 'd0.loss_levelset' in logs, sorted(logs)
+
+        # the Swin path: the shipped Swin-L Box2Mask (built on the meta
+        # device), a step of a tiny Swin Box2Mask through window attention
+        # and its explicit backward, and predict
+        import boxinstseg_tpu_torch.models.backbones.swin
+        import boxinstseg_tpu_torch.ops.swin_attention
+        from boxinstseg_tpu_torch.config import Config
+        swin_l = Config.fromfile({SWIN_L!r})
+        with torch.device('meta'):
+            build_detector(swin_l.model)
+        b2m['backbone'] = dict(type='SwinTransformer', embed_dims=16,
+                               depths=(2, 2, 1, 1), num_heads=(2, 2, 2, 2),
+                               window_size=4)
+        b2m['panoptic_head']['in_channels'] = [16, 32, 64, 128]
+        model = build_detector(b2m)
+        opt = build_optimizer(dict(swin_l.optimizer),
+                              model.named_parameters())
+        step = make_train_step(model, opt, lambda i: 1e-4,
+                               dict(max_norm=0.01))
+        logs = step(batch, 0)
+        assert all(torch.isfinite(v) for v in logs.values()), logs
+        out = model.eval().predict(batch)
+        assert out['masks_logit'].shape[:2] == out['scores'].shape
         bad = [m for m in ('jax', 'flax', 'optax', 'cv2')
                if m in sys.modules]
         assert not bad, bad
