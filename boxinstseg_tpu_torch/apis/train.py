@@ -5,8 +5,11 @@ One process: ``StaticBatcher`` + ``TrainLoader`` (the numpy data layer
 shared with the JAX package; box bitmasks at stride 4 when the config asks
 for GT masks), the LR schedule, SGD or AdamW, the train step, a text
 log line per iteration and a final ``torch.save`` checkpoint that keeps
-``_iter``. Distributed data parallelism, the teacher-student step and the
-evaluation hook are not ported yet.
+``_iter``. DiscoBox (a ``SingleStageWSInsTSDetector``, such as
+``DiscoBoxSOLOv2``) takes the teacher-student step, with the object bank built on the device
+from ``loss_corr.obj_bank`` and the schedule from ``ts_cfg``; its
+checkpoint also keeps the teacher, the bank and ``avg_loss_ins``.
+Distributed data parallelism and the evaluation hook are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from ..data.batcher import StaticBatcher
 from ..data.loader import TrainLoader
 from ..engine.optimizers import build_optimizer
 from ..engine.schedules import build_lr_schedule
-from ..engine.train_state import make_train_step
+from ..engine.train_state import TSTrainStep, make_train_step
+from ..models.detectors.single_stage_ts import SingleStageWSInsTSDetector
 
 
 def _train_resize_cfg(cfg):
@@ -104,6 +108,24 @@ def batch_to_device(batch: Dict[str, np.ndarray], device
     return out
 
 
+def build_object_bank(cfg, device):
+    """The DiscoBox object bank of ``model.bbox_head.loss_corr.obj_bank``
+    on ``device`` (reference ObjectQueues, discobox_head.py:132-227), or
+    None when the config has no correspondence loss."""
+    head = dict(cfg.model.get('bbox_head') or {})
+    lc = head.get('loss_corr')
+    if not lc:
+        return None
+    from ..ops.correspondence import create_object_bank
+    ob = dict(lc.get('obj_bank', {}))
+    return create_object_bank(
+        int(head['num_classes']), int(ob.get('len_object_queues', 100)),
+        (int(ob.get('feat_height', 7)), int(ob.get('feat_width', 7))),
+        (int(ob.get('mask_height', 28)), int(ob.get('mask_width', 28))),
+        int(cfg.model.get('neck', {}).get('out_channels', 256)),
+        device=device)
+
+
 def get_logger(log_file: Optional[str] = None) -> logging.Logger:
     logger = logging.getLogger('boxinstseg_tpu_torch')
     if not logger.handlers:
@@ -163,7 +185,18 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
     model.to(device)
     optimizer = build_optimizer(cfg.optimizer, model.named_parameters())
     grad_clip = (cfg.get('optimizer_config') or {}).get('grad_clip')
-    step_fn = make_train_step(model, optimizer, lr_fn, grad_clip)
+    use_ts = isinstance(model, SingleStageWSInsTSDetector)
+    if use_ts:
+        ts_cfg = dict(cfg.get('ts_cfg') or {})
+        step_fn = TSTrainStep(
+            model, optimizer, lr_fn, grad_clip,
+            momentum=ts_cfg.get('momentum', 0.999),
+            start_iter=ts_cfg.get('start_iter', 13000),
+            ts_thresh=ts_cfg.get('ts_thresh', 0.3),
+            corr_thresh=ts_cfg.get('corr_thresh', 0.2),
+            bank=build_object_bank(cfg, device))
+    else:
+        step_fn = make_train_step(model, optimizer, lr_fn, grad_clip)
 
     result = TrainResult(step=0)
     batches = iter(loader)
@@ -188,12 +221,17 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
         batches.close()
 
     path = os.path.join(work_dir, f'iter_{result.step}.pth')
-    torch.save({'state_dict': model.state_dict(),
-                'optimizer': optimizer.state_dict(),
-                '_iter': result.step,
-                'meta': dict(seed=cfg.get('seed'),
-                             exp_name=os.path.basename(cfg.filename or ''))},
-               path)
+    ckpt = {'state_dict': model.state_dict(),
+            'optimizer': optimizer.state_dict(),
+            '_iter': result.step,
+            'meta': dict(seed=cfg.get('seed'),
+                         exp_name=os.path.basename(cfg.filename or ''))}
+    if use_ts:
+        ckpt['teacher_state_dict'] = step_fn.teacher.state_dict()
+        ckpt['avg_loss_ins'] = step_fn.avg_loss_ins
+        if step_fn.bank is not None:
+            ckpt['object_bank'] = step_fn.bank._asdict()
+    torch.save(ckpt, path)
     logger.info(f'checkpoint saved at iter {result.step}: {path}')
     result.checkpoint = path
     return result

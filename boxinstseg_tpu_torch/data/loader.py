@@ -19,6 +19,14 @@ from .batcher import GroupedBatchSampler, SequentialBatchSampler, \
     StaticBatcher
 
 
+class _ProducerError:
+    """An exception raised in ``TrainLoader``'s producer thread, carried
+    through the prefetch queue to the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
 class TrainLoader:
     """``batch_size`` is the GLOBAL batch. In multi-process runs every
     process samples the same global index sequence (same seed) and loads
@@ -68,7 +76,7 @@ class TrainLoader:
         q: 'queue.Queue' = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
-        def producer():
+        def produce():
             step = 0
             for batch_idx in self.sampler:
                 if stop.is_set():
@@ -87,11 +95,22 @@ class TrainLoader:
                 q.put(self.batcher(samples))
                 step += 1
 
+        def producer():
+            # an error in loading or batching ends the thread; it goes on
+            # the queue so that the consumer raises it instead of waiting
+            try:
+                produce()
+            except Exception as exc:
+                q.put(_ProducerError(exc))
+
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         try:
             while True:
-                yield q.get()
+                item = q.get()
+                if isinstance(item, _ProducerError):
+                    raise item.exc
+                yield item
         finally:
             stop.set()
 

@@ -1,0 +1,98 @@
+"""DiscoBox teacher-student detector, counterpart of
+``boxinstseg_tpu/models/detectors/single_stage_ts.py`` (reference:
+mmdet/models/detectors/single_stage_ts.py).
+
+The teacher is an EMA replica of the detector held by the train step
+(``engine.train_state.TSTrainStep``); ``avg_loss_ins`` and the gates
+it opens are device tensors there, so no step waits on the host for them.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from ...registry import BACKBONES, DETECTORS, HEADS, NECKS
+
+
+@DETECTORS.register_module()
+class SingleStageWSInsDetector(nn.Module):
+    """Backbone -> FPN -> SOLO-style head with a unified mask feature head
+    (``bbox_head``, ``mask_feat_head``)."""
+
+    def __init__(self, backbone: dict, neck: Optional[dict] = None,
+                 bbox_head: Optional[dict] = None,
+                 mask_feat_head: Optional[dict] = None,
+                 train_cfg: Optional[dict] = None,
+                 test_cfg: Optional[dict] = None,
+                 pretrained: Optional[str] = None,
+                 init_cfg: Optional[dict] = None):
+        super().__init__()
+        self.backbone = BACKBONES.build(backbone)
+        self.neck = NECKS.build(neck) if neck else None
+        self.bbox_head = HEADS.build(bbox_head)
+        self.mask_feat_head = HEADS.build(mask_feat_head)
+        self.mask_feat_levels = (mask_feat_head.get('start_level', 0),
+                                 mask_feat_head.get('end_level', 3))
+        self.test_cfg = test_cfg
+
+    def extract_feat(self, images):
+        x = self.backbone(images)
+        if self.neck is not None:
+            x = self.neck(x)
+        return x
+
+    def _mask_feat_inputs(self, feats):
+        s, e = self.mask_feat_levels
+        return feats[s:e + 1]
+
+    def forward(self, images):
+        """Raw head outputs (kernels, cates) and the unified mask feature."""
+        feats = self.extract_feat(images)
+        return (self.bbox_head(feats),
+                self.mask_feat_head(self._mask_feat_inputs(feats)))
+
+    @torch.no_grad()
+    def teacher_outputs(self, images) -> Dict[str, torch.Tensor]:
+        """Raw kernels, the mask feature and P2, for the EMA replica
+        (reference teacher forward, single_stage_ts.py:195-199)."""
+        feats = self.extract_feat(images)
+        return dict(kernels=self.bbox_head(feats)['kernels'],
+                    mask_feat=self.mask_feat_head(
+                        self._mask_feat_inputs(feats)),
+                    p2=feats[0])
+
+    def loss(self, batch: Dict[str, torch.Tensor], iteration=None,
+             teacher_out: Optional[Dict] = None,
+             gates: Optional[Dict] = None, bank=None
+             ) -> Dict[str, torch.Tensor]:
+        """DiscoBox losses. ``teacher_out`` (from ``teacher_outputs`` of the
+        replica) stands for the teacher when given; without it the detached
+        student does, which gives the JAX package's values (its teacher gate
+        is a traced 0/1 blend; here the train step decides on the host).
+        ``gates['ts']`` and ``gates['corr']`` multiply the CRF and
+        correspondence terms. A ``'_corr_append'`` entry, when present,
+        holds the bank's append entries and is no loss."""
+        feats = [f.float() for f in self.extract_feat(batch['image'])]
+        outs = {k: v.float() for k, v in self.bbox_head(feats).items()}
+        mask_feat = self.mask_feat_head(self._mask_feat_inputs(feats)).float()
+        gates = gates or {}
+        return self.bbox_head.loss(
+            outs, mask_feat, batch, teacher=teacher_out,
+            use_ts_gate=gates.get('ts'), corr_gate=gates.get('corr'),
+            bank=bank, s_feat=feats[0],
+            t_feat=None if teacher_out is None else teacher_out['p2'])
+
+    def predict(self, batch):
+        raise NotImplementedError('DiscoBox prediction is not ported yet')
+
+
+@DETECTORS.register_module()
+class SingleStageWSInsTSDetector(SingleStageWSInsDetector):
+    """Teacher-student variant; the EMA replica is the train step's."""
+
+
+@DETECTORS.register_module()
+class DiscoBoxSOLOv2(SingleStageWSInsTSDetector):
+    """Thin alias (reference: discobox.py:16)."""

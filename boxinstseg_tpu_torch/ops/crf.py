@@ -1,0 +1,159 @@
+"""Binary mean-field CRF fixed point of the DiscoBox pseudo-labels: the plain
+PyTorch version and the CUDA kernel (``csrc/crf.cu``).
+
+Counterpart of ``crf_mean_field_pallas`` (``boxinstseg_tpu/ops/
+pallas_kernels.py``) and of the branch of ``MeanFieldCRF.__call__`` without
+inter-image priors: ``num_iter`` rounds of
+
+    st <- targets AND (sum_o kern[o] * shift_o(st) > thresh)
+
+with the 9 offsets of a 3x3 stencil in row-major order from (-1, -1) and
+zero padding. The result is a pseudo-label: no gradient flows through it.
+
+``crf_mean_field`` dispatches on the device of ``bin0``: a CUDA tensor goes
+through the kernel (which raises on what it does not take), a CPU tensor
+through ``crf_mean_field_plain``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ._native import check, load_library
+
+# the 3x3 stencil, row-major from (-1, -1): the JAX package's order
+OFFSETS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+
+
+def stencil_sum(st: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """sum_o kern[:, o] * shift_o(st) for st (B, K, H, W) and kern
+    (B, 9, H, W): one zero pad, then the 9 slices in the JAX order, summed
+    from 0."""
+    h, w = st.shape[-2:]
+    pad = F.pad(st, (1, 1, 1, 1))
+    s = torch.zeros_like(st)
+    for o, (dy, dx) in enumerate(OFFSETS):
+        s = s + pad[:, :, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w] \
+            * kern[:, None, o]
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def _in_bounds(h: int, w: int, offsets) -> np.ndarray:
+    """(O, H, W): 1 where the offset's neighbour lies inside the map."""
+    m = np.zeros((len(offsets), h, w), np.float32)
+    for o, (dy, dx) in enumerate(offsets):
+        m[o, max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0)] = 1.0
+    return m
+
+
+def kernel_sum(kern: torch.Tensor, offsets=OFFSETS) -> torch.Tensor:
+    """sum_o kern[:, o] * in_bounds_o, (B, H, W), summed from 0 in the
+    offsets' order as the JAX package sums it; half of it is the fixed
+    point's threshold."""
+    inb = torch.from_numpy(_in_bounds(kern.shape[-2], kern.shape[-1],
+                                      tuple(offsets))).to(kern.device)
+    kv = 0.0
+    for o in range(len(offsets)):
+        kv = kv + kern[:, o] * inb[o]
+    return kv
+
+
+def crf_mean_field_plain(kern: torch.Tensor, thresh: torch.Tensor,
+                         bin0: torch.Tensor, targets: torch.Tensor,
+                         num_iter: int) -> torch.Tensor:
+    """kern (B, 9, H, W); thresh (B, H, W); bin0 and targets (B, K, H, W),
+    binary. Each round pads the state once, sums the 9 slices times their
+    kernel planes in the JAX order from 0, compares with thresh and ANDs
+    with the targets."""
+    keep_in = targets > 0
+    thr = thresh[:, None]
+    st = bin0
+    for _ in range(num_iter):
+        st = ((stencil_sum(st, kern) > thr) & keep_in).to(bin0.dtype)
+    return st
+
+
+# dynamic shared memory a block may use on sm_90: two bytes a pixel
+MAX_SHARED_BYTES = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """Build (first call) and type the C interface of csrc/crf.cu."""
+    lib = load_library('crf')
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.crf_mean_field.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.crf_mean_field.restype = i
+    return lib
+
+
+def _check_inputs(kern, thresh, bin0, targets, kernel_size):
+    if kernel_size != 3:
+        raise ValueError(f'kernel size {kernel_size}: the CRF kernel takes '
+                         f'the 3x3 stencil only')
+    for name, t in (('kern', kern), ('thresh', thresh), ('bin0', bin0),
+                    ('targets', targets)):
+        if not t.is_cuda:
+            raise ValueError(f'{name} must be a CUDA tensor')
+        if t.device != bin0.device:
+            raise ValueError(f'{name} is on {t.device}, bin0 on '
+                             f'{bin0.device}')
+        if t.dtype != torch.float32:
+            raise ValueError(f'{name} must be float32, got {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    if bin0.dim() != 4 or targets.shape != bin0.shape:
+        raise ValueError(f'bin0 {tuple(bin0.shape)} and targets '
+                         f'{tuple(targets.shape)} must be one (B, K, H, W)')
+    b, _, h, w = bin0.shape
+    if tuple(kern.shape) != (b, len(OFFSETS), h, w):
+        raise ValueError(f'kern {tuple(kern.shape)} != '
+                         f'{(b, len(OFFSETS), h, w)}')
+    if tuple(thresh.shape) != (b, h, w):
+        raise ValueError(f'thresh {tuple(thresh.shape)} != {(b, h, w)}')
+    if 2 * h * w > MAX_SHARED_BYTES:
+        raise ValueError(f'a {h}x{w} plane does not fit twice in shared '
+                         f'memory')
+    if bin0.shape[0] * bin0.shape[1] >= 2 ** 31:
+        raise ValueError('too many planes for one launch')
+
+
+def crf_mean_field_cuda(kern, thresh, bin0, targets, num_iter,
+                        kernel_size=3):
+    """K7 kernel: ``num_iter`` rounds of the binary fixed point."""
+    _check_inputs(kern, thresh, bin0, targets, kernel_size)
+    b, k, h, w = bin0.shape
+    out = torch.empty_like(bin0)
+    stream = torch.cuda.current_stream(bin0.device).cuda_stream
+    with torch.cuda.device(bin0.device):
+        err = _lib().crf_mean_field(
+            kern.data_ptr(), thresh.data_ptr(), bin0.data_ptr(),
+            targets.data_ptr(), out.data_ptr(), b, k, h, w, int(num_iter),
+            stream)
+    check(err, 'crf_mean_field')
+    crf_mean_field_cuda.launches += 1
+    return out
+
+
+crf_mean_field_cuda.launches = 0
+
+
+def crf_mean_field(kern: torch.Tensor, thresh: torch.Tensor,
+                   bin0: torch.Tensor, targets: torch.Tensor, num_iter: int,
+                   kernel_size: int = 3) -> torch.Tensor:
+    """The binary mean-field fixed point (no gradient). A CUDA tensor
+    launches the kernel; a CPU tensor takes the plain version."""
+    args = [t.detach() for t in (kern, thresh, bin0, targets)]
+    if bin0.is_cuda:
+        return crf_mean_field_cuda(*args, num_iter, kernel_size)
+    if bin0.device.type == 'cpu':
+        if kernel_size != 3:
+            raise ValueError(f'kernel size {kernel_size}: the CRF takes the '
+                             f'3x3 stencil only')
+        return crf_mean_field_plain(*args, num_iter)
+    raise ValueError(f'no CRF fixed point for device {bin0.device}')

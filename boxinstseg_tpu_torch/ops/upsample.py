@@ -55,13 +55,18 @@ def aligned_bilinear(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _axis_taps(n_in: int, n_out: int):
-    """Two source taps and their weights per output index of a half-pixel
-    bilinear resize: source coordinate (o + 0.5) * n_in / n_out - 0.5
-    clamped to [0, n_in - 1], computed in float64 as the JAX package
-    computes its resampling matrices."""
+def _axis_taps(n_in: int, n_out: int, align_corners: bool = False):
+    """Two source taps and their weights per output index of a bilinear
+    resize, computed in float64 as the JAX package computes its resampling
+    matrices. Half-pixel centres: source coordinate (o + 0.5) * n_in /
+    n_out - 0.5 clamped to [0, n_in - 1]; ``align_corners``: o * (n_in -
+    1) / (n_out - 1)."""
     out = np.arange(n_out, dtype=np.float64)
-    coords = np.clip((out + 0.5) * (n_in / n_out) - 0.5, 0.0, n_in - 1.0)
+    if align_corners:
+        coords = out * ((n_in - 1) / max(n_out - 1, 1))
+    else:
+        coords = np.clip((out + 0.5) * (n_in / n_out) - 0.5, 0.0,
+                         n_in - 1.0)
     q0 = np.floor(coords).astype(np.int64)
     q1 = np.minimum(q0 + 1, n_in - 1)
     r = coords - q0
@@ -70,29 +75,70 @@ def _axis_taps(n_in: int, n_out: int):
     return q0, q1, w0, w1
 
 
-def _resize_axis(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
+def _resize_axis(x: torch.Tensor, n_out: int, dim: int,
+                 align_corners: bool = False) -> torch.Tensor:
     n_in = x.shape[dim]
     if n_in == n_out:
         return x
     shape = [1] * x.dim()
     shape[dim] = n_out
     q0, q1, w0, w1 = (torch.from_numpy(a).to(x.device)
-                      for a in _axis_taps(n_in, n_out))
+                      for a in _axis_taps(n_in, n_out, align_corners))
     return (x.index_select(dim, q0) * w0.to(x.dtype).reshape(shape)
             + x.index_select(dim, q1) * w1.to(x.dtype).reshape(shape))
 
 
-def interpolate_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """Bilinear resize of (..., H, W) to ``out_hw`` with half-pixel centres
-    and clamped source coordinates (F.interpolate's bilinear,
-    align_corners=False), one axis after the other.
+def interpolate_bilinear(x: torch.Tensor, out_hw,
+                         align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of (..., H, W) to ``out_hw``, one axis after the
+    other: half-pixel centres and clamped source coordinates (F.interpolate's
+    bilinear, align_corners=False), or the corner-aligned grid with
+    ``align_corners``.
 
     F.interpolate itself computes the source coordinates in float32; at
     256 -> 96 that moves a result by up to 4e-5 against the JAX package's
     ``interpolate_bilinear``, whose float64 coordinates this function
     shares."""
-    x = _resize_axis(x, int(out_hw[0]), x.dim() - 2)
-    return _resize_axis(x, int(out_hw[1]), x.dim() - 1)
+    x = _resize_axis(x, int(out_hw[0]), x.dim() - 2, align_corners)
+    return _resize_axis(x, int(out_hw[1]), x.dim() - 1, align_corners)
+
+
+@functools.lru_cache(maxsize=None)
+def _antialias_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) weights of ``jax.image.resize(..., 'bilinear')`` with
+    its default ``antialias=True`` along one axis, in the float32 arithmetic
+    of ``jax.image.scale.compute_weight_mat``: a triangle kernel widened by
+    the inverse scale when downsampling, each output's weights normalised to
+    sum 1, outputs whose sample lies outside the input zeroed."""
+    f32 = np.float32
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = f32(max(inv_scale, 1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * f32(inv_scale) \
+        - f32(0.0) - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x)).astype(f32)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_bilinear_antialias(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Counterpart of ``jax.image.resize(x, (..., h, w), 'bilinear')`` on the
+    last two axes. JAX antialiases by default: a 4x downsample is a triangle
+    filter eight source pixels wide (four on each side), which neither
+    ``interpolate_bilinear`` nor ``F.interpolate(..., antialias=False)``
+    computes."""
+    h, w = x.shape[-2:]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if w != ow:
+        x = x @ torch.from_numpy(_antialias_weights(w, ow)).to(x)
+    if h != oh:
+        wh = torch.from_numpy(_antialias_weights(h, oh)).to(x)
+        x = (x.transpose(-1, -2) @ wh).transpose(-1, -2)
+    return x
 
 
 def avg_pool_stride(x: torch.Tensor, stride: int) -> torch.Tensor:

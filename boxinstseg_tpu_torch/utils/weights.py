@@ -1,8 +1,9 @@
-"""JAX CondInst and Box2Mask variables (ResNet or Swin backbone) -> port
-``state_dict``.
+"""JAX CondInst, Box2Mask and DiscoBox variables (ResNet or Swin backbone)
+-> port ``state_dict``.
 
 The inverse of ``boxinstseg_tpu.utils.checkpoint_convert.
-convert_condinst_checkpoint`` and ``convert_box2mask_head``: it takes the
+convert_condinst_checkpoint``, ``convert_box2mask_head``,
+``convert_discobox_head`` and ``convert_discobox_mask_feat_head``: it takes the
 JAX package's ``params`` and
 ``batch_stats`` as nested dicts of numpy arrays and returns the port's
 ``state_dict`` (mmdet reference key names, OIHW conv weights), so both
@@ -173,12 +174,16 @@ def _conv_module(sd, prefix, node, stats):
 
 
 def _bbox_head(sd, params):
+    """CondInst's box head, or DiscoBox's SOLOv2 head (``kernel_conv_i``,
+    ``cate_conv_i``, ``solo_*``)."""
     for name, node in params.items():
-        m = re.match(r'^(cls|reg)_tower_(\d+)$', name)
+        m = re.match(r'^(cls|reg)_tower_(\d+)$', name) or \
+            re.match(r'^(kernel|cate)_conv_(\d+)$', name)
         if m:
             _conv_module(sd, f'bbox_head.{m.group(1)}_convs.{m.group(2)}',
                          node, {})
-        elif name in ('conv_cls', 'conv_reg', 'conv_centerness'):
+        elif name in ('conv_cls', 'conv_reg', 'conv_centerness',
+                      'solo_cate', 'solo_kernel'):
             _emit_conv(sd, f'bbox_head.{name}', node)
         elif name == 'param_conv':
             _emit_conv(sd, 'mask_head.param_conv', node)
@@ -200,6 +205,20 @@ def _mask_branch(sd, params, stats):
         prefix = {'refine': 'mask_branch.refines',
                   'branch': 'mask_branch.mask_branch'}[kind]
         _conv_module(sd, f'{prefix}.{i}', node, stats.get(name, {}))
+
+
+def _mask_feat_head(sd, params):
+    """DiscoBox's unified mask feature head: ``level_i_conv_j`` ->
+    ``convs_all_levels.i.convj``, ``conv_pred`` -> ``conv_pred.0``."""
+    for name, node in params.items():
+        m = re.match(r'^level_(\d+)_conv_(\d+)$', name)
+        if m:
+            _conv_module(sd, f'mask_feat_head.convs_all_levels.{m.group(1)}'
+                         f'.conv{m.group(2)}', node, {})
+        elif name == 'conv_pred':
+            _conv_module(sd, 'mask_feat_head.conv_pred.0', node, {})
+        else:
+            raise KeyError(f'unknown mask feature head entry {name}')
 
 
 def _linear(sd, prefix, node):
@@ -286,12 +305,12 @@ def _box2mask_head(sd, params):
 
 def params_from_jax(params: Mapping, batch_stats: Mapping
                     ) -> Dict[str, torch.Tensor]:
-    """JAX CondInst or Box2Mask ``params`` / ``batch_stats`` -> port
-    ``state_dict``.
+    """JAX CondInst, Box2Mask or DiscoBox ``params`` / ``batch_stats`` ->
+    port ``state_dict``.
 
     Each submodule tree (backbone_m, neck_m, bbox_head_m, mask_branch_m,
-    panoptic_head_m) is converted when present, so a lone backbone or head
-    converts too."""
+    mask_feat_head_m, panoptic_head_m) is converted when present, so a lone
+    backbone or head converts too."""
     batch_stats = batch_stats or {}
     sd: Dict[str, torch.Tensor] = {}
     if 'backbone_m' in params:
@@ -304,6 +323,8 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
     if 'mask_branch_m' in params:
         _mask_branch(sd, params['mask_branch_m'],
                      batch_stats.get('mask_branch_m', {}))
+    if 'mask_feat_head_m' in params:
+        _mask_feat_head(sd, params['mask_feat_head_m'])
     if 'panoptic_head_m' in params:
         _box2mask_head(sd, params['panoptic_head_m'])
     return sd

@@ -39,6 +39,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 10. swin reference - a small Box2Mask on a tiny Swin (window 4, odd maps,
                shifted blocks): loss dict and backbone gradients on the card
                against the CPU.
+11. crf kernel - the DiscoBox CRF fixed point K7 against its plain version,
+               bit for bit, at the main path's shape (2, 128, 200, 336), its
+               transpose and ragged shapes (odd maps, K = 1 and 5, three
+               images, a plane without a target); time, bound, plain time.
+12. discobox - DiscoBox R-50 3x at full width (the shipped config with
+               ts_cfg.start_iter=2) trained for 5 SGD steps through
+               tools/train_torch.py on seeded synthetic 800x1333 images,
+               batch 2: K7 launches once a step, the teacher's forward runs
+               in the steps after start_iter only, and the EMA replica
+               equals the student up to start_iter and differs after.
+13. discobox reference - a small DiscoBox with the correspondence loss and
+               the gates forced open, two teacher-student steps on the card
+               against the CPU: logs, the object bank and the parameters.
 
 Prints a JSON line with one entry per kernel, the card's nvidia-smi line,
 and as its last line {"ok": true, "device": {...}}.
@@ -60,6 +73,8 @@ B2M_CONFIG = os.path.join(ROOT,
                           'configs/box2mask/box2mask_r50_lsj_8x2_50e_coco.py')
 SWIN_CONFIG = os.path.join(
     ROOT, 'configs/box2mask/box2mask_swin-l-p4-w12-384-lsj_8x1_50e_coco.py')
+DISCO_CONFIG = os.path.join(
+    ROOT, 'configs/discobox/discobox_solov2_coco_r50_fpn_3x.py')
 STEPS = 5
 MAIN_SHAPE = (2, 64, 200, 336)     # B, K=topk_per_img, 800/4, 1344/4
 RAGGED_SHAPES = ((1, 3, 37, 53), (2, 5, 37, 53))
@@ -96,6 +111,14 @@ SWIN_MAIN = {'stage 0': (264, 264, 12, 6, 1, 6, 32, 0),
 SWIN_RAGGED = {'Swin-T window 7': (56, 56, 7, 3, 2, 3, 32, 0),
                'ragged': (8, 12, 4, 0, 2, 2, 8, 3)}
 SWIN_REF_RTOL = 1e-3   # backbone gradients card vs CPU, relative L2 error
+# K7 at DiscoBox's shape (batch 2, max_pos 128, the 800x1344 canvas at
+# stride 4), its transpose, and ragged shapes; it must equal the plain
+# version bit for bit (exact products summed in the same order)
+CRF_MAIN = (2, 128, 200, 336)
+CRF_SHAPES = ((2, 128, 336, 200), (1, 1, 37, 53), (1, 5, 37, 53),
+              (3, 5, 37, 53))
+CRF_ITERS = 10
+DISCO_START_ITER = 2
 ADJOINT_RTOL = 1e-5                # <A x, y> vs <x, A^T y>, float64 sums
 
 # the least time of a kernel: bytes over the memory rate or operations over
@@ -120,6 +143,7 @@ REPLACES = {
     'lcm_adjoint': 'boxinstseg_tpu/ops/pallas_kernels.py:380',
     'swin_attention_forward': 'boxinstseg_tpu/ops/swin_attention.py:93',
     'swin_attention_backward': 'boxinstseg_tpu/ops/swin_attention.py:116',
+    'crf_mean_field': 'boxinstseg_tpu/ops/pallas_kernels.py:220',
 }
 SOURCES = {
     'pairwise_forward': 'boxinstseg_tpu_torch/csrc/pairwise.cu',
@@ -130,6 +154,7 @@ SOURCES = {
     'lcm_adjoint': 'boxinstseg_tpu_torch/csrc/lcm.cu',
     'swin_attention_forward': 'boxinstseg_tpu_torch/csrc/swin_attention.cu',
     'swin_attention_backward': 'boxinstseg_tpu_torch/csrc/swin_attention.cu',
+    'crf_mean_field': 'boxinstseg_tpu_torch/csrc/crf.cu',
 }
 
 
@@ -1065,6 +1090,289 @@ def phase_swin_reference():
              f'{fwd.launches} and K6 {bwd.launches} times, expected 8 each')
 
 
+def crf_inputs(shape, gen, rng):
+    """K7's inputs as DiscoBox makes them on the card: the CRF kernel of a
+    blocky image (flat 8x8 blocks at stride 4, the synthetic data's 32x32,
+    plus noise), its threshold, box targets and random scores inside them;
+    with more than one plane an image, the last plane of image 0 has no
+    target."""
+    import torch
+    from boxinstseg_tpu_torch.models.dense_heads.discobox_head import \
+        MeanFieldCRF
+    from boxinstseg_tpu_torch.ops import crf
+    b, k, h, w = shape
+    blocks = torch.rand((b, 3, h // 8 + 1, w // 8 + 1), generator=gen,
+                        device='cuda')
+    img = blocks.repeat_interleave(8, 2).repeat_interleave(8, 3)[
+        :, :, :h, :w] + 0.05 * torch.rand((b, 3, h, w), generator=gen,
+                                          device='cuda')
+    kern = MeanFieldCRF().build_kernel(img).contiguous()
+    targets = torch.zeros(shape, device='cuda')
+    for i in range(b):
+        for j in range(k):
+            y, x = rng.randint(0, h // 2), rng.randint(0, w // 2)
+            targets[i, j, y:y + rng.randint(2, h // 2 + 2),
+                    x:x + rng.randint(2, w // 2 + 2)] = 1
+    if k > 1:
+        targets[0, -1] = 0
+    scores = torch.rand(shape, generator=gen, device='cuda')
+    bin0 = (scores * targets > 0.5).float()
+    return kern, (0.5 * crf.kernel_sum(kern)).contiguous(), bin0, targets
+
+
+def phase_crf_kernel():
+    """K7 against the plain version, bit for bit, at the main path's shape
+    and the others; its time beside the plain version's and its bound."""
+    import numpy as np
+    import torch
+    from boxinstseg_tpu_torch.ops import crf
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    rng = np.random.RandomState(4)
+    report = {}
+    for shape in (CRF_MAIN,) + CRF_SHAPES:
+        kern, thresh, bin0, targets = crf_inputs(shape, gen, rng)
+        got = crf.crf_mean_field_cuda(kern, thresh, bin0, targets, CRF_ITERS)
+        want = crf.crf_mean_field_plain(kern, thresh, bin0, targets,
+                                        CRF_ITERS)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum().item())
+        moved = int((want != bin0).sum().item())
+        inside = int((targets > 0).sum().item())
+        print(f'K7 {shape}: {differ} of {got.numel()} pixels differ from '
+              f'plain; the rounds moved {moved} labels; {inside} target '
+              f'pixels')
+        if differ or not torch.equal(got, want):
+            fail(f'K7 differs from its plain version at {shape}')
+        if not moved:
+            fail(f'K7 at {shape}: the rounds moved no label; check is '
+                 f'vacuous')
+        if shape == CRF_MAIN:
+            # each input read once and the output written once; the
+            # stencil's multiply-add per offset and round at target pixels
+            # (elsewhere the state is 0 whatever the sum is)
+            report['crf_mean_field'] = dict(
+                max_abs_err=(got - want).abs().max().item(),
+                ms=cuda_ms(lambda: crf.crf_mean_field_cuda(
+                    kern, thresh, bin0, targets, CRF_ITERS)),
+                plain_ms=cuda_ms(lambda: crf.crf_mean_field_plain(
+                    kern, thresh, bin0, targets, CRF_ITERS), iters=5),
+                library_ms=None,
+                **bound(nbytes(kern, thresh, bin0, targets, bin0),
+                        CRF_ITERS * 9 * 2 * inside))
+    r = report['crf_mean_field']
+    print(f'crf_mean_field at {CRF_MAIN}, {CRF_ITERS} rounds: kernel '
+          f'{r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, bound '
+          f'{r["bound_ms"]:.4f} ms ({r["bound_by"]})')
+    return report
+
+
+def record_ema_gaps(step_cls, gaps):
+    """Wrap ``step_cls.__call__`` so that each step appends the largest
+    absolute difference between a teacher and a student parameter after
+    it to ``gaps`` (a device scalar: no host wait in the step); returns the
+    original to put back."""
+    import torch
+    call = step_cls.__call__
+
+    def recorded(self, batch, i):
+        logs = call(self, batch, i)
+        with torch.no_grad():
+            gaps.append(torch.stack(torch._foreach_norm(torch._foreach_sub(
+                list(self.teacher.parameters()),
+                list(self.model.parameters())), float('inf'))).amax())
+        return logs
+    step_cls.__call__ = recorded
+    return call
+
+
+def phase_discobox(tool):
+    """5 SGD steps of DiscoBox R-50 3x through the train entry point, the
+    teacher switched on after step DISCO_START_ITER."""
+    import torch
+    from boxinstseg_tpu_torch.engine.train_state import TSTrainStep
+    from boxinstseg_tpu_torch.ops import crf
+    register_dataset()
+    work_dir = tempfile.mkdtemp(prefix='chip_smoke_disco_')
+    seed = 0
+    opts = [f'ts_cfg.start_iter={DISCO_START_ITER}',
+            'runner.type=IterBasedRunner', f'runner.max_iters={STEPS}',
+            'data.samples_per_gpu=2', 'data.train.type=SyntheticBoxDataset']
+    try:
+        cfg = tool.load_config(DISCO_CONFIG, opts, work_dir, seed)
+        head, mf = cfg.model.bbox_head, cfg.model.mask_feat_head
+        ob = head.loss_corr.obj_bank
+        print(f'model: {describe_backbone(cfg.model.backbone)}, FPN '
+              f'{cfg.model.neck.out_channels} P2-P6, {head.stacked_convs}x '
+              f'{head.seg_feat_channels}-channel GN towers, grids '
+              f'{list(head.num_grids)}, {head.ins_out_channels}-channel '
+              f'kernels, mask feature {mf.out_channels}->{mf.num_classes}, '
+              f'{head.num_classes} classes, max_pos {head.max_pos}, CRF '
+              f'{head.loss_ts.max_iter} rounds, object bank '
+              f'{head.num_classes}x{ob.len_object_queues}, ts_cfg '
+              f'{dict(cfg.ts_cfg)}')
+        torch.cuda.reset_peak_memory_stats()
+        gaps = []
+        call = record_ema_gaps(TSTrainStep, gaps)
+        crf.crf_mean_field_cuda.launches = 0
+        try:
+            result = tool.main([DISCO_CONFIG, '--work-dir', work_dir,
+                                '--seed', str(seed), '--device', 'cuda',
+                                '--cfg-options', *opts])
+        finally:
+            TSTrainStep.__call__ = call
+        torch.cuda.synchronize()
+        launches = {'crf_mean_field': crf.crf_mean_field_cuda.launches}
+        peak = torch.cuda.max_memory_allocated()
+        gaps = [g.item() for g in gaps]
+        check_history(result, STEPS, required=('loss_ins', 'loss_cate'))
+        if launches['crf_mean_field'] != STEPS:
+            fail(f'K7 launched {launches["crf_mean_field"]} times in {STEPS}'
+                 f' steps')
+        teacher = [h['teacher_forward'] for h in result.history]
+        if teacher != [float(i > DISCO_START_ITER) for i in range(STEPS)]:
+            fail(f'the teacher ran in steps {teacher}')
+        if [g == 0 for g in gaps] != [i < DISCO_START_ITER
+                                      for i in range(STEPS)]:
+            fail(f'EMA replica gap to the student by step: {gaps}')
+        ckpt = torch.load(result.checkpoint, map_location='cpu')
+        if not {'teacher_state_dict', 'object_bank'} <= set(ckpt):
+            fail(f'checkpoint keys {sorted(ckpt)}')
+        changed, _ = changed_tensors(tool, cfg, seed, result)
+        for part in ('backbone.layer2.', 'neck.', 'bbox_head.kernel_convs.',
+                     'bbox_head.solo_cate.', 'mask_feat_head.'):
+            if not any(k.startswith(part) for k in changed):
+                fail(f'no {part}* tensor changed in training')
+        print(f'{len(changed)} tensors changed; launches {launches}; teacher '
+              f'forward by step {teacher}; EMA gap by step '
+              f'{[f"{g:.3g}" for g in gaps]}; avg_loss_ins by step '
+              f'{[round(h["avg_loss_ins"], 5) for h in result.history]}')
+        print_steps(result, peak)
+        return launches
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+
+def tiny_discobox_cfg():
+    """ResNet-18, a 32-channel FPN, the correspondence loss with loose
+    retrieval gates, a 16-slot bank and 8 queries."""
+    return dict(
+        type='DiscoBoxSOLOv2',
+        backbone=dict(type='ResNet', depth=18, frozen_stages=1),
+        neck=dict(type='FPN', in_channels=[64, 128, 256, 512],
+                  out_channels=32, start_level=0, num_outs=5),
+        bbox_head=dict(
+            type='DiscoBoxSOLOv2Head', num_classes=4, in_channels=32,
+            seg_feat_channels=16, stacked_convs=1,
+            scale_ranges=((1, 48), (24, 96), (48, 192), (96, 384),
+                          (192, 2048)),
+            num_grids=[12, 10, 8, 6, 4], ins_out_channels=16,
+            loss_ts=dict(max_iter=3), max_pos=8, max_corr_queries=8,
+            loss_corr=dict(corr_num_iter=2, dist_kernel=5, obj_bank=dict(
+                len_object_queues=16, fg_iou_thresh=0.5, bg_iou_thresh=0.5,
+                appear_thresh=0.5, ratio_range=[0.5, 2.0], mask_height=14,
+                mask_width=14, min_size=2))),
+        mask_feat_head=dict(type='DiscoBoxMaskFeatHead', in_channels=32,
+                            out_channels=16, num_classes=16,
+                            norm_cfg=dict(type='GN', num_groups=8)))
+
+
+def phase_discobox_reference():
+    """The small DiscoBox, two teacher-student steps with the gates forced
+    open (avg_loss_ins set to 0.1 before each), start_iter 0, every GT of
+    one class so that the first step's appends are retrieved in the second:
+    logs, the bank and the parameters on the card (K7) against the CPU
+    (plain version). The kernel branch's last conv is scaled by 30 so that
+    the mask scores sit away from the CRF's 0.5 threshold; the LR is 1e-4
+    (see tests/test_torch_discobox.py)."""
+    import numpy as np
+    import torch
+    from boxinstseg_tpu_torch.engine.optimizers import build_optimizer
+    from boxinstseg_tpu_torch.engine.train_state import TSTrainStep
+    from boxinstseg_tpu_torch.ops import crf
+    from boxinstseg_tpu_torch.ops.correspondence import create_object_bank
+    from boxinstseg_tpu_torch.registry import build_detector
+    rng = np.random.RandomState(0)
+    b, h, w, g = 2, 128, 128, 4
+    boxes = np.zeros((b, g, 4), np.float32)
+    masks = np.zeros((b, g, h // 4, w // 4), np.float32)
+    valid = np.zeros((b, g), bool)
+    for i in range(b):
+        for j in range(rng.randint(2, g + 1)):
+            x1, y1 = rng.randint(0, w - 48), rng.randint(0, h - 48)
+            x2, y2 = x1 + rng.randint(24, 48), y1 + rng.randint(24, 48)
+            boxes[i, j] = (x1, y1, x2, y2)
+            masks[i, j, y1 // 4:y2 // 4 + 1, x1 // 4:x2 // 4 + 1] = 1
+            valid[i, j] = True
+    batch = dict(image=rng.rand(b, 3, h, w).astype(np.float32) * 4 - 2,
+                 gt_bboxes=boxes, gt_masks=masks, gt_valid=valid,
+                 gt_labels=np.ones((b, g), np.int64))
+    cfg = tiny_discobox_cfg()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        init = build_detector(cfg).state_dict()
+    init['bbox_head.solo_kernel.weight'] = \
+        init['bbox_head.solo_kernel.weight'] * 30
+    runs = {}
+    for dev in ('cpu', 'cuda'):
+        model = build_detector(cfg)
+        model.load_state_dict(init)
+        model.to(dev)
+        opt = build_optimizer(dict(type='SGD', lr=1e-4, momentum=0.9,
+                                   weight_decay=1e-4),
+                              model.named_parameters())
+        step = TSTrainStep(
+            model, opt, lambda i: 1e-4, momentum=0.9, start_iter=0,
+            bank=create_object_bank(4, 16, (7, 7), (14, 14), 32,
+                                    device=dev))
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        before = crf.crf_mean_field_cuda.launches
+        logs = []
+        for i in range(2):
+            step.avg_loss_ins = torch.tensor(0.1, device=dev)
+            logs.append({k: v.item() for k, v in step(tb, i).items()})
+        if (crf.crf_mean_field_cuda.launches - before) != (
+                2 if dev == 'cuda' else 0):
+            fail(f'the small DiscoBox on {dev} launched K7 '
+                 f'{crf.crf_mean_field_cuda.launches - before} times')
+        runs[dev] = (logs, {k: v.cpu() for k, v in
+                            step.bank._asdict().items()},
+                     {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()})
+    (cpu_logs, cpu_bank, cpu_sd), (gpu_logs, gpu_bank, gpu_sd) = \
+        runs['cpu'], runs['cuda']
+    for i, (want, got) in enumerate(zip(cpu_logs, gpu_logs)):
+        for k in want:
+            if not math.isfinite(got[k]) or abs(got[k] - want[k]) > \
+                    REF_ATOL + REF_RTOL * abs(want[k]):
+                fail(f'step {i} {k} on the card {got[k]} vs CPU {want[k]}')
+        print(f'step {i}: ' + ', '.join(f'{k} cuda {got[k]:.7g} cpu '
+                                        f'{want[k]:.7g}' for k in want
+                                        if k.startswith('loss')))
+    if not cpu_logs[1]['loss_corr'] > 0:
+        fail(f'no correspondence loss in the second step: {cpu_logs[1]}')
+    for k in ('ptr', 'count'):
+        if not torch.equal(gpu_bank[k], cpu_bank[k]):
+            fail(f'bank {k} card {gpu_bank[k].tolist()} vs CPU '
+                 f'{cpu_bank[k].tolist()}')
+    for k in ('feat', 'mask', 'box'):
+        err = (gpu_bank[k] - cpu_bank[k]).abs().max().item()
+        if not err <= 1e-5:
+            fail(f'bank {k} card vs CPU max abs err {err}')
+    worst = 0.0
+    for k, want in cpu_sd.items():
+        if not want.is_floating_point():
+            continue
+        got = gpu_sd[k]
+        if not torch.allclose(got, want, rtol=REF_RTOL, atol=REF_ATOL):
+            fail(f'{k} after two steps: card vs CPU max abs err '
+                 f'{(got - want).abs().max().item()}')
+        worst = max(worst, (got - want).abs().max().item())
+    print(f'bank count {cpu_bank["count"].tolist()}, ptr '
+          f'{cpu_bank["ptr"].tolist()} on both; {len(cpu_sd)} tensors after '
+          f'two steps within rtol {REF_RTOL} / atol {REF_ATOL} (max abs err '
+          f'{worst:.3g})')
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, 'boxinstseg_tpu_torch')):
         fail(f'the boxinstseg_tpu_torch package is not beside {__file__}')
@@ -1090,8 +1398,8 @@ def main():
     phase('build')
     from boxinstseg_tpu_torch.ops import _native
     t0 = time.perf_counter()
-    _native.build_all(['pairwise', 'msda', 'lcm', 'swin_attention'])
-    print(f'pairwise.cu, msda.cu, lcm.cu, swin_attention.cu: '
+    _native.build_all(['pairwise', 'msda', 'lcm', 'swin_attention', 'crf'])
+    print(f'pairwise.cu, msda.cu, lcm.cu, swin_attention.cu, crf.cu: '
           f'{time.perf_counter() - t0:.2f} s (nvcc ' + ', '.join(
               f'{k} {v:.2f} s' for k, v in _native.BUILD_SECONDS.items())
           + ')')
@@ -1138,6 +1446,15 @@ def main():
 
     phase('swin reference')
     phase_swin_reference()
+
+    phase('crf kernel')
+    report.update(phase_crf_kernel())
+
+    phase('discobox')
+    launches.update(phase_discobox(tool))
+
+    phase('discobox reference')
+    phase_discobox_reference()
 
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

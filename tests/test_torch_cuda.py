@@ -13,7 +13,9 @@ of the reference's largest entry (1e-5 at least) and rtol 1e-4: the MSDA
 d(value) sums with float atomics in an order that changes between runs, and
 d(loc) carries the map's width or height as a factor. The Swin window
 attention pair K5/K6 is held to the same bound; its dbias sums the windows
-in a fixed order, so it gives the same bits from run to run.
+in a fixed order, so it gives the same bits from run to run. The CRF fixed
+point K7 sums its exact products in the plain version's order: it must give
+the plain version's bits.
 """
 import numpy as np
 import pytest
@@ -21,7 +23,9 @@ import torch
 
 from boxinstseg_tpu_torch.models.losses.levelset_loss import \
     LocalConsistencyModule
-from boxinstseg_tpu_torch.ops import lcm, msda
+from boxinstseg_tpu_torch.models.dense_heads.discobox_head import \
+    MeanFieldCRF
+from boxinstseg_tpu_torch.ops import crf, lcm, msda
 from boxinstseg_tpu_torch.ops import pairwise as pw
 from boxinstseg_tpu_torch.ops import swin_attention as swa
 
@@ -289,3 +293,76 @@ def test_swin_attention_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match='shared memory'):
         swa.window_attention_backward_cuda(qb, kb, vb, big[1], big[2], 1.0,
                                            big[3])
+
+
+def _crf_inputs(seed, device, b, k, h, w):
+    """K7's inputs as DiscoBox makes them: the kernel of a blocky image
+    (flat 8x8 blocks plus noise, so that neighbours vote), its threshold,
+    and box targets with random scores inside; with more than one plane
+    an image, the last plane of image 0 has no target."""
+    rng = np.random.RandomState(seed)
+    blocks = rng.rand(b, 3, h // 8 + 1, w // 8 + 1).astype(np.float32)
+    img = np.repeat(np.repeat(blocks, 8, 2), 8, 3)[:, :, :h, :w] \
+        + rng.rand(b, 3, h, w).astype(np.float32) * 0.05
+    kern = MeanFieldCRF().build_kernel(torch.from_numpy(img))
+    targets = np.zeros((b, k, h, w), np.float32)
+    for i in range(b):
+        for j in range(k):
+            y, x = rng.randint(0, h // 2), rng.randint(0, w // 2)
+            targets[i, j, y:y + rng.randint(2, h // 2 + 2),
+                    x:x + rng.randint(2, w // 2 + 2)] = 1
+    if k > 1:
+        targets[0, -1] = 0
+    bin0 = ((rng.rand(b, k, h, w) * targets) > 0.5).astype(np.float32)
+    out = [kern, 0.5 * crf.kernel_sum(kern), torch.from_numpy(bin0),
+           torch.from_numpy(targets)]
+    return [t.contiguous().to(device) for t in out]
+
+
+# the main path's shape (batch 2, max_pos 128, 800x1344 / 4), its
+# transpose, and ragged ones: odd maps, K = 1 and 5, three images
+@pytest.mark.parametrize('shape', [(2, 128, 200, 336), (2, 128, 336, 200),
+                                   (1, 1, 37, 53), (1, 5, 37, 53),
+                                   (3, 5, 37, 53)])
+def test_crf_kernel_equals_plain_bitwise(cuda, shape):
+    kern, thresh, bin0, targets = _crf_inputs(6, cuda, *shape)
+    got = crf.crf_mean_field_cuda(kern, thresh, bin0, targets, 10)
+    want = crf.crf_mean_field_plain(kern, thresh, bin0, targets, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not torch.equal(want, bin0)        # the rounds changed labels
+    assert shape[1] == 1 or not want[0, -1].any()
+    # no rounds: the initial state
+    assert torch.equal(crf.crf_mean_field_cuda(kern, thresh, bin0, targets,
+                                               0), bin0)
+
+
+def test_crf_dispatch_launches_the_kernel_for_cuda_tensors(cuda):
+    kern, thresh, bin0, targets = _crf_inputs(7, cuda, 2, 3, 24, 40)
+    x = torch.rand(bin0.shape, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    before = crf.crf_mean_field_cuda.launches
+    got = MeanFieldCRF(num_iter=5)(kern, x, targets)
+    assert crf.crf_mean_field_cuda.launches == before + 1
+    want = MeanFieldCRF(num_iter=5)(kern.cpu(), x.cpu(), targets.cpu())
+    assert crf.crf_mean_field_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_crf_wrapper_rejects_what_it_does_not_take(cuda):
+    kern, thresh, bin0, targets = _crf_inputs(8, cuda, 1, 2, 16, 16)
+    with pytest.raises(ValueError, match='3x3'):
+        crf.crf_mean_field_cuda(kern, thresh, bin0, targets, 10,
+                                kernel_size=5)
+    with pytest.raises(ValueError, match='CUDA'):
+        crf.crf_mean_field_cuda(kern, thresh.cpu(), bin0, targets, 10)
+    with pytest.raises(ValueError, match='float32'):
+        crf.crf_mean_field_cuda(kern, thresh, bin0.double(), targets, 10)
+    with pytest.raises(ValueError, match='contiguous'):
+        crf.crf_mean_field_cuda(kern, thresh, bin0.transpose(2, 3),
+                                targets.transpose(2, 3), 10)
+    big = torch.zeros((1, 1, 400, 400), device=cuda)
+    with pytest.raises(ValueError, match='shared memory'):
+        crf.crf_mean_field_cuda(torch.zeros((1, 9, 400, 400), device=cuda),
+                                torch.zeros((1, 400, 400), device=cuda), big,
+                                big, 10)

@@ -10,10 +10,11 @@ A tiny CondInst (ResNet-18, narrow FPN and heads) with the same weights
   (rtol 1e-4, atol 1e-6); a heavy-decay step moves the frozen stages by
   lr * wd * p exactly as optax does;
 - ``params_from_jax`` round-trips through ``convert_reference_checkpoint``;
-- importing every module of the port and running its CondInst and
-  Box2Mask train steps leaves JAX, flax, optax and cv2 out of
+- importing every module of the port and running its CondInst, Box2Mask
+  and DiscoBox train steps leaves JAX, flax, optax and cv2 out of
   ``sys.modules`` (in a subprocess: this suite imports JAX);
-- ``train_detector`` runs the loop on the CPU and saves ``_iter``.
+- ``train_detector`` runs the loop on the CPU and saves ``_iter``;
+- an error in the loader's producer thread reaches the consumer.
 """
 import os
 import subprocess
@@ -261,6 +262,28 @@ def tiny_box2mask_cfg():
             max_matched=2, tf_size=(12, 12)))
 
 
+def tiny_discobox_cfg():
+    return dict(
+        type='DiscoBoxSOLOv2',
+        backbone=dict(type='ResNet', depth=18, frozen_stages=1),
+        neck=dict(type='FPN', in_channels=[64, 128, 256, 512],
+                  out_channels=32, start_level=0, num_outs=5),
+        bbox_head=dict(
+            type='DiscoBoxSOLOv2Head', num_classes=4, in_channels=32,
+            seg_feat_channels=16, stacked_convs=1,
+            scale_ranges=((1, 24), (12, 48), (24, 96), (48, 192),
+                          (96, 2048)),
+            num_grids=[8, 6, 4, 3, 2], ins_out_channels=16,
+            loss_ts=dict(max_iter=3), max_pos=8, max_corr_queries=4,
+            loss_corr=dict(corr_num_iter=2, dist_kernel=5, obj_bank=dict(
+                len_object_queues=8, fg_iou_thresh=0.0, bg_iou_thresh=0.0,
+                appear_thresh=-1.0, ratio_range=[0.0, 10.0],
+                mask_height=14, mask_width=14, min_size=2))),
+        mask_feat_head=dict(type='DiscoBoxMaskFeatHead', in_channels=32,
+                            out_channels=16, num_classes=16,
+                            norm_cfg=dict(type='GN', num_groups=8)))
+
+
 def test_port_never_imports_jax_or_cv2():
     code = textwrap.dedent(f'''
         import sys
@@ -334,6 +357,33 @@ def test_port_never_imports_jax_or_cv2():
         assert all(torch.isfinite(v) for v in logs.values()), logs
         out = model.eval().predict(batch)
         assert out['masks_logit'].shape[:2] == out['scores'].shape
+
+        # the DiscoBox teacher-student path: CRF, correspondence with the
+        # bank (gates open, so appends and retrieval run), the EMA teacher
+        from boxinstseg_tpu_torch.engine.train_state import TSTrainStep
+        from boxinstseg_tpu_torch.ops.correspondence import \
+            create_object_bank
+        disco = {tiny_discobox_cfg()!r}
+        model = build_detector(disco)
+        opt = build_optimizer(dict(type='SGD', lr=0.01, momentum=0.9),
+                              model.named_parameters())
+        step = TSTrainStep(
+            model, opt, lambda i: 0.01, start_iter=0,
+            bank=create_object_bank(4, 8, (7, 7), (14, 14), 32))
+        boxes = torch.tensor([[[8., 8., 40., 36.], [20., 24., 60., 60.]]] * 2)
+        masks = torch.zeros(2, 2, 16, 16)
+        masks[:, 0, 2:10, 2:11] = 1
+        masks[:, 1, 6:16, 5:16] = 1
+        batch = dict(image=torch.randn(2, 3, 64, 64, generator=g),
+                     gt_bboxes=boxes, gt_masks=masks,
+                     gt_labels=torch.tensor([[1, 2], [1, 3]]),
+                     gt_valid=torch.ones(2, 2, dtype=torch.bool))
+        for i in range(3):
+            step.avg_loss_ins = torch.tensor(0.1)
+            logs = step(batch, i)
+            assert all(torch.isfinite(v) for v in logs.values()), logs
+        assert 'loss_corr' in logs and step.teacher_forwards == 2
+        assert int(step.bank.count.sum()) > 0
         bad = [m for m in ('jax', 'flax', 'optax', 'cv2')
                if m in sys.modules]
         assert not bad, bad
@@ -386,3 +436,28 @@ def test_train_detector_runs_and_saves_iter(tmp_path):
     assert set(ckpt['state_dict']) == set(model.state_dict())
     log = (tmp_path / 'train.log').read_text()
     assert 'Iter [3/3]' in log and 'grad_norm' in log
+
+
+class _FailingBatcher:
+    def __call__(self, samples):
+        raise RuntimeError('batcher failed')
+
+
+def test_loader_raises_a_producer_error_instead_of_hanging():
+    import threading
+    from boxinstseg_tpu_torch.data.loader import TrainLoader
+    loader = TrainLoader(_TinyBoxDataset(), 2, _FailingBatcher(),
+                         num_workers=1)
+    got = []
+
+    def consume():
+        try:
+            next(iter(loader))
+        except RuntimeError as exc:
+            got.append(exc)
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive(), 'the consumer hangs on a dead producer'
+    assert got and 'batcher failed' in str(got[0])

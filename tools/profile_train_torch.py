@@ -7,16 +7,23 @@ Builds the config's model (random init from --seed) and its optimizer
 (paramwise multipliers and grad clip as the config sets them), makes one
 batch of seeded synthetic samples of the config's first canvas size through
 ``StaticBatcher`` (with box bitmasks at stride 4 when the config trains on
-GT masks, as Box2Mask does), runs ``--warmup`` untimed steps, then times
-``--steps`` steps on the host clock (each ends in
+GT masks, as Box2Mask and DiscoBox do), runs ``--warmup`` untimed steps,
+then times ``--steps`` steps on the host clock (each ends in
 ``torch.cuda.synchronize()``) and traces the same number of steps with
-``torch.profiler``. Prints the wall ms/step, and for the traced steps their
-wall ms/step, the device-busy ms a step (union of kernel intervals) and the
-idle share (1 - busy / traced wall), and the top ops by device time. The
-forward passes of the model's parts (backbone, neck, bbox_head,
-mask_branch; panoptic_head and its pixel_decoder) and the panoptic head's
-loss appear as ranges of their own. Writes the Chrome trace to ``--trace``
-when given.
+``torch.profiler``. A DiscoBox config takes the teacher-student step with
+its object bank, and is measured twice, each time with its own warm-up:
+at ``ts_cfg.start_iter`` (no teacher forward) and past it (the EMA
+teacher's forward runs). A config without ``canvases`` uses the largest
+of the train pipeline's default canvases. Prints the wall ms/step, and for
+the traced steps their wall ms/step, the device-busy ms a step (union of
+kernel intervals) and the idle share (1 - busy / traced wall), and the top
+ops by device time. Busy and idle are of the traced steps only: the
+profiler adds host and device cost, so they are not compared with the
+untraced wall. The forward passes of the model's parts (backbone,
+neck, bbox_head, mask_branch, mask_feat_head; panoptic_head and its
+pixel_decoder) and the panoptic and DiscoBox heads' losses appear as ranges
+of their own. Writes the Chrome trace to ``--trace`` when given (for a
+DiscoBox config one a kind of step, its name before the extension).
 """
 import argparse
 import importlib.util
@@ -124,16 +131,22 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tool = load_train_tool()
-    from boxinstseg_tpu_torch.apis.train import batch_to_device
+    from boxinstseg_tpu_torch.apis.train import (batch_to_device,
+                                                 build_object_bank,
+                                                 default_canvases)
     from boxinstseg_tpu_torch.data.batcher import StaticBatcher
     from boxinstseg_tpu_torch.engine.optimizers import build_optimizer
-    from boxinstseg_tpu_torch.engine.train_state import make_train_step
+    from boxinstseg_tpu_torch.engine.train_state import (TSTrainStep,
+                                                         make_train_step)
+    from boxinstseg_tpu_torch.models.detectors.single_stage_ts import \
+        SingleStageWSInsTSDetector
 
     cfg = tool.load_config(args.config, args.cfg_options, seed=args.seed)
     model = tool.build_model(cfg, args.seed).cuda()
     rng = np.random.RandomState(args.seed)
     bs = cfg.data.get('samples_per_gpu', 2)
-    canvases = cfg.get('canvases')
+    canvases = cfg.get('canvases') or [max(default_canvases(cfg),
+                                           key=lambda c: c[0] * c[1])]
     with_masks = bool(cfg.get('with_gt_masks', False))
     batcher = StaticBatcher(canvases=canvases,
                             max_gts=cfg.get('max_gts', 100),
@@ -145,55 +158,75 @@ def main():
         bs, rng, *canvases[0], num_classes=num_classes,
         with_masks=with_masks)), 'cuda')
     for name in ('backbone', 'neck', 'bbox_head', 'mask_branch',
-                 'panoptic_head'):
+                 'mask_feat_head', 'panoptic_head'):
         if getattr(model, name, None) is not None:
             annotate(getattr(model, name), f'forward:{name}')
     if getattr(model, 'panoptic_head', None) is not None:
         annotate(model.panoptic_head.pixel_decoder, 'forward:pixel_decoder')
         annotate_method(model.panoptic_head, 'loss', 'loss:panoptic_head')
     opt = build_optimizer(cfg.optimizer, model.named_parameters())
-    step = make_train_step(model, opt, lambda i: cfg.optimizer['lr'],
-                           (cfg.get('optimizer_config') or {}).get(
-                               'grad_clip'))
-    # the warmup counter past 0 so the pairwise term has a gradient
-    it = (cfg.model.get('mask_head') or {}).get('pairwise_warmup', 10000)
-    for _ in range(args.warmup):
-        step(batch, it)
-    torch.cuda.synchronize()
-
-    wall = []
-    for _ in range(args.steps):
-        t0 = time.perf_counter()
-        step(batch, it)
-        torch.cuda.synchronize()
-        wall.append(1e3 * (time.perf_counter() - t0))
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            with record_function('train_step'):
-                step(batch, it)
-        torch.cuda.synchronize()
-        traced = 1e3 * (time.perf_counter() - t0) / args.steps
-    kernels = [e for e in prof.events()
-               if e.device_type.name == 'CUDA'
-               and not getattr(e, 'is_user_annotation', False)
-               and e.time_range.end > e.time_range.start]
-    busy = busy_ms(kernels) / args.steps
-    med = statistics.median(wall)
+    grad_clip = (cfg.get('optimizer_config') or {}).get('grad_clip')
+    if isinstance(model, SingleStageWSInsTSDetector):
+        annotate_method(model.bbox_head, 'loss', 'loss:bbox_head')
+        ts_cfg = dict(cfg.get('ts_cfg') or {})
+        step = TSTrainStep(
+            model, opt, lambda i: cfg.optimizer['lr'], grad_clip,
+            momentum=ts_cfg.get('momentum', 0.999),
+            start_iter=ts_cfg.get('start_iter', 13000),
+            ts_thresh=ts_cfg.get('ts_thresh', 0.3),
+            corr_thresh=ts_cfg.get('corr_thresh', 0.2),
+            bank=build_object_bank(cfg, 'cuda'))
+        # at start_iter the teacher's forward does not run, past it it does
+        kinds = [('without the teacher', step.start_iter),
+                 ('with the teacher', step.start_iter + 1)]
+    else:
+        step = make_train_step(model, opt, lambda i: cfg.optimizer['lr'],
+                               grad_clip)
+        # the warmup counter past 0 so the pairwise term has a gradient
+        kinds = [('', (cfg.model.get('mask_head') or {}).get(
+            'pairwise_warmup', 10000))]
     print(f'{torch.cuda.get_device_name(0)}; batch {bs}, canvas '
           f'{tuple(batch["image"].shape[-2:])}')
-    print(f'wall ms/step: median {med:.3f} (min {min(wall):.3f}, max '
-          f'{max(wall):.3f}); traced steps: wall {traced:.3f} ms/step, '
-          f'device busy {busy:.3f} ms/step, idle share '
-          f'{1 - busy / traced:.3f}; kernels/step '
-          f'{len(kernels) / args.steps:.0f}')
-    print(prof.key_averages().table(sort_by='cuda_time_total',
-                                    row_limit=args.top,
-                                    max_name_column_width=60))
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    for label, it in kinds:
+        for _ in range(args.warmup):
+            step(batch, it)
+        torch.cuda.synchronize()
+
+        wall = []
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            step(batch, it)
+            torch.cuda.synchronize()
+            wall.append(1e3 * (time.perf_counter() - t0))
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                with record_function('train_step'):
+                    step(batch, it)
+            torch.cuda.synchronize()
+            traced = 1e3 * (time.perf_counter() - t0) / args.steps
+        kernels = [e for e in prof.events()
+                   if e.device_type.name == 'CUDA'
+                   and not getattr(e, 'is_user_annotation', False)
+                   and e.time_range.end > e.time_range.start]
+        busy = busy_ms(kernels) / args.steps
+        med = statistics.median(wall)
+        print(f'steps {label}: ' if label else '', end='')
+        print(f'wall ms/step: median {med:.3f} (min {min(wall):.3f}, max '
+              f'{max(wall):.3f}); traced steps: wall {traced:.3f} ms/step, '
+              f'device busy {busy:.3f} ms/step, idle share '
+              f'{1 - busy / traced:.3f}; kernels/step '
+              f'{len(kernels) / args.steps:.0f}')
+        print(prof.key_averages().table(sort_by='cuda_time_total',
+                                        row_limit=args.top,
+                                        max_name_column_width=60))
+        if args.trace:
+            root, ext = os.path.splitext(args.trace)
+            prof.export_chrome_trace(
+                f'{root}_{label.replace(" ", "_")}{ext}' if label
+                else args.trace)
 
 
 if __name__ == '__main__':
