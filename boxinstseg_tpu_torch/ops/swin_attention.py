@@ -36,7 +36,8 @@ from ._native import check, load_library
 NEG = -100.0                 # the additive constant of the shift mask
 MAX_N, MAX_D = 256, 128      # the kernels' limits (csrc/swin_attention.cu)
 SMEM_LIMIT = 232448          # dynamic shared memory a block may use (H100)
-BLOCKS_TARGET = 264          # backward blocks to aim for: two per SM
+SM_SMEM = 233472             # shared memory of one SM (H100)
+KEY_TILES = (2, 4, 8, 18, 32)    # the kernels' template sizes, 8 keys a tile
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,27 +133,66 @@ def _lib():
     lib = load_library('swin_attention')
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.swin_attention_forward.argtypes = ([p] * 3 + [i] + [p] * 3 + [i] * 5
-                                           + [f, p])
+                                           + [f] + [i] * 2 + [p])
     lib.swin_attention_forward.restype = i
     lib.swin_attention_backward.argtypes = ([p] * 3 + [i] + [p] * 6
-                                            + [i] * 6 + [f, p])
+                                            + [i] * 5 + [f] + [i] * 2 + [p])
     lib.swin_attention_backward.restype = i
     return lib
 
 
-def forward_smem(n: int, d: int) -> int:
-    """Dynamic shared memory of the forward kernel (bytes)."""
-    return (3 * n * (d + 1) + 8 * n) * 4 + n * 4
+def key_tiles(n: int) -> int:
+    """Tiles of 8 keys a warp's strip holds: the kernels' template size."""
+    return next(kt for kt in KEY_TILES if 8 * kt >= n)
 
 
-def backward_smem(n: int, d: int) -> int:
-    """Dynamic shared memory of the backward kernel (bytes)."""
-    return (4 * n * (d + 1) + n * n) * 4 + n * 4
+def plan_bytes(n: int, d: int, backward: bool, bias_smem: bool) -> int:
+    """Dynamic shared memory of the kernels (``plan_floats`` in the
+    source): the head's bias (NR x (NR + 8)) if it is kept there, for the
+    backward the dbias accumulator of that size and three row statistics,
+    and the q, k, v (and g) tiles (NR x (D32 + 4)) and a region row, NR = 8
+    * key_tiles(n) rows, D32 = d rounded up to 32."""
+    nr = 8 * key_tiles(n)
+    bias = nr * (nr + 8)
+    tiles = (4 if backward else 3) * nr * (-(-d // 32) * 32 + 4) + nr
+    return 4 * ((bias if bias_smem else 0)
+                + (bias + 3 * nr if backward else 0) + tiles)
+
+
+def smem_plan(n: int, d: int, backward: bool):
+    """(bias_smem, bytes): the bias in shared memory when it fits a block
+    (it saves the L2 reads of every window), else read from L2; None when
+    neither fits."""
+    for bias_smem in (True, False):
+        need = plan_bytes(n, d, backward, bias_smem)
+        if need <= SMEM_LIMIT:
+            return bias_smem, need
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def window_groups(bw: int, h: int, smem: int, threads: int,
+                  sms: int) -> int:
+    """Window groups G: G * H persistent blocks, each walking at most
+    ceil(BW / G) windows. Picks the G with the least time in windows: the
+    waves of blocks (beyond those resident at once, by shared memory and
+    threads) times each block's windows plus one for its set-up (zeroing
+    shared memory, the bias, the first copies); among equals the smallest
+    G (fewest dbias partials)."""
+    per_sm = max(1, min(SM_SMEM // (smem + 1024), 2048 // threads, 32))
+    resident = sms * per_sm
+    return min(range(1, bw + 1),
+               key=lambda g: (-(-h * g // resident) * (-(-bw // g) + 1), g))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_inputs(q, k, v, bias_hnn, regions, g=None):
     """Shapes, types and strides the kernels take; returns (BW, N, H, D,
-    nW, ld)."""
+    nW, ld, (bias_smem, shared-memory bytes))."""
     named = [('q', q), ('k', k), ('v', v), ('bias_hnn', bias_hnn),
              ('regions', regions)] + ([('g', g)] if g is not None else [])
     for name, t in named:
@@ -192,32 +232,37 @@ def _check_inputs(q, k, v, bias_hnn, regions, g=None):
     if n > MAX_N or d > MAX_D:
         raise ValueError(f'N {n} / head dim {d} exceed the kernels\' '
                          f'{MAX_N} / {MAX_D}')
-    if g is not None:
-        if tuple(g.shape) != (bw, n, c) or not g.is_contiguous():
-            raise ValueError(f'g must be contiguous {(bw, n, c)}')
-        need = backward_smem(n, d)
-    else:
-        need = forward_smem(n, d)
-    if need > SMEM_LIMIT:
+    if g is not None and (tuple(g.shape) != (bw, n, c)
+                          or not g.is_contiguous()):
+        raise ValueError(f'g must be contiguous {(bw, n, c)}')
+    plan = smem_plan(n, d, g is not None)
+    if plan is None:
+        need = plan_bytes(n, d, g is not None, False)
         raise ValueError(f'N {n}, head dim {d} need {need} bytes of shared '
                          f'memory, more than a block has ({SMEM_LIMIT})')
     if bw * n * ld >= 2 ** 31 or bw * n * 3 * c >= 2 ** 31:
         raise ValueError('the window attention kernels index rows with '
                          '32-bit counts')
-    return bw, n, h, d, nw, ld
+    return bw, n, h, d, nw, ld, plan
+
+
+def _groups(q, bw, n, h, plan):
+    return window_groups(bw, h, plan[1], -(-n // 16) * 32,
+                         _sm_count(q.device.index))
 
 
 def window_attention_forward_cuda(q, k, v, bias_hnn, regions, scale):
     """K5 forward kernel: (BW, N, C)."""
-    bw, n, h, d, nw, ld = _check_inputs(q, k, v, bias_hnn, regions)
+    bw, n, h, d, nw, ld, plan = _check_inputs(q, k, v, bias_hnn, regions)
     lib = _lib()
+    groups = _groups(q, bw, n, h, plan)
     out = torch.empty((bw, n, h * d), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.swin_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
             bias_hnn.data_ptr(), regions.data_ptr(), out.data_ptr(), bw, n,
-            h, d, nw, float(scale), stream)
+            h, d, nw, float(scale), groups, int(plan[0]), stream)
     check(err, 'swin_attention_forward')
     window_attention_forward_cuda.launches += 1
     return out
@@ -226,18 +271,12 @@ def window_attention_forward_cuda(q, k, v, bias_hnn, regions, scale):
 window_attention_forward_cuda.launches = 0
 
 
-def backward_groups(bw: int, h: int) -> int:
-    """Window groups G of the backward: G * H blocks, each walking BW / G
-    windows and owning one slice of the dbias partial."""
-    return max(1, min(bw, -(-BLOCKS_TARGET // h)))
-
-
 def window_attention_backward_cuda(q, k, v, bias_hnn, regions, scale, g):
     """K6 backward kernel: (dqkv (BW, N, 3C) = dq | dk | dv, dbias (H, N,
     N) summed over the windows)."""
-    bw, n, h, d, nw, ld = _check_inputs(q, k, v, bias_hnn, regions, g)
+    bw, n, h, d, nw, ld, plan = _check_inputs(q, k, v, bias_hnn, regions, g)
     lib = _lib()
-    groups = backward_groups(bw, h)
+    groups = _groups(q, bw, n, h, plan)
     dqkv = torch.empty((bw, n, 3 * h * d), dtype=torch.float32,
                        device=q.device)
     partial = torch.empty((groups, h, n, n), dtype=torch.float32,
@@ -249,7 +288,7 @@ def window_attention_backward_cuda(q, k, v, bias_hnn, regions, scale, g):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
             bias_hnn.data_ptr(), regions.data_ptr(), g.data_ptr(),
             dqkv.data_ptr(), partial.data_ptr(), dbias.data_ptr(), bw, n, h,
-            d, nw, groups, float(scale), stream)
+            d, nw, float(scale), groups, int(plan[0]), stream)
     check(err, 'swin_attention_backward')
     window_attention_backward_cuda.launches += 1
     return dqkv, dbias

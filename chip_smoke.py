@@ -30,8 +30,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                versions (alone, through its autograd.Function, and K6
                against autograd through the plain forward) at Swin-L's
                stage-0 (shifted) and stage-2 shapes, Swin-T's window 7 and a
-               ragged small case; times beside the bound and beside
-               torch's scaled_dot_product_attention as a yardstick.
+               ragged small case; times at both Swin-L shapes beside the
+               bound (at the fp32 rate, and with the products in 3xTF32 on
+               the tensor cores) and beside torch's
+               scaled_dot_product_attention as a yardstick. The kernels
+               JSON rows carry stage 0; stage 2 rides beside it.
 9. swin-l    - Box2Mask Swin-L LSJ at full width trained for 5 AdamW steps
                through tools/train_torch.py on seeded synthetic 1024x1024
                images, batch 1; then MaskFormer.predict on one image (K5
@@ -125,6 +128,7 @@ ADJOINT_RTOL = 1e-5                # <A x, y> vs <x, A^T y>, float64 sums
 # the fp32 rate (NVIDIA H100 SXM data sheet, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12            # dense tensor-core rate
 # operations a kernel does per unit of work, counted from its source
 # (a transcendental counts as one): per (pixel, instance) for the pairwise
 # pair (two log-sigmoids, then per offset a pair log-prob, a logaddexp and
@@ -182,6 +186,15 @@ def bound(nbytes, ops):
     t_ops = 1e3 * ops / FP32_OPS_PER_S
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by='bytes' if t_bytes >= t_ops else 'operations')
+
+
+def bound_3xtf32(nbytes, product_ops, other_ops):
+    """The least time (ms) of a kernel whose products run in 3xTF32 on the
+    tensor cores (three TF32 products each) and its other operations at
+    the fp32 rate, or of its bytes."""
+    t_ops = 1e3 * (3 * product_ops / TF32_OPS_PER_S
+                   + other_ops / FP32_OPS_PER_S)
+    return max(1e3 * nbytes / HBM_BYTES_PER_S, t_ops)
 
 
 def nbytes(*tensors):
@@ -643,9 +656,14 @@ def phase_swin_kernels():
         # the logits and softmax (2 N^2 D + 6 N^2), then dV, dP, dQ, dK
         # (8 N^2 D) and dS and the dbias sum (4 N^2)
         pairs = bw * h
-        fwd_bound = bound(io + nbytes(g), pairs * (4 * n * n * d + 6 * n * n))
-        bwd_bound = bound(io + nbytes(g) + nbytes(qkv, bias),
-                          pairs * (10 * n * n * d + 10 * n * n))
+        fwd_bytes = io + nbytes(g)
+        bwd_bytes = io + nbytes(g) + nbytes(qkv, bias)
+        fwd_bound = bound(fwd_bytes, pairs * (4 * n * n * d + 6 * n * n))
+        bwd_bound = bound(bwd_bytes, pairs * (10 * n * n * d + 10 * n * n))
+        fwd_bound['bound_3xtf32_ms'] = bound_3xtf32(
+            fwd_bytes, pairs * 4 * n * n * d, pairs * 6 * n * n)
+        bwd_bound['bound_3xtf32_ms'] = bound_3xtf32(
+            bwd_bytes, pairs * 10 * n * n * d, pairs * 10 * n * n)
         fwd_ms = cuda_ms(lambda: swa.window_attention_forward_cuda(
             q, k, v, bias, regions, scale))
         bwd_ms = cuda_ms(lambda: swa.window_attention_backward_cuda(
@@ -687,19 +705,28 @@ def phase_swin_kernels():
         lib_bwd_ms = cuda_ms(lib_bwd)
         print(f'swin {tag}: K5 {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, '
               f'bound {fwd_bound["bound_ms"]:.4f} ms '
-              f'({fwd_bound["bound_by"]}), SDPA {lib_fwd_ms:.4f} ms '
-              f'({backend_f}; max abs diff to plain {lib_err:.3g}); K6 '
-              f'{bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound '
-              f'{bwd_bound["bound_ms"]:.4f} ms ({bwd_bound["bound_by"]}), '
-              f'SDPA forward + backward + window sum {lib_bwd_ms:.4f} ms '
-              f'({backend_b}: {", ".join(n[:60] for n in names_b[:4])})')
-        if tag == 'stage 0':
-            report['swin_attention_forward'] = dict(
-                max_abs_err=f_err, ms=fwd_ms, plain_ms=fwd_plain,
-                library_ms=lib_fwd_ms, **fwd_bound)
-            report['swin_attention_backward'] = dict(
-                max_abs_err=b_err, ms=bwd_ms, plain_ms=bwd_plain,
-                library_ms=lib_bwd_ms, **bwd_bound)
+              f'({fwd_bound["bound_by"]}; 3xTF32 '
+              f'{fwd_bound["bound_3xtf32_ms"]:.4f} ms), SDPA '
+              f'{lib_fwd_ms:.4f} ms ({backend_f}; max abs diff to plain '
+              f'{lib_err:.3g}); K6 {bwd_ms:.4f} ms, plain {bwd_plain:.4f} '
+              f'ms, bound {bwd_bound["bound_ms"]:.4f} ms '
+              f'({bwd_bound["bound_by"]}; 3xTF32 '
+              f'{bwd_bound["bound_3xtf32_ms"]:.4f} ms), SDPA forward + '
+              f'backward + window sum {lib_bwd_ms:.4f} ms ({backend_b}: '
+              f'{", ".join(n[:60] for n in names_b[:4])})')
+        rows = {'swin_attention_forward': dict(
+                    max_abs_err=f_err, ms=fwd_ms, plain_ms=fwd_plain,
+                    library_ms=lib_fwd_ms, **fwd_bound),
+                'swin_attention_backward': dict(
+                    max_abs_err=b_err, ms=bwd_ms, plain_ms=bwd_plain,
+                    library_ms=lib_bwd_ms, **bwd_bound)}
+        # the row's own numbers are stage 0's (comparable with earlier
+        # runs); the other stages ride beside them under their tag
+        for name, row in rows.items():
+            if name in report:
+                report[name][tag] = row
+            else:
+                report[name] = row
         del heads, mask, leaves, lib_out
     for tag, case in SWIN_RAGGED.items():
         check_swin(tag, case, gen)

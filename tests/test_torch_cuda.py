@@ -231,10 +231,22 @@ def _swin_inputs(seed, device, hp, wp, ws, shift, images, heads, d,
 
 # (hp, wp, window, shift, images, heads, head dim, random region ids): a
 # shifted stage-1 block of Swin-T (window 7), a small ragged case with three
-# region ids, and Swin-L's stage-3 shape (window 12, 48 heads)
+# region ids, Swin-L's stage-3 shape (window 12, 48 heads); the edges of the
+# kernels' tiling: window 4 (N = 16, one warp) at head dims 8 and 16 (both
+# padded to 32 columns), Swin-T's stage 0 at 224x224 (128 windows of 49
+# tokens), Swin-L's stage 1 (121 windows, 12 heads: blocks walk 11 windows)
+# and stage 2 (36 windows over 5 groups: some walk 8, some 7), window 12
+# with random region ids, and head dim 6 (rows copied 4 bytes at a time)
 @pytest.mark.parametrize('case', [(14, 21, 7, 3, 1, 6, 32, 0),
                                   (8, 12, 4, 0, 2, 2, 8, 3),
-                                  (36, 36, 12, 6, 1, 48, 32, 0)])
+                                  (36, 36, 12, 6, 1, 48, 32, 0),
+                                  (8, 12, 4, 2, 2, 3, 8, 0),
+                                  (12, 8, 4, 0, 1, 2, 16, 2),
+                                  (56, 56, 7, 3, 2, 3, 32, 0),
+                                  (132, 132, 12, 6, 1, 12, 32, 0),
+                                  (72, 72, 12, 0, 1, 24, 32, 0),
+                                  (24, 36, 12, 0, 2, 4, 32, 5),
+                                  (8, 12, 4, 0, 1, 2, 6, 0)])
 def test_swin_attention_kernels_match_plain(cuda, case):
     qkv, bias, regions, g = _swin_inputs(0, cuda, *case)
     scale = case[6] ** -0.5
@@ -285,7 +297,8 @@ def test_swin_attention_wrappers_reject_what_they_do_not_take(cuda):
                                           regions, 1.0)
     with pytest.raises(ValueError, match='CUDA'):
         swa.window_attention_forward_cuda(q, k, v, bias.cpu(), regions, 1.0)
-    # window 15: N = 225 fits the forward; the backward's P does not fit
+    # window 15: N = 225 fits the forward (bias read from L2); the
+    # backward's dbias accumulator does not fit beside its staged operands
     big = _swin_inputs(3, cuda, 15, 15, 15, 0, 1, 1, 32)
     c = big[0].shape[-1] // 3
     qb, kb, vb = big[0][..., :c], big[0][..., c:2 * c], big[0][..., 2 * c:]
