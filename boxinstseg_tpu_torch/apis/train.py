@@ -141,6 +141,18 @@ def get_logger(log_file: Optional[str] = None) -> logging.Logger:
     return logger
 
 
+def warn_unapplied_precision(cfg, logger: logging.Logger) -> None:
+    """Log that the config's ``fp16`` / ``bf16`` key is not applied: the
+    JAX package trains such a config in bf16 (its
+    ``apply_precision_policy``), the port stays in fp32 until the
+    precision switch is ported."""
+    for key, asks in (('fp16', cfg.get('fp16') is not None),
+                      ('bf16', bool(cfg.get('bf16')))):
+        if asks:
+            logger.warning(f'config key {key} = {cfg.get(key)!r} is not '
+                           f'applied: the PyTorch port trains in fp32')
+
+
 @dataclass
 class TrainResult:
     """What a run leaves: the step count (``_iter``), the per-iteration
@@ -158,6 +170,7 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
     work_dir = cfg.get('work_dir') or './work_dir'
     os.makedirs(work_dir, exist_ok=True)
     logger = get_logger(os.path.join(work_dir, 'train.log'))
+    warn_unapplied_precision(cfg, logger)
 
     data_cfg = cfg.get('data', {})
     batch_size = data_cfg.get('samples_per_gpu', 2)

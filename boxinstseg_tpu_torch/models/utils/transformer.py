@@ -8,8 +8,8 @@ a port ``state_dict`` has the reference checkpoint's keys:
 ``attentions.{i}``, ``ffns.0.layers.{0.0,1}``, ``norms.{i}``; a
 ``MultiheadAttention`` keeps torch's ``attn.in_proj_weight`` /
 ``attn.in_proj_bias`` / ``attn.out_proj``. Attention products are plain
-``torch.matmul``; deformable attention samples through
-``ops.msda.msda_sample_psum_pm`` (the CUDA kernels on the card).
+``torch.matmul``; deformable attention samples all levels of a layer in
+one ``ops.msda.ms_deform_attn`` call (the CUDA kernel pair on the card).
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.msda import msda_sample_psum_pm
+from ...ops.msda import ms_deform_attn
 
 
 def LayerNorm(c: int) -> nn.LayerNorm:
@@ -132,33 +132,15 @@ class MultiScaleDeformableAttention(nn.Module):
         spatial_shapes [(h, w)] per level; reference_points (B, L, 2)
         normalised xy, shared across levels."""
         c, h = self.embed_dims, self.num_heads
-        d = c // h
         nl, npnt = self.num_levels, self.num_points
         b, l, _ = query.shape
-        v = self.value_proj(value)
+        v = self.value_proj(value).reshape(b, value.shape[1], h, c // h)
         offsets = self.sampling_offsets(query).reshape(b, l, h, nl, npnt, 2)
         attn = torch.softmax(self.attention_weights(query).reshape(
             b, l, h, nl * npnt), dim=-1).reshape(b, l, h, nl, npnt)
-        ref_x = reference_points[:, None, None, :, 0]          # (b,1,1,l)
-        ref_y = reference_points[:, None, None, :, 1]
-
-        def p_major(t):
-            """(b, l, h, p) -> (b*h, p*l) with sample n = p*l + q."""
-            return t.permute(0, 2, 3, 1).reshape(b * h, npnt * l)
-
-        out = query.new_zeros((b, l, h, d))
-        start = 0
-        for lvl, (hh, ww) in enumerate(spatial_shapes):
-            vl = v[:, start:start + hh * ww].reshape(b, hh, ww, h, d)
-            vl = vl.permute(0, 3, 1, 2, 4).reshape(b * h, hh, ww, d)
-            start += hh * ww
-            off = offsets[:, :, :, lvl].permute(0, 2, 3, 1, 4)  # (b,h,p,l,2)
-            lx = (ref_x + off[..., 0] / ww).reshape(b * h, npnt * l)
-            ly = (ref_y + off[..., 1] / hh).reshape(b * h, npnt * l)
-            smp = msda_sample_psum_pm(vl, lx, ly,
-                                      p_major(attn[:, :, :, lvl]), npnt)
-            out = out + smp.reshape(b, h, l, d).transpose(1, 2)
-        return self.output_proj(out.reshape(b, l, c))
+        return self.output_proj(ms_deform_attn(v, spatial_shapes,
+                                               reference_points, offsets,
+                                               attn))
 
 
 class DetrTransformerEncoderLayer(nn.Module):

@@ -1,9 +1,22 @@
-"""Multi-scale deformable attention sampling of one level: plain PyTorch
-versions and the CUDA kernel pair (``csrc/msda.cu``).
+"""Multi-scale deformable attention sampling: plain PyTorch versions and
+the CUDA kernel pair (``csrc/msda.cu``), one launch per encoder layer.
 
-Counterpart of ``msda_sample_psum_pm`` in
-``boxinstseg_tpu/ops/msda_pallas.py``: ``_sample_flat_pm`` is the forward
-and ``_pm_bwd`` the backward.
+``ms_deform_attn(value, spatial_shapes, reference_points, offsets, attn)``
+is the sampling core of ``MultiScaleDeformableAttention`` for all levels
+at once, in the module's own layouts (no permute or copy around the call):
+
+- value (B, S, heads, D), the levels' maps concatenated row-major;
+- reference_points (B, L, 2), normalised xy shared by the levels, a
+  constant (no gradient is returned for it: it must not require grad);
+- offsets (B, L, heads, levels, P, 2), ``sampling_offsets``' output;
+- attn (B, L, heads, levels, P), after the softmax;
+- the result is (B, L, heads * D), the sum over levels in level order of
+  ``msda_sample_psum_pm`` at ``lx = ref_x + off_x / w``,
+  ``ly = ref_y + off_y / h``.
+
+``msda_sample_psum_pm`` is the per-level primitive, counterpart of
+``msda_sample_psum_pm`` in ``boxinstseg_tpu/ops/msda_pallas.py``
+(``_sample_flat_pm`` is the forward and ``_pm_bwd`` the backward):
 
 - value (BH, H, W, C); loc_x, loc_y, weight (BH, P*L) in P-major sample
   order ``n = p*L + q``; the result is (BH, L, C).
@@ -13,17 +26,20 @@ and ``_pm_bwd`` the backward.
 - The backward gives d(value), d(loc_x) = W * d(wx), d(loc_y) = H * d(wy)
   and d(weight), all gated by the sample's ``ok``.
 
-On the TPU the d(patch) kernel rounds its update rows to bf16; the port
-computes in fp32 throughout.
+It has plain versions only; the kernels take a whole layer. On the TPU the
+d(patch) kernel rounds its update rows to bf16; the port computes in fp32
+throughout.
 
-``msda_sample_psum_pm`` dispatches on the device of ``value``: a CUDA
-tensor goes through the kernels (``MSDAFunction``), a CPU tensor through
-the plain versions (``PlainMSDAFunction``).
+``ms_deform_attn`` dispatches on the device of ``value``: a CUDA tensor
+goes through the kernels (``MSDAFunction``), a CPU tensor through
+``ms_deform_attn_plain``, the loop over the levels of the per-level plain
+versions.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -112,6 +128,35 @@ class PlainMSDAFunction(torch.autograd.Function):
         return (*grads, None)
 
 
+def ms_deform_attn_plain(value, spatial_shapes, reference_points, offsets,
+                         attn, sample=PlainMSDAFunction.apply):
+    """The plain version of ``ms_deform_attn``: a loop over the levels of
+    ``sample`` (the per-level plain forward with its explicit backward;
+    ``msda_forward_plain`` gives autograd through the plain forward)."""
+    b, _, h, d = value.shape
+    l = reference_points.shape[1]
+    npnt = attn.shape[-1]
+    ref_x = reference_points[:, None, None, :, 0]          # (b,1,1,l)
+    ref_y = reference_points[:, None, None, :, 1]
+
+    def p_major(t):
+        """(b, l, h, p) -> (b*h, p*l) with sample n = p*l + q."""
+        return t.permute(0, 2, 3, 1).reshape(b * h, npnt * l)
+
+    out = value.new_zeros((b, l, h, d))
+    start = 0
+    for lvl, (hh, ww) in enumerate(spatial_shapes):
+        vl = value[:, start:start + hh * ww].reshape(b, hh, ww, h, d)
+        vl = vl.permute(0, 3, 1, 2, 4).reshape(b * h, hh, ww, d)
+        start += hh * ww
+        off = offsets[:, :, :, lvl].permute(0, 2, 3, 1, 4)  # (b,h,p,l,2)
+        lx = (ref_x + off[..., 0] / ww).reshape(b * h, npnt * l)
+        ly = (ref_y + off[..., 1] / hh).reshape(b * h, npnt * l)
+        smp = sample(vl, lx, ly, p_major(attn[:, :, :, lvl]), npnt)
+        out = out + smp.reshape(b, h, l, d).transpose(1, 2)
+    return out.reshape(b, l, h * d)
+
+
 # ------------------------------------------------------------- CUDA kernels
 
 @functools.lru_cache(maxsize=None)
@@ -119,21 +164,22 @@ def _lib():
     """Build (first call) and type the C interface of csrc/msda.cu."""
     lib = load_library('msda')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.msda_forward.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.msda_forward.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.msda_forward.restype = i
-    lib.msda_backward.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.msda_backward.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.msda_backward.restype = i
     return lib
 
 
-def _check_inputs(value, loc_x, loc_y, weight, num_points, grad_out=None):
-    named = [('value', value), ('loc_x', loc_x), ('loc_y', loc_y),
-             ('weight', weight)]
+def check_layer_inputs(value, spatial_shapes, reference_points, offsets,
+                       attn, grad_out=None):
+    """Raise on what ``ms_deform_attn`` does not take; return the level
+    shapes as a tuple of (h, w) ints."""
+    named = [('value', value), ('reference_points', reference_points),
+             ('offsets', offsets), ('attn', attn)]
     if grad_out is not None:
         named.append(('grad_out', grad_out))
     for name, t in named:
-        if not t.is_cuda:
-            raise ValueError(f'{name} must be a CUDA tensor')
         if t.device != value.device:
             raise ValueError(f'{name} is on {t.device}, value on '
                              f'{value.device}')
@@ -141,39 +187,65 @@ def _check_inputs(value, loc_x, loc_y, weight, num_points, grad_out=None):
             raise ValueError(f'{name} must be float32, got {t.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
+    if reference_points.requires_grad:
+        raise ValueError('reference_points must not require grad: no '
+                         'gradient is returned for them')
     if value.dim() != 4:
-        raise ValueError(f'value must be (BH, H, W, C), got '
+        raise ValueError(f'value must be (B, S, heads, D), got '
                          f'{tuple(value.shape)}')
-    bh = value.shape[0]
-    s = loc_x.shape[-1]
-    for name, t in named[1:4]:
-        if tuple(t.shape) != (bh, s):
-            raise ValueError(f'{name} {tuple(t.shape)} != {(bh, s)}')
-    if num_points < 1 or s % num_points:
-        raise ValueError(f'{s} samples are not P-major over {num_points} '
-                         f'points')
-    c = value.shape[-1]
-    if grad_out is not None and tuple(grad_out.shape) != (
-            bh, s // num_points, c):
+    b, s, h, d = value.shape
+    shapes = tuple((int(hh), int(ww)) for hh, ww in spatial_shapes)
+    if not shapes or min(min(sh) for sh in shapes) < 1 or \
+            sum(hh * ww for hh, ww in shapes) != s:
+        raise ValueError(f'spatial_shapes {shapes} do not tile the {s} '
+                         f'positions of value')
+    if reference_points.dim() != 3 or reference_points.shape[0] != b \
+            or reference_points.shape[2] != 2:
+        raise ValueError(f'reference_points must be (B, L, 2), got '
+                         f'{tuple(reference_points.shape)}')
+    l, nl = reference_points.shape[1], len(shapes)
+    if offsets.dim() != 6 or tuple(offsets.shape[:4]) != (b, l, h, nl) \
+            or offsets.shape[5] != 2:
+        raise ValueError(f'offsets must be {(b, l, h, nl)} + (P, 2), got '
+                         f'{tuple(offsets.shape)}')
+    want = (b, l, h, nl, offsets.shape[4])
+    if tuple(attn.shape) != want:
+        raise ValueError(f'attn {tuple(attn.shape)} != {want}')
+    if grad_out is not None and tuple(grad_out.shape) != (b, l, h * d):
         raise ValueError(f'grad_out {tuple(grad_out.shape)} != '
-                         f'{(bh, s // num_points, c)}')
-    if value.numel() >= 2 ** 31 or bh * s >= 2 ** 31:
-        raise ValueError('the MSDA kernels index with 32-bit counts')
+                         f'{(b, l, h * d)}')
+    return shapes
 
 
-def msda_forward_cuda(value, loc_x, loc_y, weight, num_points):
-    """MSDA forward kernel: (BH, L, C)."""
-    _check_inputs(value, loc_x, loc_y, weight, num_points)
+def _check_cuda(*tensors):
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError('the MSDA kernels take CUDA tensors')
+        if t.data_ptr() % 16:
+            raise ValueError('the MSDA kernels read 16-byte aligned rows')
+
+
+def _shapes_arg(shapes):
+    flat = [n for sh in shapes for n in sh]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def msda_forward_cuda(value, spatial_shapes, reference_points, offsets,
+                      attn):
+    """MSDA forward kernel of one layer: (B, L, heads * D)."""
+    shapes = check_layer_inputs(value, spatial_shapes, reference_points,
+                                offsets, attn)
+    _check_cuda(value, reference_points, offsets, attn)
     lib = _lib()
-    bh, h, w, c = value.shape
-    l = loc_x.shape[1] // num_points
-    out = torch.empty((bh, l, c), dtype=torch.float32, device=value.device)
+    b, s, h, d = value.shape
+    l, p = reference_points.shape[1], attn.shape[-1]
+    out = torch.empty((b, l, h * d), dtype=torch.float32, device=value.device)
     stream = torch.cuda.current_stream(value.device).cuda_stream
     with torch.cuda.device(value.device):
-        err = lib.msda_forward(value.data_ptr(), loc_x.data_ptr(),
-                               loc_y.data_ptr(), weight.data_ptr(),
-                               out.data_ptr(), bh, h, w, c, l, num_points,
-                               stream)
+        err = lib.msda_forward(
+            value.data_ptr(), reference_points.data_ptr(),
+            offsets.data_ptr(), attn.data_ptr(), out.data_ptr(),
+            _shapes_arg(shapes), len(shapes), b, s, l, h, d, p, stream)
     check(err, 'msda_forward')
     msda_forward_cuda.launches += 1
     return out
@@ -182,45 +254,70 @@ def msda_forward_cuda(value, loc_x, loc_y, weight, num_points):
 msda_forward_cuda.launches = 0
 
 
-def msda_backward_cuda(value, loc_x, loc_y, weight, grad_out, num_points):
-    """MSDA backward kernel: (d_value, d_loc_x, d_loc_y, d_weight)."""
-    _check_inputs(value, loc_x, loc_y, weight, num_points, grad_out)
+def msda_backward_cuda(value, spatial_shapes, reference_points, offsets,
+                       attn, grad_out):
+    """MSDA backward kernel of one layer: (d_value, d_offsets, d_attn)."""
+    shapes = check_layer_inputs(value, spatial_shapes, reference_points,
+                                offsets, attn, grad_out)
+    _check_cuda(value, reference_points, offsets, attn, grad_out)
     lib = _lib()
-    bh, h, w, c = value.shape
-    l = loc_x.shape[1] // num_points
+    b, s, h, d = value.shape
+    l, p = reference_points.shape[1], attn.shape[-1]
     d_value = torch.zeros_like(value)
-    d_loc_x = torch.empty_like(loc_x)
-    d_loc_y = torch.empty_like(loc_y)
-    d_weight = torch.empty_like(weight)
+    d_offsets = torch.empty_like(offsets)
+    d_attn = torch.empty_like(attn)
     stream = torch.cuda.current_stream(value.device).cuda_stream
     with torch.cuda.device(value.device):
         err = lib.msda_backward(
-            value.data_ptr(), loc_x.data_ptr(), loc_y.data_ptr(),
-            weight.data_ptr(), grad_out.data_ptr(), d_value.data_ptr(),
-            d_loc_x.data_ptr(), d_loc_y.data_ptr(), d_weight.data_ptr(), bh,
-            h, w, c, l, num_points, stream)
+            value.data_ptr(), reference_points.data_ptr(),
+            offsets.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
+            d_value.data_ptr(), d_offsets.data_ptr(), d_attn.data_ptr(),
+            _shapes_arg(shapes), len(shapes), b, s, l, h, d, p, stream)
     check(err, 'msda_backward')
     msda_backward_cuda.launches += 1
-    return d_value, d_loc_x, d_loc_y, d_weight
+    return d_value, d_offsets, d_attn
 
 
 msda_backward_cuda.launches = 0
 
 
 class MSDAFunction(torch.autograd.Function):
-    """Forward kernel, backward kernel."""
+    """Forward kernel, backward kernel; no gradient for the reference
+    points."""
 
     @staticmethod
-    def forward(ctx, value, loc_x, loc_y, weight, num_points):
-        ctx.save_for_backward(value, loc_x, loc_y, weight)
-        ctx.num_points = num_points
-        return msda_forward_cuda(value, loc_x, loc_y, weight, num_points)
+    def forward(ctx, value, spatial_shapes, reference_points, offsets, attn):
+        ctx.save_for_backward(value, reference_points, offsets, attn)
+        ctx.spatial_shapes = spatial_shapes
+        return msda_forward_cuda(value, spatial_shapes, reference_points,
+                                 offsets, attn)
 
     @staticmethod
     def backward(ctx, g):
-        grads = msda_backward_cuda(*ctx.saved_tensors, g.contiguous(),
-                                   ctx.num_points)
-        return (*grads, None)
+        value, ref, offsets, attn = ctx.saved_tensors
+        d_value, d_offsets, d_attn = msda_backward_cuda(
+            value, ctx.spatial_shapes, ref, offsets, attn, g.contiguous())
+        return d_value, None, None, d_offsets, d_attn
+
+
+def ms_deform_attn(value: torch.Tensor,
+                   spatial_shapes: Sequence[Tuple[int, int]],
+                   reference_points: torch.Tensor, offsets: torch.Tensor,
+                   attn: torch.Tensor) -> torch.Tensor:
+    """Deformable-attention sampling of one layer, all levels: (B, L,
+    heads * D). See the module docstring for the layouts.
+
+    A CUDA tensor launches the kernel pair (and raises on what it does not
+    take); a CPU tensor takes the plain version."""
+    shapes = check_layer_inputs(value, spatial_shapes, reference_points,
+                                offsets, attn)
+    if value.is_cuda:
+        return MSDAFunction.apply(value, shapes, reference_points, offsets,
+                                  attn)
+    if value.device.type == 'cpu':
+        return ms_deform_attn_plain(value, shapes, reference_points,
+                                    offsets, attn)
+    raise ValueError(f'no MSDA sampler for device {value.device}')
 
 
 def msda_sample_psum_pm(value: torch.Tensor, loc_x: torch.Tensor,
@@ -231,12 +328,12 @@ def msda_sample_psum_pm(value: torch.Tensor, loc_x: torch.Tensor,
     value: (BH, H, W, C); loc_x/loc_y/weight: (BH, P*L) with sample
     n = p*L + q. Returns (BH, L, C) = sum_p weight * bilinear_sample.
 
-    A CUDA tensor launches the kernels (and raises on what they do not
-    take); a CPU tensor takes the plain versions."""
-    args = (value.contiguous(), loc_x.contiguous(), loc_y.contiguous(),
-            weight.contiguous(), num_points)
-    if value.is_cuda:
-        return MSDAFunction.apply(*args)
-    if value.device.type == 'cpu':
-        return PlainMSDAFunction.apply(*args)
-    raise ValueError(f'no MSDA sampler for device {value.device}')
+    The plain version, for CPU tensors; the kernels take a whole layer, so
+    a CUDA tensor raises (call ``ms_deform_attn``)."""
+    if value.device.type != 'cpu':
+        raise ValueError(f'msda_sample_psum_pm runs on the CPU only; on '
+                         f'{value.device} call ms_deform_attn with the '
+                         f'layer\'s inputs')
+    return PlainMSDAFunction.apply(value.contiguous(), loc_x.contiguous(),
+                                   loc_y.contiguous(), weight.contiguous(),
+                                   num_points)

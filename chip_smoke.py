@@ -11,9 +11,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                source, all started together.
 3. kernels   - each kernel against its plain PyTorch version on the card, at
                the main path's shapes and at ragged ones: the pairwise pair
-               (K1/K2), the MSDA forward and backward, the LCM forward and
-               adjoint (with the identity <A x, y> = <x, A^T y>); errors,
-               times and each kernel's bound.
+               (K1/K2), the MSDA pair (one launch a layer each way, at one
+               Box2Mask encoder layer's full shapes and three ragged layer
+               cases; the backward also against autograd through the plain
+               forward, and whether two backward runs give the same bits),
+               the LCM forward and adjoint (with the identity
+               <A x, y> = <x, A^T y>); errors, times and each kernel's
+               bound.
 4. slice     - BoxInst R-50-FPN 1x at full width (random init from a seed)
                trained for 5 SGD steps through tools/train_torch.py on
                seeded synthetic 800x1333 images; the pairwise kernels'
@@ -23,7 +27,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 6. box2mask  - Box2Mask R-50 LSJ at full width trained for 5 AdamW steps
                through tools/train_torch.py on seeded synthetic 1024x1024
                images; the MSDA and LCM kernels' launch counts over that run
-               must equal their per-step counts times the step count.
+               must equal their per-step counts (MSDA: one forward and one
+               backward an encoder layer) times the step count. Each step's
+               time is printed beside its live GT count.
 7. box2mask reference - a small Box2Mask's loss dict on the card against the
                CPU.
 8. swin kernels - the Swin window attention pair K5/K6 against its plain
@@ -51,7 +57,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                tools/train_torch.py on seeded synthetic 800x1333 images,
                batch 2: K7 launches once a step, the teacher's forward runs
                in the steps after start_iter only, and the EMA replica
-               equals the student up to start_iter and differs after.
+               equals the student up to start_iter and differs after; the
+               median step time without and with the teacher apart.
 13. discobox reference - a small DiscoBox with the correspondence loss and
                the gates forced open, two teacher-student steps on the card
                against the CPU: logs, the object bank and the parameters.
@@ -59,6 +66,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 Prints a JSON line with one entry per kernel, the card's nvidia-smi line,
 and as its last line {"ok": true, "device": {...}}.
 """
+import contextlib
 import importlib.util
 import json
 import math
@@ -87,13 +95,18 @@ VALUE_RTOL = 1e-5                  # fp32, summation order
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-5
 REF_RTOL, REF_ATOL = 1e-4, 1e-6    # cuDNN vs CPU conv summation order
 
-# Box2Mask R-50 LSJ: batch 2 x 8 heads, 32 channels a head, 4 points, the
-# encoder levels at strides 8, 16, 32 of the 1024x1024 canvas
-MSDA_BH, MSDA_C, MSDA_P = 16, 32, 4
-MSDA_LEVELS = ((128, 128), (64, 64), (32, 32))
-# (bh, h, w, c, queries, points, spread): odd maps, channels that are not a
-# warp's width, samples spread up to `spread` map widths outside
-MSDA_RAGGED = ((3, 13, 7, 32, 37, 4, 0.6), (2, 5, 11, 48, 19, 3, 1.5))
+# one encoder layer of Box2Mask's pixel decoder (R-50 and Swin-L LSJ):
+# batch 2, 8 heads, 32 channels a head, 4 points, the levels at strides 32,
+# 16, 8 of the 1024x1024 canvas in the decoder's order; L = S = 21,504
+MSDA_B, MSDA_HEADS, MSDA_D, MSDA_P = 2, 8, 32, 4
+MSDA_LEVELS = ((32, 32), (64, 64), (128, 128))
+# layer cases (batch, heads, D, P, levels, queries, spread) on odd maps:
+# the encoder's own queries (None) and random ones on the fast pair's D 32
+# and P 4; D 48 and P 3 on two levels (the generic pair); samples spread up
+# to `spread` map widths outside
+MSDA_RAGGED = ((1, 3, 32, 4, ((13, 7), (7, 4), (4, 2)), None, 0),
+               (1, 3, 32, 4, ((13, 7), (7, 4), (4, 2)), 37, 0.6),
+               (2, 1, 48, 3, ((5, 11), (3, 6)), 19, 1.5))
 LCM_MAIN = (2, 80, 96, 96)         # B, 10 outputs x 8 GT slots, tf_size
 LCM_RAGGED = ((1, 3, 37, 53), (2, 5, 3, 5))
 LCM_ITERS = 10
@@ -364,123 +377,153 @@ def phase_kernels():
     return report
 
 
-def msda_main_inputs(hh, ww, gen):
-    """One level's call of the Box2Mask encoder: every query of the three
-    levels samples this (hh, ww) map around its own grid centre, at offsets
-    of up to 4 cells (the init bias) plus noise; weights of the size a
-    softmax over 12 (level, point) logits gives."""
+def msda_layer_inputs(b, heads, d, p, levels, l, spread, gen):
+    """One encoder layer's inputs to ``ms_deform_attn``. ``l`` None: the
+    encoder's queries, one per position of every level with its reference
+    point at the grid centre, sampling at the init bias (1-4 cells along
+    each head's direction) plus unit noise, with the weights of a softmax
+    over random logits. Else ``l`` random reference points whose samples
+    spread up to ``spread`` map widths outside every level."""
     import torch
+    from boxinstseg_tpu_torch.models.utils.transformer import \
+        msda_offset_bias_init
     dev = 'cuda'
-    refs = []
-    for h, w in MSDA_LEVELS:
-        ys = (torch.arange(h, device=dev, dtype=torch.float32) + 0.5) / h
-        xs = (torch.arange(w, device=dev, dtype=torch.float32) + 0.5) / w
-        refs.append(torch.stack(torch.meshgrid(xs, ys, indexing='xy'),
-                                -1).reshape(-1, 2))
-    ref = torch.cat(refs)                                  # (L, 2)
-    l = ref.shape[0]
-    shape = (MSDA_BH, MSDA_P, l)
-    cells = torch.randint(-4, 5, (2,) + shape, generator=gen, device=dev)
-    off = cells + 0.5 * torch.randn((2,) + shape, generator=gen, device=dev)
-    lx = (ref[:, 0] + off[0] / ww).reshape(MSDA_BH, -1)
-    ly = (ref[:, 1] + off[1] / hh).reshape(MSDA_BH, -1)
-    value = torch.randn((MSDA_BH, hh, ww, MSDA_C), generator=gen, device=dev)
-    weight = torch.rand(lx.shape, generator=gen, device=dev) / 6
-    grad = torch.randn((MSDA_BH, l, MSDA_C), generator=gen, device=dev)
-    return value, lx.contiguous(), ly.contiguous(), weight, grad
+    nl = len(levels)
+    s = sum(h * w for h, w in levels)
+    size = torch.tensor([[w, h] for h, w in levels], device=dev,
+                        dtype=torch.float32)[:, None]          # (nl, 1, 2)
+    if l is None:
+        refs = []
+        for h, w in levels:
+            ys = (torch.arange(h, device=dev, dtype=torch.float32) + 0.5) / h
+            xs = (torch.arange(w, device=dev, dtype=torch.float32) + 0.5) / w
+            refs.append(torch.stack(torch.meshgrid(xs, ys, indexing='xy'),
+                                    -1).reshape(-1, 2))
+        ref = torch.cat(refs)[None].expand(b, s, 2).contiguous()
+        l = s
+        bias = torch.from_numpy(msda_offset_bias_init(heads, nl, p)).to(dev)
+        offsets = bias.reshape(heads, nl, p, 2) + torch.randn(
+            (b, l, heads, nl, p, 2), generator=gen, device=dev)
+    else:
+        ref = torch.rand((b, l, 2), generator=gen, device=dev)
+        loc = torch.rand((b, l, heads, nl, p, 2), generator=gen,
+                         device=dev) * (1 + 2 * spread) - spread
+        offsets = (loc - ref[:, :, None, None, None]) * size
+    attn = torch.softmax(torch.randn((b, l, heads, nl * p), generator=gen,
+                                     device=dev), -1)
+    return (torch.randn((b, s, heads, d), generator=gen, device=dev), ref,
+            offsets.contiguous(), attn.reshape(b, l, heads, nl, p),
+            torch.randn((b, l, heads * d), generator=gen, device=dev))
 
 
-def msda_ragged_inputs(bh, h, w, c, l, p, spread, gen):
+def msda_kept(levels, ref, offsets):
+    """The number of samples that count (``floor(x)`` in [-1, w-1] and
+    ``floor(y)`` in [-1, h-1]), computed as the plain version does."""
     import torch
-    dev = 'cuda'
-    loc = torch.rand((2, bh, p * l), generator=gen, device=dev) * (
-        1 + 2 * spread) - spread
-    return (torch.randn((bh, h, w, c), generator=gen, device=dev),
-            loc[0].contiguous(), loc[1].contiguous(),
-            torch.rand((bh, p * l), generator=gen, device=dev),
-            torch.randn((bh, l, c), generator=gen, device=dev))
+    kept = 0
+    for lvl, (h, w) in enumerate(levels):
+        lx = ref[:, :, None, None, 0] + offsets[:, :, :, lvl, :, 0] / w
+        ly = ref[:, :, None, None, 1] + offsets[:, :, :, lvl, :, 1] / h
+        x0 = torch.floor(lx * w - 0.5)
+        y0 = torch.floor(ly * h - 0.5)
+        kept += int(((x0 >= -1) & (x0 <= w - 1) & (y0 >= -1)
+                     & (y0 <= h - 1)).sum().item())
+    return kept
 
 
-def check_msda(tag, value, lx, ly, weight, grad, p):
-    """The MSDA kernels against the plain versions (and the backward
-    against autograd through the plain forward); returns the forward and
-    backward max abs errors."""
+def check_msda(tag, levels, value, ref, offsets, attn, grad):
+    """The MSDA kernel pair against ``ms_deform_attn``'s plain version: the
+    forward, the backward against the plain backward and against autograd
+    through the plain forward, both through ``MSDAFunction``; whether two
+    backward runs give the same bits. Returns the forward and backward max
+    abs errors and the largest difference between two backward runs."""
     import torch
     from boxinstseg_tpu_torch.ops import msda
-    out_k = msda.msda_forward_cuda(value, lx, ly, weight, p)
-    out_p = msda.msda_forward_plain(value, lx, ly, weight, p)
+    out_k = msda.msda_forward_cuda(value, levels, ref, offsets, attn)
+    out_p = msda.ms_deform_attn_plain(value, levels, ref, offsets, attn)
     f_err = compare(f'MSDA forward {tag}', out_k, out_p)
-    grads_k = msda.msda_backward_cuda(value, lx, ly, weight, grad, p)
-    grads_p = msda.msda_backward_plain(value, lx, ly, weight, grad, p)
-    leaves = [t.clone().requires_grad_(True) for t in (value, lx, ly, weight)]
-    grads_a = torch.autograd.grad(msda.msda_forward_plain(*leaves, p),
-                                  leaves, grad)
+    grads_k = msda.msda_backward_cuda(value, levels, ref, offsets, attn,
+                                      grad)
+    leaves = [t.clone().requires_grad_(True) for t in (value, offsets, attn)]
+    grads_p = torch.autograd.grad(msda.ms_deform_attn_plain(
+        leaves[0], levels, ref, leaves[1], leaves[2]), leaves, grad)
+    grads_a = torch.autograd.grad(msda.ms_deform_attn_plain(
+        leaves[0], levels, ref, leaves[1], leaves[2],
+        sample=msda.msda_forward_plain), leaves, grad)
     b_err = 0.0
-    for name, gk, gp, ga in zip(('d_value', 'd_loc_x', 'd_loc_y',
-                                 'd_weight'), grads_k, grads_p, grads_a):
+    names = ('d_value', 'd_offsets', 'd_attn')
+    for name, gk, gp, ga in zip(names, grads_k, grads_p, grads_a):
         b_err = max(b_err, compare(f'MSDA backward {name} {tag}', gk, gp))
         compare(f'MSDA backward {name} {tag} vs autograd', gk, ga)
-    # the kernels through their autograd.Function
-    leaves = [t.clone().requires_grad_(True) for t in (value, lx, ly, weight)]
-    out_f = msda.MSDAFunction.apply(*leaves, p)
-    out_f.backward(grad)
+    out_f = msda.ms_deform_attn(leaves[0], levels, ref, leaves[1], leaves[2])
+    grads_f = torch.autograd.grad(out_f, leaves, grad)
     compare(f'MSDAFunction forward {tag}', out_f.detach(), out_p)
-    for name, t, gp in zip(('value', 'loc_x', 'loc_y', 'weight'), leaves,
-                           grads_p):
-        compare(f'MSDAFunction d_{name} {tag}', t.grad, gp)
-    x0 = torch.floor(lx * value.shape[2] - 0.5)
-    y0 = torch.floor(ly * value.shape[1] - 0.5)
-    kept = ((x0 >= -1) & (x0 <= value.shape[2] - 1) & (y0 >= -1)
-            & (y0 <= value.shape[1] - 1))
+    for name, gf, gp in zip(names, grads_f, grads_p):
+        compare(f'MSDAFunction {name} {tag}', gf, gp)
+    again = msda.msda_backward_cuda(value, levels, ref, offsets, attn, grad)
+    same = [torch.equal(a, b) for a, b in zip(grads_k, again)]
+    rerun = max((a - b).abs().max().item() for a, b in zip(grads_k, again))
+    kept = msda_kept(levels, ref, offsets)
     print(f'MSDA {tag}: forward max abs err {f_err:.3g}, backward '
-          f'{b_err:.3g} (max |d_loc_x| '
+          f'{b_err:.3g} (max |d_offsets| '
           f'{grads_p[1].abs().max().item():.3g}); samples kept '
-          f'{kept.float().mean().item():.4f}')
-    return f_err, b_err, int(kept.sum().item())
+          f'{kept / attn.numel():.4f}; two backward runs bit-identical '
+          f'{dict(zip(names, same))}, largest difference {rerun:.3g}')
+    return f_err, b_err, rerun, kept
 
 
 def phase_msda_kernels():
+    """The MSDA kernel pair at one Box2Mask encoder layer's full shapes and
+    at the ragged layer cases; times, plain times and bounds at the full
+    shapes."""
     import torch
     from boxinstseg_tpu_torch.ops import msda
     gen = torch.Generator(device='cuda').manual_seed(1)
-    report = {}
-    for (hh, ww) in MSDA_LEVELS:
-        value, lx, ly, weight, grad = msda_main_inputs(hh, ww, gen)
-        tag = f'(BH {MSDA_BH}, {hh}x{ww}, C {MSDA_C}, L {grad.shape[1]}, ' \
-              f'P {MSDA_P})'
-        f_err, b_err, kept = check_msda(tag, value, lx, ly, weight, grad,
-                                        MSDA_P)
-        fwd_ms = cuda_ms(lambda: msda.msda_forward_cuda(value, lx, ly,
-                                                        weight, MSDA_P))
-        bwd_ms = cuda_ms(lambda: msda.msda_backward_cuda(
-            value, lx, ly, weight, grad, MSDA_P))
-        fwd_plain = cuda_ms(lambda: msda.msda_forward_plain(
-            value, lx, ly, weight, MSDA_P), iters=5)
-        bwd_plain = cuda_ms(lambda: msda.msda_backward_plain(
-            value, lx, ly, weight, grad, MSDA_P), iters=5)
-        # each input read once, each output written once
-        io = nbytes(value, lx, ly, weight)
-        fwd_bound = bound(io + nbytes(grad),
-                          kept * (8 * MSDA_C + 16))
-        bwd_bound = bound(io + nbytes(grad) + io,
-                          kept * (16 * MSDA_C + 30))
-        print(f'MSDA {tag}: forward kernel {fwd_ms:.4f} ms, plain '
-              f'{fwd_plain:.4f} ms, bound {fwd_bound["bound_ms"]:.4f} ms '
-              f'({fwd_bound["bound_by"]}); backward kernel {bwd_ms:.4f} ms,'
-              f' plain {bwd_plain:.4f} ms, bound '
-              f'{bwd_bound["bound_ms"]:.4f} ms ({bwd_bound["bound_by"]})')
-        if (hh, ww) == MSDA_LEVELS[0]:
-            report['msda_forward'] = dict(max_abs_err=f_err, ms=fwd_ms,
-                                          plain_ms=fwd_plain,
-                                          library_ms=None, **fwd_bound)
-            report['msda_backward'] = dict(max_abs_err=b_err, ms=bwd_ms,
-                                           plain_ms=bwd_plain,
-                                           library_ms=None, **bwd_bound)
-    for shape in MSDA_RAGGED:
-        bh, h, w, c, l, p, spread = shape
-        check_msda(f'ragged (BH {bh}, {h}x{w}, C {c}, L {l}, P {p}, '
-                   f'spread {spread})',
-                   *msda_ragged_inputs(*shape, gen), p)
+    value, ref, offsets, attn, grad = msda_layer_inputs(
+        MSDA_B, MSDA_HEADS, MSDA_D, MSDA_P, MSDA_LEVELS, None, 0, gen)
+    tag = (f'(B {MSDA_B}, heads {MSDA_HEADS}, D {MSDA_D}, P {MSDA_P}, '
+           f'levels {MSDA_LEVELS}, L {ref.shape[1]})')
+    f_err, b_err, rerun, kept = check_msda(tag, MSDA_LEVELS, value, ref,
+                                           offsets, attn, grad)
+    fwd_ms = cuda_ms(lambda: msda.msda_forward_cuda(value, MSDA_LEVELS, ref,
+                                                    offsets, attn))
+    bwd_ms = cuda_ms(lambda: msda.msda_backward_cuda(
+        value, MSDA_LEVELS, ref, offsets, attn, grad))
+    fwd_plain = cuda_ms(lambda: msda.ms_deform_attn_plain(
+        value, MSDA_LEVELS, ref, offsets, attn), iters=5)
+    leaves = [t.clone().requires_grad_(True) for t in (value, offsets, attn)]
+    out_p = msda.ms_deform_attn_plain(leaves[0], MSDA_LEVELS, ref, leaves[1],
+                                      leaves[2])
+    bwd_plain = cuda_ms(lambda: torch.autograd.grad(
+        out_p, leaves, grad, retain_graph=True), iters=5)
+    # each input read once, each output written once; operations per kept
+    # sample: four corners times a multiply-add per channel plus the corner
+    # weights (the backward adds the row-dots and the location gradient)
+    inputs = nbytes(value, ref, offsets, attn)
+    fwd_bound = bound(inputs + nbytes(grad), kept * (8 * MSDA_D + 16))
+    bwd_bound = bound(inputs + nbytes(grad) + nbytes(value, offsets, attn),
+                      kept * (16 * MSDA_D + 30))
+    # the corner rows the kernels gather through L1 / L2: four 4*D-byte
+    # rows a kept sample
+    gathered = kept * 4 * MSDA_D * 4
+    for name, ms, plain, bnd in (('forward', fwd_ms, fwd_plain, fwd_bound),
+                                 ('backward', bwd_ms, bwd_plain, bwd_bound)):
+        print(f'MSDA {name} {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms,'
+              f' bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_by"]}), '
+              f'{bnd["bound_ms"] / ms:.3f} of it; corner rows gathered '
+              f'{gathered / 1e9:.3f} GB, {gathered / ms / 1e9:.3f} TB/s')
+    report = {
+        'msda_forward': dict(max_abs_err=f_err, ms=fwd_ms,
+                             plain_ms=fwd_plain, library_ms=None,
+                             **fwd_bound),
+        'msda_backward': dict(max_abs_err=b_err, ms=bwd_ms,
+                              plain_ms=bwd_plain, library_ms=None,
+                              rerun_max_diff=rerun, **bwd_bound)}
+    for b, heads, d, p, levels, l, spread in MSDA_RAGGED:
+        check_msda(f'ragged (B {b}, heads {heads}, D {d}, P {p}, levels '
+                   f'{levels}, L {l or "S"}, spread {spread})', levels,
+                   *msda_layer_inputs(b, heads, d, p, levels, l, spread,
+                                      gen))
     return report
 
 
@@ -766,15 +809,44 @@ def changed_tensors(tool, cfg, seed, result):
     return changed, model
 
 
-def print_steps(result, peak):
+@contextlib.contextmanager
+def live_gt_counts():
+    """Collect each training step's live GT count (the host batch's
+    ``gt_valid``, read before it goes to the card: no device wait)."""
+    from boxinstseg_tpu_torch.apis import train
+    to_device = train.batch_to_device
+    counts = []
+
+    def counted(batch, device):
+        counts.append(int(batch['gt_valid'].sum()))
+        return to_device(batch, device)
+    train.batch_to_device = counted
+    try:
+        yield counts
+    finally:
+        train.batch_to_device = to_device
+
+
+def print_steps(result, peak, gts, teacher_after=None):
+    """Each step's time beside its live GT count; the median of steps 2-5,
+    or for DiscoBox (``teacher_after`` = start_iter) of the steps without
+    and with the teacher's forward apart (PERF.md section 2)."""
     step_ms = [1e3 * (h['time'] - h['data_time']) for h in result.history]
     print(f'losses at step {result.step}: ' + ', '.join(
         f'{k} {v:.5f}' for k, v in result.history[-1].items()
         if k.startswith('loss')))
-    print(f'step ms (compute + sync, data excluded): '
-          f'{[round(t, 3) for t in step_ms]}; median of steps 2-'
-          f'{result.step} {statistics.median(step_ms[1:]):.3f} ms; peak '
-          f'memory {peak / 2**30:.3f} GiB')
+    print('step ms (compute + sync, data excluded) with live GTs: ' +
+          ', '.join(f'{t:.3f} ({n} GTs)' for t, n in zip(step_ms, gts)))
+    if teacher_after is None:
+        medians = (f'median of steps 2-{result.step} '
+                   f'{statistics.median(step_ms[1:]):.3f} ms')
+    else:
+        k = teacher_after + 1
+        medians = (f'median of steps 2-{k} (no teacher) '
+                   f'{statistics.median(step_ms[1:k]):.3f} ms, of steps '
+                   f'{k + 1}-{result.step} (teacher) '
+                   f'{statistics.median(step_ms[k:]):.3f} ms')
+    print(f'{medians}; peak memory {peak / 2**30:.3f} GiB')
 
 
 def phase_slice(tool):
@@ -799,9 +871,10 @@ def phase_slice(tool):
         torch.cuda.reset_peak_memory_stats()
         pw.pairwise_forward_cuda.launches = 0
         pw.pairwise_grad_cuda.launches = 0
-        result = tool.main([CONFIG, '--work-dir', work_dir, '--seed',
-                            str(seed), '--device', 'cuda',
-                            '--cfg-options', *opts])
+        with live_gt_counts() as gts:
+            result = tool.main([CONFIG, '--work-dir', work_dir, '--seed',
+                                str(seed), '--device', 'cuda',
+                                '--cfg-options', *opts])
         torch.cuda.synchronize()
         launches = {'pairwise_forward': pw.pairwise_forward_cuda.launches,
                     'pairwise_backward': pw.pairwise_grad_cuda.launches}
@@ -814,7 +887,7 @@ def phase_slice(tool):
         if not changed:
             fail('no parameter changed in training')
         print(f'{len(changed)} tensors changed; launches {launches}')
-        print_steps(result, peak)
+        print_steps(result, peak, gts)
         return launches
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
@@ -862,10 +935,10 @@ def phase_box2mask(tool, config, samples, parts):
               f'{cfg.canvases[0]}, batch {samples}, optimizer '
               f'{cfg.optimizer.type}, grad clip '
               f'{cfg.optimizer_config.grad_clip.max_norm}')
-        # one MSDA launch per encoder layer and level; one LCM refinement;
-        # one K5 and one K6 per Swin block
-        per_step = {'msda_forward': pd.num_encoder_layers * levels,
-                    'msda_backward': pd.num_encoder_layers * levels,
+        # one MSDA launch per encoder layer (all levels); one LCM
+        # refinement; one K5 and one K6 per Swin block
+        per_step = {'msda_forward': pd.num_encoder_layers,
+                    'msda_backward': pd.num_encoder_layers,
                     'lcm_forward': 1, 'lcm_adjoint': 1}
         if bb.type == 'SwinTransformer':
             counters['swin_attention_forward'] = \
@@ -877,9 +950,10 @@ def phase_box2mask(tool, config, samples, parts):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        result = tool.main([config, '--work-dir', work_dir, '--seed',
-                            str(seed), '--device', 'cuda',
-                            '--cfg-options', *opts])
+        with live_gt_counts() as gts:
+            result = tool.main([config, '--work-dir', work_dir, '--seed',
+                                str(seed), '--device', 'cuda',
+                                '--cfg-options', *opts])
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
@@ -896,7 +970,7 @@ def phase_box2mask(tool, config, samples, parts):
                 fail(f'no *{part}* tensor changed in training')
         print(f'{len(changed)} tensors changed; launches {launches} '
               f'(per step {per_step})')
-        print_steps(result, peak)
+        print_steps(result, peak, gts)
         return launches, cfg, model
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
@@ -1242,9 +1316,10 @@ def phase_discobox(tool):
         call = record_ema_gaps(TSTrainStep, gaps)
         crf.crf_mean_field_cuda.launches = 0
         try:
-            result = tool.main([DISCO_CONFIG, '--work-dir', work_dir,
-                                '--seed', str(seed), '--device', 'cuda',
-                                '--cfg-options', *opts])
+            with live_gt_counts() as gts:
+                result = tool.main([DISCO_CONFIG, '--work-dir', work_dir,
+                                    '--seed', str(seed), '--device', 'cuda',
+                                    '--cfg-options', *opts])
         finally:
             TSTrainStep.__call__ = call
         torch.cuda.synchronize()
@@ -1273,7 +1348,7 @@ def phase_discobox(tool):
               f'forward by step {teacher}; EMA gap by step '
               f'{[f"{g:.3g}" for g in gaps]}; avg_loss_ins by step '
               f'{[round(h["avg_loss_ins"], 5) for h in result.history]}')
-        print_steps(result, peak)
+        print_steps(result, peak, gts, teacher_after=DISCO_START_ITER)
         return launches
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)

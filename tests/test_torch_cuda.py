@@ -10,8 +10,10 @@ atol 1e-6 / rtol 1e-5 on the unnormalised gradient d(num)/d(logits), whose
 entries are O(1). Through autograd the gradient is divided by max(den, 1),
 so there the absolute term is divided by it too. MSDA and LCM: atol 1e-5
 of the reference's largest entry (1e-5 at least) and rtol 1e-4: the MSDA
-d(value) sums with float atomics in an order that changes between runs, and
-d(loc) carries the map's width or height as a factor. The Swin window
+d(value) sums with float atomics in an order that changes between runs. The
+MSDA pair takes a whole encoder layer (all levels) in one launch each way;
+the fast pair (D 32, P 4, 3 levels) and the generic one are both held to
+the plain version and to autograd through the plain forward. The Swin window
 attention pair K5/K6 is held to the same bound; its dbias sums the windows
 in a fixed order, so it gives the same bits from run to run. The CRF fixed
 point K7 sums its exact products in the plain version's order: it must give
@@ -127,33 +129,60 @@ def _close_scaled(got, want):
                                rtol=1e-4)
 
 
-def _msda_inputs(seed, device, bh, h, w, c, l, p, spread):
+def _msda_inputs(seed, device, b, heads, d, p, levels, l, spread):
+    """One layer's inputs to ``ms_deform_attn``: ``l`` None gives the
+    encoder's queries (reference points at the levels' grid centres,
+    offsets of up to 4 cells plus noise); else ``l`` random reference
+    points whose samples spread up to ``spread`` map widths outside."""
     rng = np.random.RandomState(seed)
-    arrays = (rng.randn(bh, h, w, c),
-              rng.uniform(-spread, 1 + spread, (bh, p * l)),
-              rng.uniform(-spread, 1 + spread, (bh, p * l)),
-              rng.rand(bh, p * l) / p, rng.randn(bh, l, c))
-    return [torch.from_numpy(a.astype(np.float32)).to(device)
+    nl = len(levels)
+    s = sum(h * w for h, w in levels)
+    size = np.array([[w, h] for h, w in levels])[:, None]
+    if l is None:
+        ref = np.concatenate([np.stack(np.meshgrid(
+            (np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h), -1
+        ).reshape(-1, 2) for h, w in levels])[None].repeat(b, 0)
+        l = s
+        offsets = rng.randint(-4, 5, (b, l, heads, nl, p, 2)) + rng.randn(
+            b, l, heads, nl, p, 2)
+    else:
+        ref = rng.rand(b, l, 2)
+        loc = rng.uniform(-spread, 1 + spread, (b, l, heads, nl, p, 2))
+        offsets = (loc - ref[:, :, None, None, None]) * size
+    logits = rng.randn(b, l, heads, nl * p)
+    attn = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    arrays = (rng.randn(b, s, heads, d), ref, offsets,
+              attn.reshape(b, l, heads, nl, p), rng.randn(b, l, heads * d))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
             for a in arrays]
 
 
-# a level of the Box2Mask encoder (8 heads x batch 2, 32 channels, 4
-# points) and ragged ones: odd maps, channels off the warp's width, samples
-# far outside
-@pytest.mark.parametrize('shape', [(16, 32, 32, 32, 1344, 4, 0.05),
-                                   (3, 13, 7, 32, 37, 4, 0.6),
-                                   (2, 5, 11, 48, 19, 3, 1.5)])
-def test_msda_kernels_match_plain(cuda, shape):
-    value, lx, ly, wt, g = _msda_inputs(0, cuda, *shape)
-    p = shape[5]
-    _close_scaled(msda.msda_forward_cuda(value, lx, ly, wt, p),
-                  msda.msda_forward_plain(value, lx, ly, wt, p))
-    leaves = [t.clone().requires_grad_(True) for t in (value, lx, ly, wt)]
-    want = torch.autograd.grad(msda.msda_forward_plain(*leaves, p), leaves,
-                               g)
-    got = msda.msda_backward_cuda(value, lx, ly, wt, g, p)
-    for gk, gp, ga in zip(got, msda.msda_backward_plain(value, lx, ly, wt,
-                                                         g, p), want):
+# one layer of the Box2Mask encoder (batch 2, 8 heads, 32 channels a head,
+# 4 points, the 32x32, 64x64 and 128x128 levels of a 1024x1024 canvas;
+# fast pair), odd maps with the encoder's queries and with random ones
+# (fast pair), and D 48, P 3 on two levels with samples far outside
+# (generic pair)
+MSDA_CASES = [(2, 8, 32, 4, ((32, 32), (64, 64), (128, 128)), None, 0),
+              (1, 3, 32, 4, ((13, 7), (7, 4), (4, 2)), None, 0),
+              (1, 3, 32, 4, ((13, 7), (7, 4), (4, 2)), 37, 0.6),
+              (2, 1, 48, 3, ((5, 11), (3, 6)), 19, 1.5)]
+
+
+@pytest.mark.parametrize('case', MSDA_CASES)
+def test_msda_kernels_match_plain(cuda, case):
+    levels = case[4]
+    value, ref, offsets, attn, g = _msda_inputs(0, cuda, *case)
+    _close_scaled(msda.msda_forward_cuda(value, levels, ref, offsets, attn),
+                  msda.ms_deform_attn_plain(value, levels, ref, offsets,
+                                            attn))
+    leaves = [t.clone().requires_grad_(True) for t in (value, offsets, attn)]
+    plain = torch.autograd.grad(msda.ms_deform_attn_plain(
+        leaves[0], levels, ref, leaves[1], leaves[2]), leaves, g)
+    autograd = torch.autograd.grad(msda.ms_deform_attn_plain(
+        leaves[0], levels, ref, leaves[1], leaves[2],
+        sample=msda.msda_forward_plain), leaves, g)
+    got = msda.msda_backward_cuda(value, levels, ref, offsets, attn, g)
+    for gk, gp, ga in zip(got, plain, autograd):
         _close_scaled(gk, gp)
         _close_scaled(gk, ga)
 
@@ -185,12 +214,17 @@ def test_lcm_kernels_match_plain_and_are_adjoint(cuda, shape):
 
 
 def test_box2mask_ops_launch_kernels_for_cuda_tensors(cuda):
-    value, lx, ly, wt, g = _msda_inputs(2, cuda, 2, 6, 5, 32, 7, 2, 0.2)
+    from boxinstseg_tpu_torch.models.utils.transformer import \
+        MultiScaleDeformableAttention
+    levels = ((6, 5), (3, 3))
+    value, ref, _, _, _ = _msda_inputs(2, cuda, 2, 8, 32, 4, levels, None, 0)
+    module = MultiScaleDeformableAttention(256, 8, 2, 4).to(cuda)
+    x = value.reshape(2, -1, 256).requires_grad_(True)
     fwd, bwd = msda.msda_forward_cuda.launches, msda.msda_backward_cuda.launches
-    v = value.requires_grad_(True)
-    msda.msda_sample_psum_pm(v, lx, ly, wt, 2).backward(g)
+    module(x, x, levels, ref).sum().backward()
     assert (msda.msda_forward_cuda.launches,
             msda.msda_backward_cuda.launches) == (fwd + 1, bwd + 1)
+    assert module.sampling_offsets.weight.grad.abs().max() > 0
     offs, aff, x, _ = _lcm_inputs(3, cuda, (1, 2, 9, 11))
     fwd, adj = lcm.lcm_forward_cuda.launches, lcm.lcm_adjoint_cuda.launches
     x.requires_grad_(True)
@@ -200,13 +234,29 @@ def test_box2mask_ops_launch_kernels_for_cuda_tensors(cuda):
 
 
 def test_box2mask_wrappers_reject_what_they_do_not_take(cuda):
-    value, lx, ly, wt, g = _msda_inputs(4, cuda, 2, 6, 5, 32, 7, 2, 0.2)
+    levels = ((6, 5), (3, 3))
+    value, ref, offsets, attn, g = _msda_inputs(4, cuda, 2, 2, 32, 2, levels,
+                                                7, 0.2)
     with pytest.raises(ValueError, match='float32'):
-        msda.msda_forward_cuda(value.double(), lx, ly, wt, 2)
-    with pytest.raises(ValueError, match='P-major'):
-        msda.msda_forward_cuda(value, lx, ly, wt, 3)
-    with pytest.raises(ValueError, match='CUDA'):
-        msda.msda_forward_cuda(value, lx.cpu(), ly, wt, 2)
+        msda.msda_forward_cuda(value.double(), levels, ref, offsets, attn)
+    with pytest.raises(ValueError, match='do not tile'):
+        msda.msda_forward_cuda(value, ((6, 5), (3, 2)), ref, offsets, attn)
+    with pytest.raises(ValueError, match='is on cpu'):
+        msda.msda_forward_cuda(value, levels, ref.cpu(), offsets, attn)
+    with pytest.raises(ValueError, match='contiguous'):
+        msda.msda_backward_cuda(value, levels, ref, offsets, attn,
+                                g.transpose(0, 1).contiguous().transpose(0, 1))
+    shifted = torch.empty(offsets.numel() + 1, device=cuda)[1:]
+    with pytest.raises(ValueError, match='16-byte'):
+        msda.msda_forward_cuda(value, levels, ref,
+                               shifted.view(offsets.shape).copy_(offsets),
+                               attn)
+    with pytest.raises(ValueError, match='must not require grad'):
+        msda.ms_deform_attn(value, levels, ref.requires_grad_(True), offsets,
+                            attn)
+    with pytest.raises(ValueError, match='ms_deform_attn'):
+        msda.msda_sample_psum_pm(value[:, :30].reshape(2, 6, 5, 64),
+                                 ref[..., 0], ref[..., 1], ref[..., 0], 1)
     offs, aff, x, _ = _lcm_inputs(5, cuda, (1, 2, 9, 11))
     with pytest.raises(ValueError, match='contiguous'):
         lcm.lcm_forward_cuda(aff, x.transpose(2, 3), offs, 10)

@@ -438,6 +438,32 @@ def test_train_detector_runs_and_saves_iter(tmp_path):
     assert 'Iter [3/3]' in log and 'grad_norm' in log
 
 
+def test_train_detector_warns_that_the_precision_key_is_not_applied(
+        tmp_path, caplog):
+    """The shipped DiscoBox config asks for mixed precision (``fp16``),
+    which the JAX package applies as bf16 and the port does not yet."""
+    import logging
+    from boxinstseg_tpu_torch.apis.train import train_detector
+    from boxinstseg_tpu_torch.config import Config
+    disco = Config.fromfile(os.path.join(
+        ROOT, 'configs/discobox/discobox_solov2_coco_r50_fpn_3x.py'))
+    assert disco.get('fp16') is not None
+    cfg = Config.fromdict(dict(
+        model=tiny_cfg(1), data=dict(samples_per_gpu=2, workers_per_gpu=1),
+        optimizer=dict(type='SGD', lr=0.01, momentum=0.9),
+        runner=dict(type='IterBasedRunner', max_iters=1),
+        canvases=[(64, 96)], max_gts=4, work_dir=str(tmp_path),
+        fp16=dict(disco.fp16)))
+    torch.manual_seed(0)
+    with caplog.at_level(logging.WARNING, logger='boxinstseg_tpu_torch'):
+        train_detector(build_detector(cfg.model), _TinyBoxDataset(), cfg,
+                       device='cpu')
+    warned = [r.getMessage() for r in caplog.records
+              if r.levelno == logging.WARNING]
+    assert len(warned) == 1 and 'fp16' in warned[0] \
+        and 'not applied' in warned[0], warned
+
+
 class _FailingBatcher:
     def __call__(self, samples):
         raise RuntimeError('batcher failed')
