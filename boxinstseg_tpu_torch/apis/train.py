@@ -141,16 +141,13 @@ def get_logger(log_file: Optional[str] = None) -> logging.Logger:
     return logger
 
 
-def warn_unapplied_precision(cfg, logger: logging.Logger) -> None:
-    """Log that the config's ``fp16`` / ``bf16`` key is not applied: the
-    JAX package trains such a config in bf16 (its
-    ``apply_precision_policy``), the port stays in fp32 until the
-    precision switch is ported."""
-    for key, asks in (('fp16', cfg.get('fp16') is not None),
-                      ('bf16', bool(cfg.get('bf16')))):
-        if asks:
-            logger.warning(f'config key {key} = {cfg.get(key)!r} is not '
-                           f'applied: the PyTorch port trains in fp32')
+def apply_precision_policy(cfg) -> bool:
+    """Whether the config asks for mixed precision, which the port runs as
+    bf16 autocast (``engine.train_state.autocast_bf16``): the reference's
+    ``fp16 = dict(loss_scale=...)`` key (the DiscoBox recipe; bf16 needs no
+    loss scaling) or a native ``bf16 = True``, the JAX package's rule
+    (its ``apply_precision_policy``)."""
+    return bool(cfg.get('bf16', False)) or cfg.get('fp16') is not None
 
 
 @dataclass
@@ -170,7 +167,9 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
     work_dir = cfg.get('work_dir') or './work_dir'
     os.makedirs(work_dir, exist_ok=True)
     logger = get_logger(os.path.join(work_dir, 'train.log'))
-    warn_unapplied_precision(cfg, logger)
+    bf16 = apply_precision_policy(cfg)
+    if bf16:
+        logger.info('mixed precision: bf16 activations, f32 params/losses')
 
     data_cfg = cfg.get('data', {})
     batch_size = data_cfg.get('samples_per_gpu', 2)
@@ -207,9 +206,10 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
             start_iter=ts_cfg.get('start_iter', 13000),
             ts_thresh=ts_cfg.get('ts_thresh', 0.3),
             corr_thresh=ts_cfg.get('corr_thresh', 0.2),
-            bank=build_object_bank(cfg, device))
+            bank=build_object_bank(cfg, device), bf16=bf16)
     else:
-        step_fn = make_train_step(model, optimizer, lr_fn, grad_clip)
+        step_fn = make_train_step(model, optimizer, lr_fn, grad_clip,
+                                  bf16=bf16)
 
     result = TrainResult(step=0)
     batches = iter(loader)

@@ -45,11 +45,21 @@ def _make_update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     return update
 
 
+def autocast_bf16(device: torch.device, enabled: bool):
+    """The bf16 policy around a forward: convolutions and matrix products
+    in bf16 under autocast; parameters, optimizer state and the losses stay
+    fp32 (the detectors cast the heads' outputs at the loss boundary)."""
+    return torch.autocast(torch.device(device).type, dtype=torch.bfloat16,
+                          enabled=enabled)
+
+
 def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     lr_fn: Callable[[int], float],
-                    grad_clip: Optional[dict] = None) -> Callable:
-    """Build ``train_step(batch, step) -> logs``.
+                    grad_clip: Optional[dict] = None,
+                    bf16: bool = False) -> Callable:
+    """Build ``train_step(batch, step) -> logs``; ``bf16`` runs the forward
+    and the loss under ``autocast_bf16`` (the JAX package's policy).
 
     The total loss sums every key that contains 'loss' (reference
     _parse_losses, base.py:176-254). Parameters that got no gradient (the
@@ -64,7 +74,8 @@ def make_train_step(model: torch.nn.Module,
     def train_step(batch: Dict[str, torch.Tensor], step: int
                    ) -> Dict[str, torch.Tensor]:
         model.train()
-        losses = model.loss(batch, step)
+        with autocast_bf16(batch['image'].device, bf16):
+            losses = model.loss(batch, step)
         total = sum(v for k, v in losses.items() if 'loss' in k)
         grad_norm, lr = update(total, step)
         logs = {k: v.detach() for k, v in losses.items()}
@@ -88,7 +99,9 @@ class TSTrainStep:
       loss_ins; the ``ts`` (< ts_thresh) and ``corr`` (< corr_thresh)
       gates are device tensors that multiply their terms, so nothing waits
       on the host;
-    - ``bank``: the object bank (``ops.correspondence``), appended in place.
+    - ``bank``: the object bank (``ops.correspondence``), appended in place;
+    - ``bf16``: the teacher's and the student's forwards and the loss run
+      under ``autocast_bf16``.
 
     The teacher's forward runs only when ``i > start_iter``, a host integer;
     before that the detached student stands in for it, which gives the JAX
@@ -102,8 +115,9 @@ class TSTrainStep:
                  lr_fn: Callable[[int], float],
                  grad_clip: Optional[dict] = None, momentum: float = 0.999,
                  start_iter: int = 13000, ts_thresh: float = 0.3,
-                 corr_thresh: float = 0.2, bank=None):
+                 corr_thresh: float = 0.2, bank=None, bf16: bool = False):
         self.model = model
+        self.bf16 = bool(bf16)
         self.update = _make_update(model, optimizer, lr_fn, grad_clip)
         self.teacher = copy.deepcopy(model).eval().requires_grad_(False)
         self.momentum = float(momentum)
@@ -136,11 +150,13 @@ class TSTrainStep:
         gates = dict(ts=(avg < self.ts_thresh).float(),
                      corr=(avg < self.corr_thresh).float())
         teacher_out = None
-        if step > self.start_iter:
-            teacher_out = self.teacher.teacher_outputs(batch['image'])
-            self.teacher_forwards += 1
-        self.model.train()
-        losses = self.model.loss(batch, step, teacher_out, gates, self.bank)
+        with autocast_bf16(batch['image'].device, self.bf16):
+            if step > self.start_iter:
+                teacher_out = self.teacher.teacher_outputs(batch['image'])
+                self.teacher_forwards += 1
+            self.model.train()
+            losses = self.model.loss(batch, step, teacher_out, gates,
+                                     self.bank)
         append = losses.pop('_corr_append', None)
         total = sum(v for k, v in losses.items() if 'loss' in k)
         grad_norm, lr = self.update(total, step)

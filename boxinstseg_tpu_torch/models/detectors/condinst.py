@@ -12,6 +12,7 @@ import torch
 import torch.nn as nn
 
 from ..dense_heads.condinst_head import flatten_levels
+from ..layers import f32_tree, fp32_region
 from ...core.targets.fcos import sample_positives_per_gt
 from ...registry import BACKBONES, DETECTORS, HEADS, NECKS
 
@@ -71,9 +72,12 @@ class CondInst(nn.Module):
         batch keys: image (B, 3, H, W) normalised RGB; img_shape (B, 2);
         pixels_removed (B,); gt_bboxes (B, G, 4); gt_labels (B, G);
         gt_valid (B, G). ``iteration`` drives the pairwise warmup."""
-        outs, mask_feat = self(batch['image'])
-        outs = {k: [x.float() for x in v] for k, v in outs.items()}
-        mask_feat = mask_feat.float()
+        outs, mask_feat = f32_tree(self(batch['image']))
+        with fp32_region(mask_feat.device):
+            return self._loss(outs, mask_feat, batch, iteration)
+
+    def _loss(self, outs, mask_feat, batch, iteration):
+        """The loss math on the heads' fp32 outputs."""
         losses, targets, pts = self.bbox_head.loss(
             outs, batch['gt_bboxes'], batch['gt_labels'], batch['gt_valid'])
 

@@ -15,6 +15,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
+from ..layers import f32_tree, fp32_region
 from ...registry import BACKBONES, DETECTORS, HEADS, NECKS
 
 # reference: mmdet/core/evaluation/panoptic_utils.py:6 —
@@ -129,8 +130,9 @@ class MaskFormer(nn.Module):
              ) -> Dict[str, torch.Tensor]:
         """batch keys: image (B, 3, H, W) normalised RGB; gt_labels (B, G);
         gt_valid (B, G); gt_masks (B, G, H/4, W/4) box bitmasks."""
-        outs = self(batch['image'])
-        return self.panoptic_head.loss(outs, batch)
+        outs = f32_tree(self(batch['image']))
+        with fp32_region(batch['image'].device):
+            return self.panoptic_head.loss(outs, batch)
 
     @torch.no_grad()
     def predict(self, batch: Dict[str, torch.Tensor]

@@ -13,6 +13,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
+from ..layers import f32_tree, fp32_region
 from ...registry import BACKBONES, DETECTORS, HEADS, NECKS
 
 
@@ -74,15 +75,18 @@ class SingleStageWSInsDetector(nn.Module):
         ``gates['ts']`` and ``gates['corr']`` multiply the CRF and
         correspondence terms. A ``'_corr_append'`` entry, when present,
         holds the bank's append entries and is no loss."""
-        feats = [f.float() for f in self.extract_feat(batch['image'])]
-        outs = {k: v.float() for k, v in self.bbox_head(feats).items()}
+        feats = self.extract_feat(batch['image'])
+        outs = f32_tree(self.bbox_head(feats))
         mask_feat = self.mask_feat_head(self._mask_feat_inputs(feats)).float()
+        feats = f32_tree(feats)       # P2 feeds the correspondence loss
+        teacher_out = f32_tree(teacher_out)
         gates = gates or {}
-        return self.bbox_head.loss(
-            outs, mask_feat, batch, teacher=teacher_out,
-            use_ts_gate=gates.get('ts'), corr_gate=gates.get('corr'),
-            bank=bank, s_feat=feats[0],
-            t_feat=None if teacher_out is None else teacher_out['p2'])
+        with fp32_region(mask_feat.device):
+            return self.bbox_head.loss(
+                outs, mask_feat, batch, teacher=teacher_out,
+                use_ts_gate=gates.get('ts'), corr_gate=gates.get('corr'),
+                bank=bank, s_feat=feats[0],
+                t_feat=None if teacher_out is None else teacher_out['p2'])
 
     def predict(self, batch):
         raise NotImplementedError('DiscoBox prediction is not ported yet')

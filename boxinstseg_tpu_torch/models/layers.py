@@ -18,6 +18,25 @@ import torch.nn.functional as F
 IntPair = Union[int, Tuple[int, int]]
 
 
+def f32_tree(tree):
+    """Every floating tensor of a nested dict, list or tuple as fp32: the
+    loss boundary of the bf16 policy (the JAX package's ``f32_tree``), where
+    the heads' outputs enter the loss math."""
+    if isinstance(tree, dict):
+        return {k: f32_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(f32_tree(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.float()
+    return tree
+
+
+def fp32_region(device: torch.device):
+    """Autocast off on ``device``: the loss math after ``f32_tree`` runs in
+    fp32 under the bf16 policy, as the JAX package's does."""
+    return torch.autocast(torch.device(device).type, enabled=False)
+
+
 def torch_conv_init_(conv: nn.Conv2d) -> nn.Conv2d:
     """PyTorch's default conv init (kaiming uniform, a=sqrt(5)) with a zero
     bias, as the JAX package's variance_scaling(1/3, fan_in, uniform)."""
@@ -74,7 +93,9 @@ class SyncBatchNorm(nn.BatchNorm2d):
     The output is ``F.batch_norm`` on the batch statistics. The running
     variance is updated with the BIASED batch variance, as flax does (torch
     stores the unbiased one), so the port's statistics track the JAX
-    package's; torch momentum 0.1 is flax momentum 0.9."""
+    package's; torch momentum 0.1 is flax momentum 0.9. Under the bf16
+    policy the statistics and the normalisation are computed in fp32 and
+    the output comes back in the input's dtype, as flax computes them."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -83,14 +104,15 @@ class SyncBatchNorm(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        xf = x.float()
         with torch.no_grad():
-            mean = x.mean(dim=(0, 2, 3))
-            var = x.var(dim=(0, 2, 3), unbiased=False)
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.var(dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        return F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps).to(x.dtype)
 
 
 def GroupNorm(num_channels: int, num_groups: int = 32) -> nn.GroupNorm:

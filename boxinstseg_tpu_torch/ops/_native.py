@@ -17,6 +17,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
@@ -39,18 +41,26 @@ def _nvcc() -> str:
                        'toolkit (set PATH to include its bin directory)')
 
 
+def _source(name: str) -> str:
+    """``csrc/<name>.cu``, or ``name`` itself when it is a path to a .cu
+    file (a timing baseline outside the package)."""
+    return name if name.endswith('.cu') else os.path.join(CSRC_DIR,
+                                                          f'{name}.cu')
+
+
 def _library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f'{name}.cu')
+    src = _source(name)
     with open(src, 'rb') as f:
         digest = hashlib.sha256(
             f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f'lib{name}-{digest}.so')
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f'lib{stem}-{digest}.so')
 
 
 def build_all(names) -> None:
-    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
-    one ``nvcc`` process per source, all started together; then load
-    them."""
+    """Compile every source of ``names`` (``csrc/<name>.cu``, or a path to
+    a .cu file) that is not built yet, one ``nvcc`` process per source, all
+    started together; then load them."""
     with _LOCK:
         procs = {}
         for name in names:
@@ -60,7 +70,7 @@ def build_all(names) -> None:
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f'{out}.{os.getpid()}.tmp'
-            src = os.path.join(CSRC_DIR, f'{name}.cu')
+            src = _source(name)
             procs[name] = (out, tmp, src, time.perf_counter(),
                            subprocess.Popen(
                                [_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
@@ -82,9 +92,20 @@ def build_all(names) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
+    """Compile ``name``'s source (as ``build_all``) if needed and return the
+    loaded library."""
     build_all([name])
     return _LIBS[name]
+
+
+def as_fp32(t):
+    """A bf16 or fp16 tensor (as autocast leaves a kernel's inputs) cast to
+    fp32, the kernels' type, as the JAX wrappers cast theirs; any other
+    tensor as it is, so that the kernels' checks refuse what they do not
+    take (float64 among it)."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t.float()
+    return t
 
 
 def check(err: int, what: str) -> None:

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ._native import check, load_library
+from ._native import as_fp32, check, load_library
 
 # the 3x3 stencil, row-major from (-1, -1): the JAX package's order
 OFFSETS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
@@ -78,8 +78,48 @@ def crf_mean_field_plain(kern: torch.Tensor, thresh: torch.Tensor,
     return st
 
 
-# dynamic shared memory a block may use on sm_90: two bytes a pixel
+# dynamic shared memory a block may use on sm_90
 MAX_SHARED_BYTES = 232448
+# planes a byte, and blocks a cluster (the portable cluster size), of the
+# kernel (csrc/crf.cu)
+CRF_PLANES, CRF_MAX_BANDS = 8, 8
+
+
+def band_bytes(rows: int, w: int) -> int:
+    """Shared memory of a band of ``rows`` rows: the two state buffers with
+    a zero border, the target bits and the flags, a byte a pixel each."""
+    return 2 * (rows + 2) * (w + 2) + 2 * rows * w
+
+
+def crf_plan(b: int, k: int, h: int, w: int, max_clusters):
+    """The kernel's bands for a (b, k, h, w) call: the most bands (so the
+    most blocks) for which the card runs all ``b * ceil(k / 8)`` plane
+    groups in one wave, ``max_clusters(band_rows, bands)`` saying how many
+    clusters of that shape run at once; the fewest that fit shared memory
+    where no count makes one wave. Returns dict(band_rows, bands), or None
+    where more than CRF_MAX_BANDS bands would be needed."""
+    rows_cap = 0
+    while rows_cap < h and band_bytes(rows_cap + 1, w) <= MAX_SHARED_BYTES:
+        rows_cap += 1
+    if rows_cap == 0 or -(-h // rows_cap) > CRF_MAX_BANDS:
+        return None
+    groups = b * -(-k // CRF_PLANES)
+    plans = []
+    for n in range(-(-h // rows_cap), min(CRF_MAX_BANDS, h) + 1):
+        band_rows = -(-h // n)
+        plans.append(dict(band_rows=band_rows, bands=-(-h // band_rows)))
+    fit = [p for p in plans
+           if groups <= max_clusters(p['band_rows'], p['bands'])]
+    return fit[-1] if fit else plans[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters(index: int, h: int, w: int, band_rows: int, bands: int) -> int:
+    """Clusters of a call's shape that device ``index`` runs at once."""
+    with torch.cuda.device(index):
+        n = _lib().crf_mean_field_clusters(h, w, band_rows, bands)
+    check(max(-n, 0), 'crf_mean_field_clusters')
+    return n
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,8 +127,10 @@ def _lib():
     """Build (first call) and type the C interface of csrc/crf.cu."""
     lib = load_library('crf')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.crf_mean_field.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.crf_mean_field.argtypes = [p] * 5 + [i] * 8 + [p]
     lib.crf_mean_field.restype = i
+    lib.crf_mean_field_clusters.argtypes = [i] * 4
+    lib.crf_mean_field_clusters.restype = i
     return lib
 
 
@@ -116,24 +158,39 @@ def _check_inputs(kern, thresh, bin0, targets, kernel_size):
                          f'{(b, len(OFFSETS), h, w)}')
     if tuple(thresh.shape) != (b, h, w):
         raise ValueError(f'thresh {tuple(thresh.shape)} != {(b, h, w)}')
-    if 2 * h * w > MAX_SHARED_BYTES:
-        raise ValueError(f'a {h}x{w} plane does not fit twice in shared '
-                         f'memory')
-    if bin0.shape[0] * bin0.shape[1] >= 2 ** 31:
-        raise ValueError('too many planes for one launch')
+    if b > 65535 or -(-bin0.shape[1] // CRF_PLANES) > 65535:
+        raise ValueError('too many images or planes for one launch')
+
+
+def launch_plan(bin0):
+    """The kernel's bands for bin0 (B, K, H, W) on its card (``crf_plan``
+    with the card's cluster occupancy)."""
+    b, k, h, w = bin0.shape
+    return crf_plan(b, k, h, w, functools.partial(
+        _clusters, bin0.device.index, h, w))
 
 
 def crf_mean_field_cuda(kern, thresh, bin0, targets, num_iter,
                         kernel_size=3):
-    """K7 kernel: ``num_iter`` rounds of the binary fixed point."""
+    """K7 kernel: ``num_iter`` rounds of the binary fixed point (fp32
+    inputs; bin0 is read as bin0 != 0)."""
     _check_inputs(kern, thresh, bin0, targets, kernel_size)
     b, k, h, w = bin0.shape
+    plan = launch_plan(bin0)
+    if plan is None:
+        raise ValueError(
+            f'a {h}x{w} plane: the CRF kernel takes at most {CRF_MAX_BANDS} '
+            f'bands of rows, each within {MAX_SHARED_BYTES} bytes of shared '
+            f'memory (2 (rows + 2)(W + 2) + 2 rows W)')
     out = torch.empty_like(bin0)
+    vec4 = w % 4 == 0 and all(t.data_ptr() % 16 == 0
+                              for t in (bin0, targets, out))
     stream = torch.cuda.current_stream(bin0.device).cuda_stream
     with torch.cuda.device(bin0.device):
         err = _lib().crf_mean_field(
             kern.data_ptr(), thresh.data_ptr(), bin0.data_ptr(),
-            targets.data_ptr(), out.data_ptr(), b, k, h, w, int(num_iter),
+            targets.data_ptr(), out.data_ptr(), b, k, h, w,
+            plan['band_rows'], plan['bands'], int(vec4), int(num_iter),
             stream)
     check(err, 'crf_mean_field')
     crf_mean_field_cuda.launches += 1
@@ -146,11 +203,15 @@ crf_mean_field_cuda.launches = 0
 def crf_mean_field(kern: torch.Tensor, thresh: torch.Tensor,
                    bin0: torch.Tensor, targets: torch.Tensor, num_iter: int,
                    kernel_size: int = 3) -> torch.Tensor:
-    """The binary mean-field fixed point (no gradient). A CUDA tensor
-    launches the kernel; a CPU tensor takes the plain version."""
+    """The binary mean-field fixed point (no gradient), in bin0's dtype. A
+    CUDA tensor launches the kernel, in fp32 whatever the inputs' dtype (a
+    bf16 input, as autocast leaves it, is cast as the JAX wrapper casts);
+    a CPU tensor takes the plain version."""
     args = [t.detach() for t in (kern, thresh, bin0, targets)]
     if bin0.is_cuda:
-        return crf_mean_field_cuda(*args, num_iter, kernel_size)
+        return crf_mean_field_cuda(
+            *[as_fp32(t).contiguous() for t in args], num_iter,
+            kernel_size).to(bin0.dtype)
     if bin0.device.type == 'cpu':
         if kernel_size != 3:
             raise ValueError(f'kernel size {kernel_size}: the CRF takes the '

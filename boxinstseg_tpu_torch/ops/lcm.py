@@ -24,7 +24,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ._native import check, load_library
+from ._native import as_fp32, check, load_library
 
 Offsets = Sequence[Tuple[int, int]]
 
@@ -97,8 +97,65 @@ class PlainLCMRefineFunction(torch.autograd.Function):
 
 # ------------------------------------------------------------- CUDA kernels
 
-# dynamic shared memory a block may use on sm_90 (two fp32 planes)
+# dynamic shared memory a block may use on sm_90
 MAX_SHARED_BYTES = 232448
+# the ring kernel (csrc/lcm.cu): threads a block, main-pass pixels a
+# thread, blocks a cluster (the portable cluster size)
+RING_THREADS, RING_PPT, RING_MAX_BANDS = 512, 5, 8
+
+
+def ring_dilation(offsets: Offsets):
+    """d when ``offsets`` are the 3x3 ring at dilation d in row-major order
+    (``LocalConsistencyModule.offsets``), else None."""
+    offsets = [tuple(o) for o in offsets]
+    if len(offsets) != 8 or offsets[0][0] >= 0:
+        return None
+    d = -offsets[0][0]
+    ring = [(dy * d, dx * d) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+            if dy or dx]
+    return d if offsets == ring else None
+
+
+def ring_plan(b: int, c: int, h: int, w: int, offsets: Offsets,
+              transpose: bool, max_clusters):
+    """How the ring kernel covers a (b, c, h, w) call, or None where it does
+    not take it (another offset set, a band over RING_THREADS * RING_PPT
+    pixels, more than RING_MAX_BANDS bands, a band under d rows, or no
+    channel's two buffers (plus the adjoint's aff) in shared memory).
+
+    Bands are as few as fit. ``max_clusters(d, G, band_rows, bands)`` says
+    how many clusters of that shape the card runs at once; the channels of
+    an image are split into as many groups as fill that one wave. Returns
+    dict(d, G channels a block, band_rows, bands)."""
+    d = ring_dilation(offsets)
+    rows_cap = RING_THREADS * RING_PPT // w
+    if d is None or rows_cap < 1:
+        return None
+    band_rows = -(-h // -(-h // rows_cap))
+    bands = -(-h // band_rows)
+    if bands > RING_MAX_BANDS or (bands > 1 and band_rows < d):
+        return None
+    plane = (band_rows + 2 * d) * w * 4
+    g_max = (MAX_SHARED_BYTES - (8 * plane if transpose else 0)) \
+        // (2 * plane)
+    if g_max < 1:
+        return None
+    wave = max_clusters(d, g_max, band_rows, bands)
+    g = min(g_max, -(-c // max(1, wave // b)))
+    if b > 65535 or -(-c // g) > 65535:
+        return None
+    return dict(d=d, G=g, band_rows=band_rows, bands=bands)
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_clusters(index: int, transpose: bool, c: int, h: int, w: int,
+                   d: int, g: int, band_rows: int, bands: int) -> int:
+    """Clusters of a ring call that device ``index`` runs at once."""
+    with torch.cuda.device(index):
+        n = _lib().lcm_ring_clusters(int(transpose), c, h, w, d, g,
+                                     band_rows, bands)
+    check(max(-n, 0), 'lcm_ring_clusters')
+    return n
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,9 +163,12 @@ def _lib():
     """Build (first call) and type the C interface of csrc/lcm.cu."""
     lib = load_library('lcm')
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.lcm_forward, lib.lcm_adjoint):
-        fn.argtypes = [p] * 3 + [i] * 5 + [p, p, i, p]
-        fn.restype = i
+    lib.lcm_ring.argtypes = [i] + [p] * 3 + [i] * 9 + [p]
+    lib.lcm_ring.restype = i
+    lib.lcm_generic.argtypes = [i] + [p] * 3 + [i] * 5 + [p, p, i, p]
+    lib.lcm_generic.restype = i
+    lib.lcm_ring_clusters.argtypes = [i] * 8
+    lib.lcm_ring_clusters.restype = i
     return lib
 
 
@@ -130,32 +190,53 @@ def _check_inputs(aff, phi, offsets):
                          f'{(b, len(offsets), h, w)}')
     if not 1 <= len(offsets) <= 16:
         raise ValueError(f'{len(offsets)} offsets: the kernels take 1-16')
-    if 2 * h * w * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f'a {h}x{w} plane does not fit twice in shared '
-                         f'memory')
     if phi.numel() >= 2 ** 31:
         raise ValueError('the LCM kernels index with 32-bit counts')
 
 
-def _launch(fn, name, aff, phi, offsets, num_iter):
+def launch_plan(phi, offsets, transpose):
+    """The ring kernel's plan for phi (B, C, H, W) on its card (``ring_plan``
+    with the card's cluster occupancy), or None for the generic kernel."""
+    b, c, h, w = phi.shape
+    return ring_plan(b, c, h, w, offsets, transpose, functools.partial(
+        _ring_clusters, phi.device.index, transpose, c, h, w))
+
+
+def _launch(transpose, name, aff, phi, offsets, num_iter):
+    """The ring kernel where ``ring_plan`` takes the call, else the generic
+    kernel (one block a plane, two fp32 copies of it in shared memory)."""
     _check_inputs(aff, phi, offsets)
     b, c, h, w = phi.shape
-    k = len(offsets)
-    dy = (ctypes.c_int * k)(*[int(o[0]) for o in offsets])
-    dx = (ctypes.c_int * k)(*[int(o[1]) for o in offsets])
     out = torch.empty_like(phi)
     stream = torch.cuda.current_stream(phi.device).cuda_stream
+    plan = launch_plan(phi, offsets, transpose)
+    if plan is None and 2 * h * w * 4 > MAX_SHARED_BYTES:
+        raise ValueError(
+            f'a {h}x{w} plane with offsets {list(offsets)}: the ring kernel '
+            f'takes the 3x3 ring in bands of at most '
+            f'{RING_THREADS * RING_PPT} pixels, at most {RING_MAX_BANDS} '
+            f'bands; the generic kernel\'s two fp32 copies of a plane in '
+            f'shared memory take H * W <= {MAX_SHARED_BYTES // 8}')
     with torch.cuda.device(phi.device):
-        err = fn(aff.data_ptr(), phi.data_ptr(), out.data_ptr(), b, c, h, w,
-                 k, dy, dx, int(num_iter), stream)
+        if plan is not None:
+            err = _lib().lcm_ring(
+                int(transpose), aff.data_ptr(), phi.data_ptr(),
+                out.data_ptr(), b, c, h, w, plan['d'], plan['G'],
+                plan['band_rows'], plan['bands'], int(num_iter), stream)
+        else:
+            k = len(offsets)
+            dy = (ctypes.c_int * k)(*[int(o[0]) for o in offsets])
+            dx = (ctypes.c_int * k)(*[int(o[1]) for o in offsets])
+            err = _lib().lcm_generic(
+                int(transpose), aff.data_ptr(), phi.data_ptr(),
+                out.data_ptr(), b, c, h, w, k, dy, dx, int(num_iter), stream)
     check(err, name)
     return out
 
 
 def lcm_forward_cuda(aff, phi, offsets, num_iter):
     """LCM forward kernel: ``num_iter`` refinement rounds of phi."""
-    out = _launch(_lib().lcm_forward, 'lcm_forward', aff, phi, offsets,
-                  num_iter)
+    out = _launch(False, 'lcm_forward', aff, phi, offsets, num_iter)
     lcm_forward_cuda.launches += 1
     return out
 
@@ -165,8 +246,7 @@ lcm_forward_cuda.launches = 0
 
 def lcm_adjoint_cuda(aff, g, offsets, num_iter):
     """LCM adjoint kernel: ``num_iter`` transposed rounds of g."""
-    out = _launch(_lib().lcm_adjoint, 'lcm_adjoint', aff, g, offsets,
-                  num_iter)
+    out = _launch(True, 'lcm_adjoint', aff, g, offsets, num_iter)
     lcm_adjoint_cuda.launches += 1
     return out
 
@@ -175,19 +255,25 @@ lcm_adjoint_cuda.launches = 0
 
 
 class LCMRefineFunction(torch.autograd.Function):
-    """Forward kernel; the backward is the adjoint kernel."""
+    """Forward kernel; the backward is the adjoint kernel. The kernels
+    take fp32 (as the JAX wrapper casts): a bf16 or fp16 phi, as autocast
+    leaves it, runs in fp32 and comes back in its own dtype, and so does
+    its gradient."""
 
     @staticmethod
     def forward(ctx, aff, phi, offsets, num_iter):
+        aff = as_fp32(aff).contiguous()
         ctx.save_for_backward(aff)
         ctx.cfg = (tuple(offsets), num_iter)
-        return lcm_forward_cuda(aff, phi, offsets, num_iter)
+        ctx.dtype = phi.dtype
+        return lcm_forward_cuda(aff, as_fp32(phi).contiguous(), offsets,
+                                num_iter).to(phi.dtype)
 
     @staticmethod
     def backward(ctx, g):
         aff, = ctx.saved_tensors
-        return None, lcm_adjoint_cuda(aff, g.contiguous(), *ctx.cfg), \
-            None, None
+        grad = lcm_adjoint_cuda(aff, as_fp32(g).contiguous(), *ctx.cfg)
+        return None, grad.to(ctx.dtype), None, None
 
 
 def lcm_refine(aff: torch.Tensor, phi: torch.Tensor, offsets: Offsets,

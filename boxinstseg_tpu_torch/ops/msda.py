@@ -44,7 +44,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ._native import check, load_library
+from ._native import as_fp32, check, load_library
 
 
 # ------------------------------------------------------------ plain version
@@ -283,21 +283,29 @@ msda_backward_cuda.launches = 0
 
 class MSDAFunction(torch.autograd.Function):
     """Forward kernel, backward kernel; no gradient for the reference
-    points."""
+    points. The kernels take fp32: bf16 or fp16 inputs, as autocast leaves
+    them, run in fp32; the output comes back in value's dtype, each
+    gradient in its input's."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, reference_points, offsets, attn):
+        ctx.dtypes = (value.dtype, offsets.dtype, attn.dtype)
+        value, reference_points, offsets, attn = (
+            as_fp32(t).contiguous() for t in (value, reference_points,
+                                              offsets, attn))
         ctx.save_for_backward(value, reference_points, offsets, attn)
         ctx.spatial_shapes = spatial_shapes
         return msda_forward_cuda(value, spatial_shapes, reference_points,
-                                 offsets, attn)
+                                 offsets, attn).to(ctx.dtypes[0])
 
     @staticmethod
     def backward(ctx, g):
         value, ref, offsets, attn = ctx.saved_tensors
         d_value, d_offsets, d_attn = msda_backward_cuda(
-            value, ctx.spatial_shapes, ref, offsets, attn, g.contiguous())
-        return d_value, None, None, d_offsets, d_attn
+            value, ctx.spatial_shapes, ref, offsets, attn,
+            as_fp32(g).contiguous())
+        dv, do, da = ctx.dtypes
+        return d_value.to(dv), None, None, d_offsets.to(do), d_attn.to(da)
 
 
 def ms_deform_attn(value: torch.Tensor,
@@ -309,14 +317,17 @@ def ms_deform_attn(value: torch.Tensor,
 
     A CUDA tensor launches the kernel pair (and raises on what it does not
     take); a CPU tensor takes the plain version."""
+    dtype = value.dtype
+    value, reference_points, offsets, attn = (
+        as_fp32(t) for t in (value, reference_points, offsets, attn))
     shapes = check_layer_inputs(value, spatial_shapes, reference_points,
                                 offsets, attn)
     if value.is_cuda:
         return MSDAFunction.apply(value, shapes, reference_points, offsets,
-                                  attn)
+                                  attn).to(dtype)
     if value.device.type == 'cpu':
         return ms_deform_attn_plain(value, shapes, reference_points,
-                                    offsets, attn)
+                                    offsets, attn).to(dtype)
     raise ValueError(f'no MSDA sampler for device {value.device}')
 
 

@@ -23,7 +23,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ._native import check, load_library
+from ._native import as_fp32, check, load_library
 from .color import neighbor_offsets, shift2d
 
 
@@ -223,25 +223,31 @@ pairwise_grad_cuda.launches = 0
 
 
 class PairwiseLossFunction(torch.autograd.Function):
-    """K1 forward, K2 backward."""
+    """K1 forward, K2 backward. The kernels take fp32 (as the JAX wrapper
+    casts): bf16 or fp16 inputs, as autocast leaves them, run in fp32, and
+    the loss and the logits' gradient come back in the logits' dtype."""
 
     @staticmethod
     def forward(ctx, mask_logits, color_sim, bitmasks, valid, color_thresh,
                 kernel_size, dilation):
+        ctx.dtype = mask_logits.dtype
+        mask_logits, color_sim, bitmasks = (
+            as_fp32(t).contiguous() for t in (mask_logits, color_sim,
+                                              bitmasks))
         num, den = pairwise_forward_cuda(mask_logits, color_sim, bitmasks,
                                          valid, color_thresh, kernel_size,
                                          dilation)
         ctx.save_for_backward(mask_logits, color_sim, bitmasks, valid, den)
         ctx.cfg = (color_thresh, kernel_size, dilation)
-        return num / torch.clamp(den, min=1.0)
+        return (num / torch.clamp(den, min=1.0)).to(ctx.dtype)
 
     @staticmethod
     def backward(ctx, g):
         mask_logits, color_sim, bitmasks, valid, den = ctx.saved_tensors
-        scale = (g / torch.clamp(den, min=1.0)).to(torch.float32)
+        scale = (as_fp32(g) / torch.clamp(den, min=1.0)).to(torch.float32)
         grad = pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid,
                                   scale.reshape(1), *ctx.cfg)
-        return grad, None, None, None, None, None, None
+        return grad.to(ctx.dtype), None, None, None, None, None, None
 
 
 def boxinst_pairwise_loss(mask_logits: torch.Tensor,

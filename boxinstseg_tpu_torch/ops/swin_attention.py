@@ -31,7 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from ._native import check, load_library
+from ._native import as_fp32, check, load_library
 
 NEG = -100.0                 # the additive constant of the shift mask
 MAX_N, MAX_D = 256, 128      # the kernels' limits (csrc/swin_attention.cu)
@@ -298,21 +298,27 @@ window_attention_backward_cuda.launches = 0
 
 
 class WindowAttentionFunction(torch.autograd.Function):
-    """K5 forward, K6 backward, over the fused qkv (BW, N, 3C)."""
+    """K5 forward, K6 backward, over the fused qkv (BW, N, 3C). The kernels
+    take fp32: a bf16 or fp16 qkv or bias, as autocast leaves them, runs in
+    fp32; the output and dqkv come back in qkv's dtype (as the JAX wrapper
+    returns q's), dbias in the bias's."""
 
     @staticmethod
     def forward(ctx, qkv, bias_hnn, regions, scale):
+        ctx.dtypes = (qkv.dtype, bias_hnn.dtype)
+        qkv, bias_hnn = as_fp32(qkv).contiguous(), as_fp32(bias_hnn)
         ctx.save_for_backward(qkv, bias_hnn, regions)
         ctx.scale = scale
-        return window_attention_forward_cuda(*_split(qkv), bias_hnn, regions,
-                                             scale)
+        return window_attention_forward_cuda(
+            *_split(qkv), bias_hnn, regions, scale).to(ctx.dtypes[0])
 
     @staticmethod
     def backward(ctx, g):
         qkv, bias_hnn, regions = ctx.saved_tensors
         dqkv, dbias = window_attention_backward_cuda(
-            *_split(qkv), bias_hnn, regions, ctx.scale, g.contiguous())
-        return dqkv, dbias, None, None
+            *_split(qkv), bias_hnn, regions, ctx.scale,
+            as_fp32(g).contiguous())
+        return dqkv.to(ctx.dtypes[0]), dbias.to(ctx.dtypes[1]), None, None
 
 
 def window_attention_qkv(qkv: torch.Tensor, bias_hnn: torch.Tensor,

@@ -16,14 +16,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                cases; the backward also against autograd through the plain
                forward, and whether two backward runs give the same bits),
                the LCM forward and adjoint (with the identity
-               <A x, y> = <x, A^T y>); errors, times and each kernel's
-               bound.
+               <A x, y> = <x, A^T y>; the ring kernel at the main shape, a
+               short last channel group, 6 and 8 bands; the generic kernel
+               past the ring's limit and for another offset set; 0 and 1
+               rounds; a shape past both limits must raise); errors, times
+               and each kernel's bound, and the LCM pair against the
+               one-block-a-plane kernels (tools/baselines/) in turns.
 4. slice     - BoxInst R-50-FPN 1x at full width (random init from a seed)
                trained for 5 SGD steps through tools/train_torch.py on
                seeded synthetic 800x1333 images; the pairwise kernels'
                launch counts over that run must equal the step count.
 5. reference - a small CondInst's loss dict on the card (kernels) against
-               the same weights and batch on the CPU (plain versions).
+               the same weights and batch on the CPU (plain versions), in
+               fp32 (as every card-vs-CPU phase).
 6. box2mask  - Box2Mask R-50 LSJ at full width trained for 5 AdamW steps
                through tools/train_torch.py on seeded synthetic 1024x1024
                images; the MSDA and LCM kernels' launch counts over that run
@@ -50,12 +55,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                against the CPU.
 11. crf kernel - the DiscoBox CRF fixed point K7 against its plain version,
                bit for bit, at the main path's shape (2, 128, 200, 336), its
-               transpose and ragged shapes (odd maps, K = 1 and 5, three
-               images, a plane without a target); time, bound, plain time.
+               transpose and ragged shapes (odd maps in 8 bands, K = 1, 5
+               and 13, three images, a plane without a target, one touching
+               every border, 0 and 1 rounds; a shape past the limit must
+               raise); time, bound, plain time, and against the
+               one-block-a-plane kernel in turns.
 12. discobox - DiscoBox R-50 3x at full width (the shipped config with
                ts_cfg.start_iter=2) trained for 5 SGD steps through
                tools/train_torch.py on seeded synthetic 800x1333 images,
-               batch 2: K7 launches once a step, the teacher's forward runs
+               batch 2, in bf16 autocast (the config's fp16 key): K7
+               launches once a step, the teacher's forward runs
                in the steps after start_iter only, and the EMA replica
                equals the student up to start_iter and differs after; the
                median step time without and with the teacher apart.
@@ -108,7 +117,17 @@ MSDA_RAGGED = ((1, 3, 32, 4, ((13, 7), (7, 4), (4, 2)), None, 0),
                (1, 3, 32, 4, ((13, 7), (7, 4), (4, 2)), 37, 0.6),
                (2, 1, 48, 3, ((5, 11), (3, 6)), 19, 1.5))
 LCM_MAIN = (2, 80, 96, 96)         # B, 10 outputs x 8 GT slots, tf_size
-LCM_RAGGED = ((1, 3, 37, 53), (2, 5, 3, 5))
+# (shape, dilations, rounds): odd maps and maps smaller than the offsets;
+# a channel count that leaves a short last channel group; six bands with a
+# short last one; eight bands (the ring kernel's limit at W 96) and one row
+# more (the generic kernel); a non-ring offset set (dilations 1 and 2, the
+# generic kernel); 0 and 1 rounds
+LCM_RAGGED = (((1, 3, 37, 53), (2,), 10), ((2, 5, 3, 5), (2,), 10),
+              ((2, 83, 96, 96), (2,), 10), ((1, 3, 130, 100), (2,), 10),
+              ((1, 2, 208, 96), (2,), 10), ((1, 2, 209, 96), (2,), 10),
+              ((1, 3, 37, 53), (1, 2), 10), ((1, 3, 37, 53), (2,), 0),
+              ((1, 3, 37, 53), (2,), 1))
+LCM_TOO_BIG = (1, 1, 400, 96)      # beyond both kernels: must raise
 LCM_ITERS = 10
 # MSDA and LCM kernels against their plain versions: atol is 1e-5 of the
 # reference's largest entry (1e-5 at least), rtol 1e-4. fp32 sums in
@@ -131,8 +150,15 @@ SWIN_REF_RTOL = 1e-3   # backbone gradients card vs CPU, relative L2 error
 # stride 4), its transpose, and ragged shapes; it must equal the plain
 # version bit for bit (exact products summed in the same order)
 CRF_MAIN = (2, 128, 200, 336)
-CRF_SHAPES = ((2, 128, 336, 200), (1, 1, 37, 53), (1, 5, 37, 53),
-              (3, 5, 37, 53))
+# (shape, rounds, a full-map target plane): the transpose; odd maps in 8
+# bands with a short last one; K = 1, 5 and 13 (plane groups of 8 with a
+# short last one); three images; a target plane touching every border; 0
+# and 1 rounds
+CRF_SHAPES = (((2, 128, 336, 200), 10, False), ((1, 1, 37, 53), 10, False),
+              ((1, 5, 37, 53), 10, False), ((3, 5, 37, 53), 10, False),
+              ((2, 13, 37, 53), 10, True), ((1, 5, 37, 53), 0, False),
+              ((1, 5, 37, 53), 1, True))
+CRF_TOO_BIG = (1, 1, 1200, 1200)   # more than 8 bands: must raise
 CRF_ITERS = 10
 DISCO_START_ITER = 2
 ADJOINT_RTOL = 1e-5                # <A x, y> vs <x, A^T y>, float64 sums
@@ -173,6 +199,9 @@ SOURCES = {
     'swin_attention_backward': 'boxinstseg_tpu_torch/csrc/swin_attention.cu',
     'crf_mean_field': 'boxinstseg_tpu_torch/csrc/crf.cu',
 }
+# the one-block-per-plane K3 and K7, timed against the kernels in turns
+BASELINES = {'lcm': os.path.join(ROOT, 'tools/baselines/lcm_per_plane.cu'),
+             'crf': os.path.join(ROOT, 'tools/baselines/crf_per_plane.cu')}
 
 
 def fail(msg):
@@ -527,12 +556,12 @@ def phase_msda_kernels():
     return report
 
 
-def lcm_inputs(shape, gen):
+def lcm_inputs(shape, gen, dilations=(2,)):
     import torch
     from boxinstseg_tpu_torch.models.losses.levelset_loss import \
         LocalConsistencyModule
     b, c, h, w = shape
-    module = LocalConsistencyModule(dilations=(2,), num_iter=LCM_ITERS)
+    module = LocalConsistencyModule(dilations=dilations, num_iter=LCM_ITERS)
     imgs = torch.rand((b, 3, h, w), generator=gen, device='cuda')
     aff = module.affinity(imgs).contiguous()
     phi = torch.rand(shape, generator=gen, device='cuda')
@@ -540,43 +569,82 @@ def lcm_inputs(shape, gen):
     return module.offsets(), aff, phi, g
 
 
-def check_lcm(shape, gen):
+def check_lcm(shape, gen, dilations=(2,), rounds=LCM_ITERS):
     """LCM forward and adjoint kernels against the plain rounds, the
     adjoint identity, and the backward of the autograd.Function."""
     import torch
     from boxinstseg_tpu_torch.ops import lcm
-    offs, aff, phi, g = lcm_inputs(shape, gen)
+    offs, aff, phi, g = lcm_inputs(shape, gen, dilations)
     f_err = compare(f'LCM forward {shape}',
-                    lcm.lcm_forward_cuda(aff, phi, offs, LCM_ITERS),
-                    lcm.lcm_forward_plain(aff, phi, offs, LCM_ITERS))
+                    lcm.lcm_forward_cuda(aff, phi, offs, rounds),
+                    lcm.lcm_forward_plain(aff, phi, offs, rounds))
     a_err = compare(f'LCM adjoint {shape}',
-                    lcm.lcm_adjoint_cuda(aff, g, offs, LCM_ITERS),
-                    lcm.lcm_adjoint_plain(aff, g, offs, LCM_ITERS))
+                    lcm.lcm_adjoint_cuda(aff, g, offs, rounds),
+                    lcm.lcm_adjoint_plain(aff, g, offs, rounds))
     # <A x, y> = <x, A^T y>, positive x and y so that the sums do not cancel
     x, y = phi, torch.rand(shape, generator=gen, device='cuda')
-    lhs = (lcm.lcm_forward_cuda(aff, x, offs, LCM_ITERS).double()
+    lhs = (lcm.lcm_forward_cuda(aff, x, offs, rounds).double()
            * y.double()).sum().item()
-    rhs = (x.double() * lcm.lcm_adjoint_cuda(aff, y, offs, LCM_ITERS)
+    rhs = (x.double() * lcm.lcm_adjoint_cuda(aff, y, offs, rounds)
            .double()).sum().item()
     if not abs(lhs - rhs) <= ADJOINT_RTOL * abs(lhs):
         fail(f'LCM adjoint identity at {shape}: <Ax, y> {lhs} vs '
              f'<x, A^T y> {rhs}')
     p = phi.clone().requires_grad_(True)
-    lcm.lcm_refine(aff, p, offs, LCM_ITERS).backward(g)
+    lcm.lcm_refine(aff, p, offs, rounds).backward(g)
     compare(f'LCM autograd backward {shape}', p.grad,
-            lcm.lcm_adjoint_plain(aff, g, offs, LCM_ITERS))
-    print(f'LCM {shape}: forward max abs err {f_err:.3g}, adjoint '
-          f'{a_err:.3g}; <Ax, y> {lhs:.10g} vs <x, A^T y> {rhs:.10g}')
+            lcm.lcm_adjoint_plain(aff, g, offs, rounds))
+    plan = lcm.launch_plan(phi, offs, True)
+    kind = (f'ring kernel, {plan["bands"]} bands of {plan["band_rows"]} '
+            f'rows, {plan["G"]} channels a block' if plan else
+            'generic kernel')
+    print(f'LCM {shape}, dilations {dilations}, {rounds} rounds ({kind}): '
+          f'forward max abs err {f_err:.3g}, adjoint {a_err:.3g}; '
+          f'<Ax, y> {lhs:.10g} vs <x, A^T y> {rhs:.10g}')
     return offs, aff, phi, g, f_err, a_err
 
 
+def in_turns(label, old, new, iters=20):
+    """Times of ``old`` and ``new`` in the order old, new, new, old."""
+    t = [cuda_ms(fn, iters) for fn in (old, new, new, old)]
+    print(f'{label}: old {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / '
+          f'{t[2]:.4f} ms (one block a plane against the redesign, in '
+          f'turns)')
+    return t
+
+
+def load_baseline(name):
+    """The one-block-per-plane kernel of ``BASELINES[name]``, typed."""
+    import ctypes
+    from boxinstseg_tpu_torch.ops import _native
+    lib = _native.load_library(BASELINES[name])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == 'lcm':
+        for fn in (lib.lcm_forward, lib.lcm_adjoint):
+            fn.argtypes = [p] * 3 + [i] * 5 + [p, p, i, p]
+            fn.restype = i
+    else:
+        lib.crf_mean_field.argtypes = [p] * 5 + [i] * 5 + [p]
+        lib.crf_mean_field.restype = i
+    return lib
+
+
 def phase_lcm_kernels():
+    import ctypes
     import torch
     from boxinstseg_tpu_torch.ops import lcm
     gen = torch.Generator(device='cuda').manual_seed(2)
     offs, aff, phi, g, f_err, a_err = check_lcm(LCM_MAIN, gen)
-    for shape in LCM_RAGGED:
-        check_lcm(shape, gen)
+    for shape, dilations, rounds in LCM_RAGGED:
+        check_lcm(shape, gen, dilations, rounds)
+    big = torch.zeros(LCM_TOO_BIG, device='cuda')
+    try:
+        lcm.lcm_forward_cuda(torch.zeros((1, 8) + LCM_TOO_BIG[2:],
+                                         device='cuda'), big, offs, LCM_ITERS)
+    except ValueError as e:
+        print(f'LCM {LCM_TOO_BIG} raises: {e}')
+    else:
+        fail(f'LCM at {LCM_TOO_BIG} did not raise')
     ops = LCM_ITERS * len(offs) * 2 * phi.numel()
     b = bound(nbytes(aff, phi, phi), ops)
     report = {
@@ -598,6 +666,26 @@ def phase_lcm_kernels():
         print(f'{name} at {LCM_MAIN}: kernel {r["ms"]:.4f} ms, plain '
               f'{r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
               f'({r["bound_by"]})')
+    old = load_baseline('lcm')
+    dy = (ctypes.c_int * len(offs))(*[o[0] for o in offs])
+    dx = (ctypes.c_int * len(offs))(*[o[1] for o in offs])
+    for name, fn, x, new in (('lcm_forward', old.lcm_forward, phi,
+                              lcm.lcm_forward_cuda),
+                             ('lcm_adjoint', old.lcm_adjoint, g,
+                              lcm.lcm_adjoint_cuda)):
+        out = torch.empty_like(x)
+
+        def run_old():
+            err = fn(aff.data_ptr(), x.data_ptr(), out.data_ptr(),
+                     *LCM_MAIN, len(offs), dy, dx, LCM_ITERS,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                fail(f'the one-block-a-plane {name}: CUDA error {err}')
+        run_old()
+        compare(f'{name}: one block a plane against the redesign', out,
+                new(aff, x, offs, LCM_ITERS))
+        in_turns(f'{name} at {LCM_MAIN}', run_old,
+                 lambda: new(aff, x, offs, LCM_ITERS))
     return report
 
 
@@ -1088,7 +1176,10 @@ def compare_loss_dicts(cfg, batch, iteration=None, grads_of=None):
 
 
 def phase_reference():
-    """Small CondInst: loss dict on the card vs the CPU plain path."""
+    """Small CondInst: loss dict on the card vs the CPU plain path, in
+    fp32."""
+    print('fp32: the precision policy is off (no fp16 / bf16 key), so the '
+          'card and the CPU compute the same function')
     import numpy as np
     rng = np.random.RandomState(0)
     b, h, w, g = 2, 128, 160, 5
@@ -1134,7 +1225,9 @@ def tiny_box2mask_cfg():
 
 def phase_box2mask_reference():
     """Small Box2Mask: loss dict on the card (kernels) vs the CPU (plain
-    versions)."""
+    versions), in fp32."""
+    print('fp32: the precision policy is off (no fp16 / bf16 key), so the '
+          'card and the CPU compute the same function')
     import numpy as np
     from boxinstseg_tpu_torch.ops import lcm, msda
     rng = np.random.RandomState(0)
@@ -1161,7 +1254,9 @@ def phase_swin_reference():
     """The small Box2Mask on a tiny Swin (window 4; 120x136 images give
     30x34, 15x17, 8x9 and 4x5 token maps, all padded, with shifted blocks in
     every stage): loss dict and backbone gradients on the card (K5, K6)
-    against the CPU (plain versions)."""
+    against the CPU (plain versions), in fp32."""
+    print('fp32: the precision policy is off (no fp16 / bf16 key), so the '
+          'card and the CPU compute the same function')
     import numpy as np
     from boxinstseg_tpu_torch.ops import swin_attention as swa
     rng = np.random.RandomState(1)
@@ -1191,12 +1286,13 @@ def phase_swin_reference():
              f'{fwd.launches} and K6 {bwd.launches} times, expected 8 each')
 
 
-def crf_inputs(shape, gen, rng):
+def crf_inputs(shape, gen, rng, full=False):
     """K7's inputs as DiscoBox makes them on the card: the CRF kernel of a
     blocky image (flat 8x8 blocks at stride 4, the synthetic data's 32x32,
     plus noise), its threshold, box targets and random scores inside them;
     with more than one plane an image, the last plane of image 0 has no
-    target."""
+    target; with ``full``, plane 0 of every image is a target everywhere
+    (it touches every border)."""
     import torch
     from boxinstseg_tpu_torch.models.dense_heads.discobox_head import \
         MeanFieldCRF
@@ -1214,6 +1310,8 @@ def crf_inputs(shape, gen, rng):
             y, x = rng.randint(0, h // 2), rng.randint(0, w // 2)
             targets[i, j, y:y + rng.randint(2, h // 2 + 2),
                     x:x + rng.randint(2, w // 2 + 2)] = 1
+    if full:
+        targets[:, 0] = 1
     if k > 1:
         targets[0, -1] = 0
     scores = torch.rand(shape, generator=gen, device='cuda')
@@ -1223,28 +1321,30 @@ def crf_inputs(shape, gen, rng):
 
 def phase_crf_kernel():
     """K7 against the plain version, bit for bit, at the main path's shape
-    and the others; its time beside the plain version's and its bound."""
+    and the others; its time beside the plain version's and its bound, and
+    against the one-block-a-plane kernel in turns."""
     import numpy as np
     import torch
     from boxinstseg_tpu_torch.ops import crf
     gen = torch.Generator(device='cuda').manual_seed(4)
     rng = np.random.RandomState(4)
     report = {}
-    for shape in (CRF_MAIN,) + CRF_SHAPES:
-        kern, thresh, bin0, targets = crf_inputs(shape, gen, rng)
-        got = crf.crf_mean_field_cuda(kern, thresh, bin0, targets, CRF_ITERS)
-        want = crf.crf_mean_field_plain(kern, thresh, bin0, targets,
-                                        CRF_ITERS)
+    for shape, rounds, full in ((CRF_MAIN, CRF_ITERS, False),) + CRF_SHAPES:
+        kern, thresh, bin0, targets = crf_inputs(shape, gen, rng, full)
+        got = crf.crf_mean_field_cuda(kern, thresh, bin0, targets, rounds)
+        want = crf.crf_mean_field_plain(kern, thresh, bin0, targets, rounds)
         torch.cuda.synchronize()
         differ = int((got != want).sum().item())
         moved = int((want != bin0).sum().item())
         inside = int((targets > 0).sum().item())
-        print(f'K7 {shape}: {differ} of {got.numel()} pixels differ from '
-              f'plain; the rounds moved {moved} labels; {inside} target '
-              f'pixels')
+        plan = crf.launch_plan(bin0)
+        print(f'K7 {shape}, {rounds} rounds ({plan["bands"]} bands of '
+              f'{plan["band_rows"]} rows): {differ} of {got.numel()} pixels '
+              f'differ from plain; the rounds moved {moved} labels; {inside} '
+              f'target pixels')
         if differ or not torch.equal(got, want):
             fail(f'K7 differs from its plain version at {shape}')
-        if not moved:
+        if rounds and not moved:
             fail(f'K7 at {shape}: the rounds moved no label; check is '
                  f'vacuous')
         if shape == CRF_MAIN:
@@ -1260,10 +1360,36 @@ def phase_crf_kernel():
                 library_ms=None,
                 **bound(nbytes(kern, thresh, bin0, targets, bin0),
                         CRF_ITERS * 9 * 2 * inside))
+            main = kern, thresh, bin0, targets
     r = report['crf_mean_field']
     print(f'crf_mean_field at {CRF_MAIN}, {CRF_ITERS} rounds: kernel '
           f'{r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, bound '
           f'{r["bound_ms"]:.4f} ms ({r["bound_by"]})')
+    big = torch.zeros(CRF_TOO_BIG, device='cuda')
+    try:
+        crf.crf_mean_field_cuda(
+            torch.zeros((1, 9) + CRF_TOO_BIG[2:], device='cuda'),
+            torch.zeros((1,) + CRF_TOO_BIG[2:], device='cuda'), big, big,
+            CRF_ITERS)
+    except ValueError as e:
+        print(f'K7 {CRF_TOO_BIG} raises: {e}')
+    else:
+        fail(f'K7 at {CRF_TOO_BIG} did not raise')
+    del big
+    old = load_baseline('crf')
+    out = torch.empty_like(main[2])
+
+    def run_old():
+        err = old.crf_mean_field(*[t.data_ptr() for t in main],
+                                 out.data_ptr(), *CRF_MAIN, CRF_ITERS,
+                                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f'the one-block-a-plane K7: CUDA error {err}')
+    run_old()
+    if not torch.equal(out, crf.crf_mean_field_cuda(*main, CRF_ITERS)):
+        fail('K7: the one-block-a-plane kernel and the redesign differ')
+    in_turns(f'crf_mean_field at {CRF_MAIN}', run_old,
+             lambda: crf.crf_mean_field_cuda(*main, CRF_ITERS))
     return report
 
 
@@ -1300,6 +1426,12 @@ def phase_discobox(tool):
             'data.samples_per_gpu=2', 'data.train.type=SyntheticBoxDataset']
     try:
         cfg = tool.load_config(DISCO_CONFIG, opts, work_dir, seed)
+        from boxinstseg_tpu_torch.apis.train import apply_precision_policy
+        if not apply_precision_policy(cfg):
+            fail('the shipped DiscoBox config no longer asks for mixed '
+                 'precision')
+        print(f'precision: bf16 autocast, fp32 parameters and losses (the '
+              f'config\'s fp16 = {dict(cfg.fp16)})')
         head, mf = cfg.model.bbox_head, cfg.model.mask_feat_head
         ob = head.loss_corr.obj_bank
         print(f'model: {describe_backbone(cfg.model.backbone)}, FPN '
@@ -1385,7 +1517,10 @@ def phase_discobox_reference():
     logs, the bank and the parameters on the card (K7) against the CPU
     (plain version). The kernel branch's last conv is scaled by 30 so that
     the mask scores sit away from the CRF's 0.5 threshold; the LR is 1e-4
-    (see tests/test_torch_discobox.py)."""
+    (see tests/test_torch_discobox.py). In fp32: the step's bf16 switch is
+    off."""
+    print('fp32: the precision policy is off (no fp16 / bf16 key), so the '
+          'card and the CPU compute the same function')
     import numpy as np
     import torch
     from boxinstseg_tpu_torch.engine.optimizers import build_optimizer
@@ -1500,11 +1635,13 @@ def main():
     phase('build')
     from boxinstseg_tpu_torch.ops import _native
     t0 = time.perf_counter()
-    _native.build_all(['pairwise', 'msda', 'lcm', 'swin_attention', 'crf'])
-    print(f'pairwise.cu, msda.cu, lcm.cu, swin_attention.cu, crf.cu: '
+    _native.build_all(['pairwise', 'msda', 'lcm', 'swin_attention', 'crf',
+                       *BASELINES.values()])
+    print(f'pairwise.cu, msda.cu, lcm.cu, swin_attention.cu, crf.cu and the '
+          f'one-block-a-plane baselines of lcm.cu and crf.cu: '
           f'{time.perf_counter() - t0:.2f} s (nvcc ' + ', '.join(
-              f'{k} {v:.2f} s' for k, v in _native.BUILD_SECONDS.items())
-          + ')')
+              f'{os.path.basename(k)} {v:.2f} s'
+              for k, v in _native.BUILD_SECONDS.items()) + ')')
 
     phase('kernels')
     report = phase_kernels()

@@ -187,10 +187,10 @@ def test_msda_kernels_match_plain(cuda, case):
         _close_scaled(gk, ga)
 
 
-def _lcm_inputs(seed, device, shape):
+def _lcm_inputs(seed, device, shape, dilations=(2,)):
     rng = np.random.RandomState(seed)
     b = shape[0]
-    module = LocalConsistencyModule(dilations=(2,), num_iter=10)
+    module = LocalConsistencyModule(dilations=dilations, num_iter=10)
     imgs = torch.from_numpy(rng.rand(b, 3, *shape[2:]).astype(np.float32))
     aff = module.affinity(imgs.to(device)).contiguous()
     x, y = (torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(device)
@@ -198,19 +198,30 @@ def _lcm_inputs(seed, device, shape):
     return module.offsets(), aff, x, y
 
 
-# the Box2Mask shape (10 outputs x 8 GT slots at 96x96) and planes that
-# are odd or smaller than the dilation-2 offsets
-@pytest.mark.parametrize('shape', [(2, 80, 96, 96), (1, 3, 37, 53),
-                                   (2, 5, 3, 5)])
-def test_lcm_kernels_match_plain_and_are_adjoint(cuda, shape):
-    offs, aff, x, y = _lcm_inputs(1, cuda, shape)
-    ax = lcm.lcm_forward_cuda(aff, x, offs, 10)
-    aty = lcm.lcm_adjoint_cuda(aff, y, offs, 10)
-    _close_scaled(ax, lcm.lcm_forward_plain(aff, x, offs, 10))
-    _close_scaled(aty, lcm.lcm_adjoint_plain(aff, y, offs, 10))
+# the Box2Mask shape (10 outputs x 8 GT slots at 96x96); planes that are
+# odd or smaller than the dilation-2 offsets; 83 channels (a short last
+# channel group); 130 rows (six bands, the last shorter); 208 rows of 96
+# (eight bands, the ring kernel's limit) and 209 (the generic kernel); a
+# non-ring offset set (dilations 1 and 2: the generic kernel); 0 and 1
+# rounds
+@pytest.mark.parametrize('shape, dilations, rounds', [
+    ((2, 80, 96, 96), (2,), 10), ((1, 3, 37, 53), (2,), 10),
+    ((2, 5, 3, 5), (2,), 10), ((2, 83, 96, 96), (2,), 10),
+    ((1, 3, 130, 100), (2,), 10), ((1, 2, 208, 96), (2,), 10),
+    ((1, 2, 209, 96), (2,), 10), ((1, 3, 37, 53), (1, 2), 10),
+    ((1, 3, 37, 53), (2,), 0), ((1, 3, 37, 53), (2,), 1)])
+def test_lcm_kernels_match_plain_and_are_adjoint(cuda, shape, dilations,
+                                                 rounds):
+    offs, aff, x, y = _lcm_inputs(1, cuda, shape, dilations)
+    ax = lcm.lcm_forward_cuda(aff, x, offs, rounds)
+    aty = lcm.lcm_adjoint_cuda(aff, y, offs, rounds)
+    _close_scaled(ax, lcm.lcm_forward_plain(aff, x, offs, rounds))
+    _close_scaled(aty, lcm.lcm_adjoint_plain(aff, y, offs, rounds))
     lhs = (ax.double() * y.double()).sum().item()
     rhs = (x.double() * aty.double()).sum().item()
     assert lhs == pytest.approx(rhs, rel=1e-5)
+    ring = lcm.launch_plan(x, offs, True)
+    assert (ring is None) == (dilations != (2,) or shape[2] == 209)
 
 
 def test_box2mask_ops_launch_kernels_for_cuda_tensors(cuda):
@@ -260,10 +271,11 @@ def test_box2mask_wrappers_reject_what_they_do_not_take(cuda):
     offs, aff, x, _ = _lcm_inputs(5, cuda, (1, 2, 9, 11))
     with pytest.raises(ValueError, match='contiguous'):
         lcm.lcm_forward_cuda(aff, x.transpose(2, 3), offs, 10)
-    big = torch.zeros((1, 1, 200, 200), device=cuda)
-    with pytest.raises(ValueError, match='shared memory'):
-        lcm.lcm_forward_cuda(torch.zeros((1, 8, 200, 200), device=cuda), big,
-                             offs, 10)
+    for h, w in ((200, 200), (400, 96)):
+        big = torch.zeros((1, 1, h, w), device=cuda)
+        with pytest.raises(ValueError, match='shared memory'):
+            lcm.lcm_forward_cuda(torch.zeros((1, 8, h, w), device=cuda), big,
+                                 offs, 10)
 
 
 def _swin_inputs(seed, device, hp, wp, ws, shift, images, heads, d,
@@ -358,11 +370,12 @@ def test_swin_attention_wrappers_reject_what_they_do_not_take(cuda):
                                            big[3])
 
 
-def _crf_inputs(seed, device, b, k, h, w):
+def _crf_inputs(seed, device, b, k, h, w, full=False):
     """K7's inputs as DiscoBox makes them: the kernel of a blocky image
     (flat 8x8 blocks plus noise, so that neighbours vote), its threshold,
     and box targets with random scores inside; with more than one plane
-    an image, the last plane of image 0 has no target."""
+    an image, the last plane of image 0 has no target; with ``full``,
+    plane 0 of every image is a target everywhere (every border)."""
     rng = np.random.RandomState(seed)
     blocks = rng.rand(b, 3, h // 8 + 1, w // 8 + 1).astype(np.float32)
     img = np.repeat(np.repeat(blocks, 8, 2), 8, 3)[:, :, :h, :w] \
@@ -374,6 +387,8 @@ def _crf_inputs(seed, device, b, k, h, w):
             y, x = rng.randint(0, h // 2), rng.randint(0, w // 2)
             targets[i, j, y:y + rng.randint(2, h // 2 + 2),
                     x:x + rng.randint(2, w // 2 + 2)] = 1
+    if full:
+        targets[:, 0] = 1
     if k > 1:
         targets[0, -1] = 0
     bin0 = ((rng.rand(b, k, h, w) * targets) > 0.5).astype(np.float32)
@@ -383,17 +398,22 @@ def _crf_inputs(seed, device, b, k, h, w):
 
 
 # the main path's shape (batch 2, max_pos 128, 800x1344 / 4), its
-# transpose, and ragged ones: odd maps, K = 1 and 5, three images
-@pytest.mark.parametrize('shape', [(2, 128, 200, 336), (2, 128, 336, 200),
-                                   (1, 1, 37, 53), (1, 5, 37, 53),
-                                   (3, 5, 37, 53)])
-def test_crf_kernel_equals_plain_bitwise(cuda, shape):
-    kern, thresh, bin0, targets = _crf_inputs(6, cuda, *shape)
-    got = crf.crf_mean_field_cuda(kern, thresh, bin0, targets, 10)
-    want = crf.crf_mean_field_plain(kern, thresh, bin0, targets, 10)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert not torch.equal(want, bin0)        # the rounds changed labels
+# transpose, and ragged ones: odd maps (bands with a short last one),
+# K = 1, 5 and 13 (a short last group of 8 planes), three images, a
+# target plane touching every border, a plane without a target
+@pytest.mark.parametrize('shape, full', [
+    ((2, 128, 200, 336), False), ((2, 128, 336, 200), False),
+    ((1, 1, 37, 53), False), ((1, 5, 37, 53), False),
+    ((3, 5, 37, 53), False), ((2, 13, 37, 53), True),
+    ((1, 5, 37, 53), True)])
+def test_crf_kernel_equals_plain_bitwise(cuda, shape, full):
+    kern, thresh, bin0, targets = _crf_inputs(6, cuda, *shape, full=full)
+    for rounds in (10, 1):
+        got = crf.crf_mean_field_cuda(kern, thresh, bin0, targets, rounds)
+        want = crf.crf_mean_field_plain(kern, thresh, bin0, targets, rounds)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), rounds
+        assert not torch.equal(want, bin0)    # the rounds changed labels
     assert shape[1] == 1 or not want[0, -1].any()
     # no rounds: the initial state
     assert torch.equal(crf.crf_mean_field_cuda(kern, thresh, bin0, targets,
@@ -424,8 +444,92 @@ def test_crf_wrapper_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match='contiguous'):
         crf.crf_mean_field_cuda(kern, thresh, bin0.transpose(2, 3),
                                 targets.transpose(2, 3), 10)
-    big = torch.zeros((1, 1, 400, 400), device=cuda)
+    # more than 8 bands of rows
+    big = torch.zeros((1, 1, 1200, 1200), device=cuda)
     with pytest.raises(ValueError, match='shared memory'):
-        crf.crf_mean_field_cuda(torch.zeros((1, 9, 400, 400), device=cuda),
-                                torch.zeros((1, 400, 400), device=cuda), big,
-                                big, 10)
+        crf.crf_mean_field_cuda(torch.zeros((1, 9, 1200, 1200), device=cuda),
+                                torch.zeros((1, 1200, 1200), device=cuda),
+                                big, big, 10)
+
+
+def _launches():
+    return (pw.pairwise_forward_cuda.launches, pw.pairwise_grad_cuda.launches,
+            msda.msda_forward_cuda.launches, msda.msda_backward_cuda.launches,
+            lcm.lcm_forward_cuda.launches, lcm.lcm_adjoint_cuda.launches,
+            swa.window_attention_forward_cuda.launches,
+            swa.window_attention_backward_cuda.launches,
+            crf.crf_mean_field_cuda.launches)
+
+
+def _bf16_case(kind, cuda):
+    """(the kernel's entry, its bf16 inputs, how many of them (the first)
+    get a gradient, the launch counters it moves)."""
+    if kind == 'pairwise':
+        logits, sim, masks, valid = _inputs((1, 3, 37, 53), 9, cuda)
+        leaves = [logits.bfloat16(), sim.bfloat16(), masks.bfloat16()]
+
+        def run(x, s, m):
+            return pw.PairwiseLossFunction.apply(x, s, m, valid, 0.3, 3, 2)
+        return run, leaves, 1, (0, 1)
+    if kind == 'msda':
+        levels = ((6, 5), (3, 3))
+        value, ref, offsets, attn, _ = _msda_inputs(9, cuda, 2, 2, 32, 4,
+                                                    levels, 7, 0.2)
+        leaves = [value.bfloat16(), offsets.bfloat16(), attn.bfloat16()]
+
+        def run(v, o, a):
+            return msda.MSDAFunction.apply(v, levels, ref, o, a)
+        return run, leaves, 3, (2, 3)
+    if kind == 'lcm':
+        offs, aff, x, _ = _lcm_inputs(9, cuda, (1, 3, 37, 53))
+        leaves = [x.bfloat16()]
+
+        def run(p):
+            return lcm.LCMRefineFunction.apply(aff.bfloat16(), p, offs, 10)
+        return run, leaves, 1, (4, 5)
+    if kind == 'swin':
+        qkv, bias, regions, _ = _swin_inputs(9, cuda, 8, 8, 4, 2, 2, 2, 16)
+        leaves = [qkv.bfloat16(), bias.bfloat16()]
+
+        def run(q, b):
+            return swa.WindowAttentionFunction.apply(q, b, regions, 0.25)
+        return run, leaves, 2, (6, 7)
+    kern, thresh, bin0, targets = _crf_inputs(9, cuda, 1, 5, 37, 53)
+    leaves = [kern.bfloat16(), thresh.bfloat16(), bin0.bfloat16(),
+              targets.bfloat16()]
+
+    def run(k, t, b, g):
+        return crf.crf_mean_field(k, t, b, g, 10)
+    return run, leaves, 0, (8,)
+
+
+# autocast leaves the kernels' inputs in bf16 (the DiscoBox config's
+# precision key): each entry casts them to fp32, launches its kernel (no
+# plain version, no error) and answers in its input's dtype, with the
+# gradients in their leaves' dtypes
+@pytest.mark.parametrize('kind', ['pairwise', 'msda', 'lcm', 'swin', 'crf'])
+def test_kernel_entries_take_bf16_inputs(cuda, kind):
+    run, leaves, n_grad, moved = _bf16_case(kind, cuda)
+    grads = n_grad > 0
+    bf = [t.clone().requires_grad_(i < n_grad)
+          for i, t in enumerate(leaves)]
+    before = _launches()
+    out = run(*bf)
+    if grads:
+        out.float().sum().backward()
+    after = _launches()
+    assert [a - b for a, b in zip(after, before)] == [
+        (1 if i in moved else 0) for i in range(len(before))]
+    assert out.dtype == torch.bfloat16
+    f32 = [t.detach().float().requires_grad_(t.requires_grad) for t in bf]
+    want = run(*f32)
+    torch.testing.assert_close(out.float(), want.to(torch.bfloat16).float())
+    if grads:
+        want.float().sum().backward()
+        for b, f in zip(bf, f32):
+            if b.requires_grad:
+                assert b.grad.dtype == torch.bfloat16
+                torch.testing.assert_close(
+                    b.grad.float(), f.grad.to(torch.bfloat16).float(),
+                    atol=1e-2 * max(f.grad.abs().max().item(), 1e-3),
+                    rtol=1e-2)

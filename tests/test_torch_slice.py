@@ -13,7 +13,8 @@ A tiny CondInst (ResNet-18, narrow FPN and heads) with the same weights
 - importing every module of the port and running its CondInst, Box2Mask
   and DiscoBox train steps leaves JAX, flax, optax and cv2 out of
   ``sys.modules`` (in a subprocess: this suite imports JAX);
-- ``train_detector`` runs the loop on the CPU and saves ``_iter``;
+- ``train_detector`` runs the loop on the CPU and saves ``_iter``, and
+  applies the shipped DiscoBox config's ``fp16`` key as bf16 autocast;
 - an error in the loader's producer thread reaches the consumer.
 """
 import os
@@ -438,10 +439,11 @@ def test_train_detector_runs_and_saves_iter(tmp_path):
     assert 'Iter [3/3]' in log and 'grad_norm' in log
 
 
-def test_train_detector_warns_that_the_precision_key_is_not_applied(
-        tmp_path, caplog):
+def test_train_detector_applies_the_precision_key(tmp_path, caplog):
     """The shipped DiscoBox config asks for mixed precision (``fp16``),
-    which the JAX package applies as bf16 and the port does not yet."""
+    which the JAX package applies as bf16: so does the port, logging the
+    policy once at start; the forward runs in bf16 and the parameters and
+    losses stay fp32."""
     import logging
     from boxinstseg_tpu_torch.apis.train import train_detector
     from boxinstseg_tpu_torch.config import Config
@@ -455,13 +457,19 @@ def test_train_detector_warns_that_the_precision_key_is_not_applied(
         canvases=[(64, 96)], max_gts=4, work_dir=str(tmp_path),
         fp16=dict(disco.fp16)))
     torch.manual_seed(0)
-    with caplog.at_level(logging.WARNING, logger='boxinstseg_tpu_torch'):
-        train_detector(build_detector(cfg.model), _TinyBoxDataset(), cfg,
-                       device='cpu')
-    warned = [r.getMessage() for r in caplog.records
-              if r.levelno == logging.WARNING]
-    assert len(warned) == 1 and 'fp16' in warned[0] \
-        and 'not applied' in warned[0], warned
+    model = build_detector(cfg.model)
+    seen = []
+    model.backbone.conv1.register_forward_hook(
+        lambda mod, args, out: seen.append(out.dtype))
+    with caplog.at_level(logging.INFO, logger='boxinstseg_tpu_torch'):
+        result = train_detector(model, _TinyBoxDataset(), cfg, device='cpu')
+    said = [r.getMessage() for r in caplog.records
+            if 'mixed precision' in r.getMessage()]
+    assert said == ['mixed precision: bf16 activations, f32 params/losses']
+    assert not [r for r in caplog.records if r.levelno >= logging.WARNING]
+    assert seen == [torch.bfloat16]
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(np.isfinite(v) for h in result.history for v in h.values())
 
 
 class _FailingBatcher:

@@ -131,7 +131,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tool = load_train_tool()
-    from boxinstseg_tpu_torch.apis.train import (batch_to_device,
+    from boxinstseg_tpu_torch.apis.train import (apply_precision_policy,
+                                                 batch_to_device,
                                                  build_object_bank,
                                                  default_canvases)
     from boxinstseg_tpu_torch.data.batcher import StaticBatcher
@@ -166,6 +167,7 @@ def main():
         annotate_method(model.panoptic_head, 'loss', 'loss:panoptic_head')
     opt = build_optimizer(cfg.optimizer, model.named_parameters())
     grad_clip = (cfg.get('optimizer_config') or {}).get('grad_clip')
+    bf16 = apply_precision_policy(cfg)
     if isinstance(model, SingleStageWSInsTSDetector):
         annotate_method(model.bbox_head, 'loss', 'loss:bbox_head')
         ts_cfg = dict(cfg.get('ts_cfg') or {})
@@ -175,18 +177,19 @@ def main():
             start_iter=ts_cfg.get('start_iter', 13000),
             ts_thresh=ts_cfg.get('ts_thresh', 0.3),
             corr_thresh=ts_cfg.get('corr_thresh', 0.2),
-            bank=build_object_bank(cfg, 'cuda'))
+            bank=build_object_bank(cfg, 'cuda'), bf16=bf16)
         # at start_iter the teacher's forward does not run, past it it does
         kinds = [('without the teacher', step.start_iter),
                  ('with the teacher', step.start_iter + 1)]
     else:
         step = make_train_step(model, opt, lambda i: cfg.optimizer['lr'],
-                               grad_clip)
+                               grad_clip, bf16=bf16)
         # the warmup counter past 0 so the pairwise term has a gradient
         kinds = [('', (cfg.model.get('mask_head') or {}).get(
             'pairwise_warmup', 10000))]
     print(f'{torch.cuda.get_device_name(0)}; batch {bs}, canvas '
-          f'{tuple(batch["image"].shape[-2:])}')
+          f'{tuple(batch["image"].shape[-2:])}; '
+          f'{"bf16 autocast" if bf16 else "fp32"} (the config\'s precision)')
     for label, it in kinds:
         for _ in range(args.warmup):
             step(batch, it)
