@@ -114,6 +114,31 @@ class PlainPairwiseLossFunction(torch.autograd.Function):
             None, None, None
 
 
+# ----------------------------------------------------- the kernels' tiling
+
+# one tile of output pixels a block: csrc/pairwise.cu's TILE_H x TILE_W
+TILE_H, TILE_W = 8, 32
+
+
+def live_tiles(bitmasks, valid, above, below, side, tile_h=TILE_H,
+               tile_w=TILE_W):
+    """(B, K, tiles_y, tiles_x) bool: whether a box weight (a non-zero
+    bitmask pixel of a valid instance) lies in rows [y0 - above, y0 + tile_h
+    + below) and columns [x0 - side, x0 + tile_w + side) of the tile whose
+    corner is (y0, x0), clipped to the map. The kernels vote on the same
+    windows: K1 on (0, r, r), K2 on (r, r, r) with r = kernel_size // 2 *
+    dilation; an instance skips every tile that is not live."""
+    b, k, h, w = bitmasks.shape
+    ty, tx = -(-h // tile_h), -(-w // tile_w)
+    wmap = ((bitmasks != 0) & valid[..., None, None]).float()
+    wmap = F.pad(wmap.reshape(b * k, 1, h, w),
+                 (side, tx * tile_w - w + side, above,
+                  ty * tile_h - h + below))
+    pooled = F.max_pool2d(wmap, (tile_h + above + below, tile_w + 2 * side),
+                          (tile_h, tile_w))
+    return pooled.reshape(b, k, ty, tx) > 0
+
+
 # ------------------------------------------------------------- CUDA kernels
 
 @functools.lru_cache(maxsize=None)
@@ -121,12 +146,14 @@ def _lib():
     """Build (first call) and type the C interface of csrc/pairwise.cu."""
     lib = load_library('pairwise')
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.pairwise_forward.argtypes = [p] * 6 + [i] * 7 + [f, p]
+    lib.pairwise_forward.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
     lib.pairwise_forward.restype = i
-    lib.pairwise_backward.argtypes = [p] * 6 + [i] * 7 + [f, p]
+    lib.pairwise_backward.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
     lib.pairwise_backward.restype = i
-    lib.pairwise_tiles.argtypes = [i, i]
-    lib.pairwise_tiles.restype = i
+    lib.pairwise_forward_blocks.argtypes = [i] * 4
+    lib.pairwise_forward_blocks.restype = i
+    lib.pairwise_live_items.argtypes = [i] * 4
+    lib.pairwise_live_items.restype = i
     return lib
 
 
@@ -168,36 +195,59 @@ def _check_inputs(mask_logits, color_sim, bitmasks, valid, kernel_size,
         raise ValueError(f'B={b} and K={k} must each be <= 65535')
 
 
+def _launch_args(mask_logits, color_sim, bitmasks, valid, color_thresh,
+                 kernel_size, dilation, *out):
+    """The C entries' arguments after the output pointers ``out``. vec
+    (16-byte loads and stores of rows) needs W % 4 == 0 and aligned
+    planes; the outputs the wrappers allocate are aligned."""
+    b, k, h, w = mask_logits.shape
+    vec = w % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in
+                             (bitmasks,) + out)
+    return (b, k, h, w, kernel_size * kernel_size - 1, kernel_size // 2,
+            dilation, float(color_thresh), int(vec),
+            torch.cuda.current_stream(mask_logits.device).cuda_stream)
+
+
 def pairwise_forward_cuda(mask_logits, color_sim, bitmasks, valid,
-                          color_thresh=0.3, kernel_size=3, dilation=2):
-    """K1: (num, den) scalars of the weighted pairwise loss."""
+                          color_thresh=0.3, kernel_size=3, dilation=2,
+                          keep_live=False):
+    """K1: (num, den) scalars of the weighted pairwise loss. With
+    ``keep_live`` also the live map that ``pairwise_grad_cuda`` takes: one
+    byte a (b, k, tile), whether K2 has work there."""
     _check_inputs(mask_logits, color_sim, bitmasks, valid, kernel_size,
                   dilation)
     lib = _lib()
     b, k, h, w = mask_logits.shape
-    tiles = lib.pairwise_tiles(h, w)
-    part = torch.empty((2, b, k, tiles), dtype=torch.float32,
-                       device=mask_logits.device)
-    stream = torch.cuda.current_stream(mask_logits.device).cuda_stream
-    with torch.cuda.device(mask_logits.device):
+    dev = mask_logits.device
+    part = torch.empty(2 * lib.pairwise_forward_blocks(b, k, h, w),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    live = torch.empty(lib.pairwise_live_items(b, k, h, w)
+                       if keep_live else 0, dtype=torch.uint8, device=dev)
+    args = _launch_args(mask_logits, color_sim, bitmasks, valid,
+                        color_thresh, kernel_size, dilation)
+    with torch.cuda.device(dev):
         err = lib.pairwise_forward(
             mask_logits.data_ptr(), color_sim.data_ptr(),
-            bitmasks.data_ptr(), valid.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), b, k, h, w, kernel_size * kernel_size - 1,
-            kernel_size // 2, dilation, float(color_thresh), stream)
+            bitmasks.data_ptr(), valid.data_ptr(), part.data_ptr(),
+            out.data_ptr(), live.data_ptr() if keep_live else None, *args)
     check(err, 'pairwise_forward')
     pairwise_forward_cuda.launches += 1
-    sums = part.sum(dim=(1, 2, 3))
-    return sums[0], sums[1]
+    if keep_live:
+        return out[0], out[1], live
+    return out[0], out[1]
 
 
 pairwise_forward_cuda.launches = 0
 
 
 def pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid, scale,
-                       color_thresh=0.3, kernel_size=3, dilation=2):
+                       color_thresh=0.3, kernel_size=3, dilation=2,
+                       live=None):
     """K2: d(num)/d(logits) * scale, where ``scale`` is a one-element
-    float32 CUDA tensor (read on the device: no host sync)."""
+    float32 CUDA tensor (read on the device: no host sync). ``live``: the
+    map ``pairwise_forward_cuda(..., keep_live=True)`` made of the same
+    inputs; without it K2 finds its work in the bitmask itself."""
     _check_inputs(mask_logits, color_sim, bitmasks, valid, kernel_size,
                   dilation)
     if scale.numel() != 1 or scale.dtype != torch.float32 \
@@ -205,15 +255,21 @@ def pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid, scale,
         raise ValueError('scale must be one float32 on the logits device')
     scale = scale.contiguous()
     lib = _lib()
-    b, k, h, w = mask_logits.shape
+    if live is not None and (
+            live.dtype != torch.uint8 or live.device != mask_logits.device
+            or not live.is_contiguous() or live.numel() !=
+            lib.pairwise_live_items(*mask_logits.shape)):
+        raise ValueError('live must be the uint8 map pairwise_forward_cuda '
+                         'kept for these inputs')
     grad = torch.empty_like(mask_logits)
-    stream = torch.cuda.current_stream(mask_logits.device).cuda_stream
+    args = _launch_args(mask_logits, color_sim, bitmasks, valid,
+                        color_thresh, kernel_size, dilation, grad)
     with torch.cuda.device(mask_logits.device):
         err = lib.pairwise_backward(
             mask_logits.data_ptr(), color_sim.data_ptr(),
             bitmasks.data_ptr(), valid.data_ptr(), scale.data_ptr(),
-            grad.data_ptr(), b, k, h, w, kernel_size * kernel_size - 1,
-            kernel_size // 2, dilation, float(color_thresh), stream)
+            grad.data_ptr(), None if live is None else live.data_ptr(),
+            *args)
     check(err, 'pairwise_backward')
     pairwise_grad_cuda.launches += 1
     return grad
@@ -223,7 +279,8 @@ pairwise_grad_cuda.launches = 0
 
 
 class PairwiseLossFunction(torch.autograd.Function):
-    """K1 forward, K2 backward. The kernels take fp32 (as the JAX wrapper
+    """K1 forward, K2 backward (with K1's live map: it reads no bitmask to
+    find its work). The kernels take fp32 (as the JAX wrapper
     casts): bf16 or fp16 inputs, as autocast leaves them, run in fp32, and
     the loss and the logits' gradient come back in the logits' dtype."""
 
@@ -234,19 +291,21 @@ class PairwiseLossFunction(torch.autograd.Function):
         mask_logits, color_sim, bitmasks = (
             as_fp32(t).contiguous() for t in (mask_logits, color_sim,
                                               bitmasks))
-        num, den = pairwise_forward_cuda(mask_logits, color_sim, bitmasks,
-                                         valid, color_thresh, kernel_size,
-                                         dilation)
-        ctx.save_for_backward(mask_logits, color_sim, bitmasks, valid, den)
+        num, den, live = pairwise_forward_cuda(
+            mask_logits, color_sim, bitmasks, valid, color_thresh,
+            kernel_size, dilation, keep_live=True)
+        ctx.save_for_backward(mask_logits, color_sim, bitmasks, valid, den,
+                              live)
         ctx.cfg = (color_thresh, kernel_size, dilation)
         return (num / torch.clamp(den, min=1.0)).to(ctx.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        mask_logits, color_sim, bitmasks, valid, den = ctx.saved_tensors
+        mask_logits, color_sim, bitmasks, valid, den, live = \
+            ctx.saved_tensors
         scale = (as_fp32(g) / torch.clamp(den, min=1.0)).to(torch.float32)
         grad = pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid,
-                                  scale.reshape(1), *ctx.cfg)
+                                  scale.reshape(1), *ctx.cfg, live=live)
         return grad.to(ctx.dtype), None, None, None, None, None, None
 
 

@@ -11,7 +11,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                source, all started together.
 3. kernels   - each kernel against its plain PyTorch version on the card, at
                the main path's shapes and at ragged ones: the pairwise pair
-               (K1/K2), the MSDA pair (one launch a layer each way, at one
+               (K1/K2; also box bitmasks at kernel 3 / dilation 2, 3 / 1
+               and 5 / 1, den exactly, the same bits from a second call),
+               the MSDA pair (one launch a layer each way, at one
                Box2Mask encoder layer's full shapes and three ragged layer
                cases; the backward also against autograd through the plain
                forward, and whether two backward runs give the same bits),
@@ -26,6 +28,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                trained for 5 SGD steps through tools/train_torch.py on
                seeded synthetic 800x1333 images; the pairwise kernels'
                launch counts over that run must equal the step count.
+   pairwise main path - K1/K2 at the inputs of the slice's last pairwise
+               call (the sampled GTs' box bitmasks): against the plain
+               version, the inputs' coverage (weighted pixels, passing
+               gates, live (instance, tile) items), times beside the dense
+               and the live bound, and the one-block-a-tile kernels
+               (tools/baselines/pairwise_tiles.cu) timed against them in
+               turns at these and at the random inputs.
 5. reference - a small CondInst's loss dict on the card (kernels) against
                the same weights and batch on the CPU (plain versions), in
                fp32 (as every card-vs-CPU phase).
@@ -199,9 +208,12 @@ SOURCES = {
     'swin_attention_backward': 'boxinstseg_tpu_torch/csrc/swin_attention.cu',
     'crf_mean_field': 'boxinstseg_tpu_torch/csrc/crf.cu',
 }
-# the one-block-per-plane K3 and K7, timed against the kernels in turns
+# the one-block-per-plane K3 and K7 and the one-block-a-tile K1 / K2,
+# timed against the kernels in turns
 BASELINES = {'lcm': os.path.join(ROOT, 'tools/baselines/lcm_per_plane.cu'),
-             'crf': os.path.join(ROOT, 'tools/baselines/crf_per_plane.cu')}
+             'crf': os.path.join(ROOT, 'tools/baselines/crf_per_plane.cu'),
+             'pairwise': os.path.join(ROOT,
+                                      'tools/baselines/pairwise_tiles.cu')}
 
 
 def fail(msg):
@@ -336,73 +348,291 @@ def kernel_inputs(shape, gen):
     return x, sim, bm, valid
 
 
-def phase_kernels():
+@contextlib.contextmanager
+def capture_pairwise_inputs():
+    """Keep the inputs of the last ``PairwiseLossFunction`` call, detached
+    (references: no copies in the timed steps; nothing writes them in
+    place), and its (color_thresh, kernel_size, dilation)."""
+    from boxinstseg_tpu_torch.ops import pairwise as pw
+    forward = pw.PairwiseLossFunction.forward
+    kept = {}
+
+    def recorded(ctx, mask_logits, color_sim, bitmasks, valid, *cfg):
+        kept['inputs'] = tuple(t.detach().float() for t in (
+            mask_logits, color_sim, bitmasks)) + (valid.detach(),)
+        kept['cfg'] = cfg
+        return forward(ctx, mask_logits, color_sim, bitmasks, valid, *cfg)
+    pw.PairwiseLossFunction.forward = staticmethod(recorded)
+    try:
+        yield kept
+    finally:
+        pw.PairwiseLossFunction.forward = staticmethod(forward)
+
+
+def pairwise_coverage(x, sim, bm, valid, thresh=0.3, kernel_size=3,
+                      dilation=2):
+    """What the pairwise kernels' inputs ask of them: the share of weighted
+    (instance, pixel)s, of passing gates, of the (instance, tile) items
+    that K1 and K2 must visit (``pairwise.live_tiles``), and of the logits
+    within r of a weighted pixel; and the live bytes. K1: the bitmask read
+    whole (its vote), the gates, the logits near a weight. K2, led by K1's
+    live map as on the main path: the map, the gates, the logits and the
+    bitmask near a weight, the gradient written whole."""
+    import torch
+    import torch.nn.functional as F
+    from boxinstseg_tpu_torch.ops import pairwise as pw
+    r = kernel_size // 2 * dilation
+    b, k, h, w = x.shape
+    wmap = ((bm != 0) & valid[..., None, None]).float()
+    near = F.max_pool2d(wmap.reshape(b * k, 1, h, w), 2 * r + 1, 1, r)
+    n_near = int(near.sum().item())
+    cov = dict(
+        weighted=wmap.mean().item(),
+        gates=(sim >= thresh).float().mean().item(),
+        k1_tile=pw.live_tiles(bm, valid, 0, 0, 0).float().mean().item(),
+        k1=pw.live_tiles(bm, valid, 0, r, r).float().mean().item(),
+        k2=pw.live_tiles(bm, valid, r, r, r).float().mean().item(),
+        near=n_near / x.numel())
+    live_map = b * k * -(-h // pw.TILE_H) * -(-w // pw.TILE_W)
+    cov['k1_live_bytes'] = nbytes(bm, sim, valid) + 4 * n_near + 8
+    cov['k2_live_bytes'] = (live_map + nbytes(sim, valid) + 8 * n_near
+                            + nbytes(x) + 4)
+    cov['near_pixels'] = n_near
+    print(f'coverage of {tuple(x.shape)}: weighted pixels '
+          f'{cov["weighted"]:.4f}, gates passing {cov["gates"]:.4f}, '
+          f'(instance, tile) items live for K1 {cov["k1"]:.4f} (the tile '
+          f'alone {cov["k1_tile"]:.4f}), for K2 (tile and halo) '
+          f'{cov["k2"]:.4f}; logits within {r} of a weight '
+          f'{cov["near"]:.4f}')
+    return cov
+
+
+def box_inputs(shape, kernel_size, gen):
+    """Pairwise inputs with box bitmasks, six instances an image: a box
+    inside one 8x32 tile, a frame touching every border, an empty instance,
+    an invalid one (with a box), the whole plane, and a box across tiles;
+    logits up to |x| ~ 16, gates for a stencil of ``kernel_size``."""
+    import torch
+    b, _, h, w = shape
+    x = torch.randn(shape, generator=gen, device='cuda') * 4
+    sim = torch.rand((b, kernel_size ** 2 - 1, h, w), generator=gen,
+                     device='cuda')
+    bm = torch.zeros(shape, device='cuda')
+    valid = torch.ones(shape[:2], dtype=torch.bool, device='cuda')
+    bm[:, 0, 9:14, 35:min(60, w)] = 1
+    bm[:, 1, [0, h - 1]] = 1
+    bm[:, 1, :, [0, w - 1]] = 1
+    bm[:, 3, 2:h - 3, 1:w // 2] = 1
+    valid[:, 3] = False
+    bm[:, 4] = 1
+    bm[:, 5, 3:22, 5:45] = 1
+    return x, sim, bm, valid
+
+
+def check_pairwise(tag, x, sim, bm, valid, cfg=(0.3, 3, 2)):
     """K1/K2 against the plain version: through their autograd.Function,
-    and K2 alone on the unnormalised gradient."""
+    K1's den exactly, K2 alone on the unnormalised gradient, and both
+    giving the same bits in a second call. Returns (value error, gradient
+    error)."""
+    import torch
+    from boxinstseg_tpu_torch.ops import pairwise as pw
+    one = torch.ones(1, device='cuda')
+    xk = x.clone().requires_grad_(True)
+    vk = pw.PairwiseLossFunction.apply(xk, sim, bm, valid, *cfg)
+    vk.backward()
+    xp = x.clone().requires_grad_(True)
+    vp = pw.PlainPairwiseLossFunction.apply(xp, sim, bm, valid, *cfg)
+    vp.backward()
+    sums = torch.stack(pw.pairwise_forward_cuda(x, sim, bm, valid, *cfg))
+    g_kernel = pw.pairwise_grad_cuda(x, sim, bm, valid, one, *cfg)
+    g_plain = pw.pairwise_grad_plain(x, sim, bm, valid, *cfg)
+    _, den = pw.pairwise_num_den_plain(x, sim, bm, valid, *cfg)
+    same = (torch.equal(sums, torch.stack(pw.pairwise_forward_cuda(
+        x, sim, bm, valid, *cfg))) and torch.equal(
+        g_kernel, pw.pairwise_grad_cuda(x, sim, bm, valid, one, *cfg)))
+    torch.cuda.synchronize()
+    inv_den = 1.0 / max(den.item(), 1.0)
+    v_err = abs(vk.item() - vp.item())
+    g_err = (g_kernel - g_plain).abs().max().item()
+    g_max = g_plain.abs().max().item()
+    print(f'{tag}: value kernel {vk.item():.9g} plain {vp.item():.9g} abs '
+          f'err {v_err:.3g}; den {sums[1].item():.0f} plain '
+          f'{den.item():.0f}; unnormalised grad max abs err {g_err:.3g} '
+          f'(max |grad| {g_max:.3g}); through autograd '
+          f'{(xk.grad - xp.grad).abs().max().item():.3g} (x 1/den '
+          f'{inv_den:.3g}); same bits in a second call: {same}')
+    if not math.isfinite(vk.item()) or v_err > VALUE_RTOL * abs(vp.item()):
+        fail(f'K1 value {vk.item()} vs plain {vp.item()} at {tag}')
+    if abs(sums[1].item() - den.item()) > VALUE_RTOL * den.item():
+        fail(f'K1 den {sums[1].item()} vs plain {den.item()} at {tag}')
+    if not g_max > 0.1:
+        fail(f'plain gradient max {g_max} at {tag}: check is vacuous')
+    if not torch.allclose(g_kernel, g_plain, atol=GRAD_ATOL, rtol=GRAD_RTOL):
+        fail(f'K2 gradient differs from plain at {tag}: {g_err}')
+    if not torch.allclose(xk.grad, xp.grad, atol=GRAD_ATOL * inv_den,
+                          rtol=GRAD_RTOL):
+        fail(f'K2 through autograd differs from plain at {tag}')
+    if not same:
+        fail(f'K1 / K2 gave other bits in a second call at {tag}')
+    return v_err, g_err
+
+
+def pairwise_entries(x, sim, bm, valid, scale, lib=None):
+    """Calls of K1 and K2's C entries on these inputs with their buffers
+    made once (no checks, no allocation, no launch count): the kernels'
+    device time, where the wrappers' host work would exceed it. K1 keeps
+    its live map and K2 takes it, as on the main path. ``lib``: a library
+    built from a variant of csrc/pairwise.cu (default: the package's)."""
+    import torch
+    from boxinstseg_tpu_torch.ops import pairwise as pw
+    lib = lib or pw._lib()
+    b, k, h, w = x.shape
+    grad = torch.empty_like(x)
+    fwd = pw._launch_args(x, sim, bm, valid, 0.3, 3, 2)
+    bwd = pw._launch_args(x, sim, bm, valid, 0.3, 3, 2, grad)
+    part = torch.empty(2 * lib.pairwise_forward_blocks(b, k, h, w),
+                       device='cuda')
+    out = torch.empty(2, device='cuda')
+    live = torch.empty(lib.pairwise_live_items(b, k, h, w),
+                       dtype=torch.uint8, device='cuda')
+    ins = [t.data_ptr() for t in (x, sim, bm, valid)]
+
+    def forward():
+        err = lib.pairwise_forward(*ins, part.data_ptr(), out.data_ptr(),
+                                   live.data_ptr(), *fwd)
+        if err:
+            fail(f'K1: CUDA error {err}')
+        return out
+
+    def backward():
+        err = lib.pairwise_backward(*ins, scale.data_ptr(), grad.data_ptr(),
+                                    live.data_ptr(), *bwd)
+        if err:
+            fail(f'K2: CUDA error {err}')
+        return grad
+    forward()
+    return forward, backward
+
+
+def time_pairwise(x, sim, bm, valid, baseline=None):
+    """Times (ms) of K1 and K2 on these inputs: 'ms' through the wrappers
+    (checks, allocation, launch), as every kernel's row is timed;
+    'device_ms' of their C entries alone (the kernels' device time); with
+    ``baseline`` (the library of ``load_baseline('pairwise')``) each C
+    entry against the one-block-a-tile kernels' in turns, whose four times
+    come back under 'turns'."""
+    import torch
+    from boxinstseg_tpu_torch.ops import pairwise as pw
+    _, den = pw.pairwise_num_den_plain(x, sim, bm, valid)
+    scale = torch.full((1,), 1.0 / max(den.item(), 1.0), device='cuda')
+    new = dict(zip(('pairwise_forward', 'pairwise_backward'),
+                   pairwise_entries(x, sim, bm, valid, scale)))
+    wrappers = {'pairwise_forward': lambda: pw.pairwise_forward_cuda(
+                    x, sim, bm, valid),
+                'pairwise_backward': lambda: pw.pairwise_grad_cuda(
+                    x, sim, bm, valid, scale)}
+    out = {name: dict(ms=cuda_ms(wrappers[name]),
+                      device_ms=cuda_ms(new[name])) for name in new}
+    if baseline is not None:
+        old = dict(zip(new, pairwise_baseline(baseline, x, sim, bm, valid,
+                                              scale)))
+        for name in new:
+            out[name]['turns'] = in_turns(f'{name} at {tuple(x.shape)}',
+                                          old[name], new[name])
+    return out
+
+
+def pairwise_bounds(x, sim, bm, valid):
+    """Dense bounds (each input read once, each output written once) of
+    K1 and K2, and the live bounds of these inputs (pairwise_coverage),
+    as ``bound`` dicts."""
+    cov = pairwise_coverage(x, sim, bm, valid)
+    near = cov['near_pixels']
+    return cov, {
+        'pairwise_forward': (bound(nbytes(x, sim, bm, valid) + 8,
+                                   K1_OPS * x.numel()),
+                             bound(cov['k1_live_bytes'], K1_OPS * near)),
+        'pairwise_backward': (bound(nbytes(x, sim, bm, valid, x),
+                                    K2_OPS * x.numel()),
+                              bound(cov['k2_live_bytes'], K2_OPS * near))}
+
+
+def phase_kernels():
+    """K1/K2 against the plain version at the main path's shape with
+    random inputs (every tile live), ragged shapes and box bitmasks at the
+    main path's stencil and two generic ones; times at the random inputs
+    (the main-path inputs come after the slice)."""
     import torch
     from boxinstseg_tpu_torch.ops import pairwise as pw
     gen = torch.Generator(device='cuda').manual_seed(0)
-    one = torch.ones(1, device='cuda')
     report = {}
     for shape in (MAIN_SHAPE,) + RAGGED_SHAPES:
         x, sim, bm, valid = kernel_inputs(shape, gen)
-        xk = x.clone().requires_grad_(True)
-        vk = pw.PairwiseLossFunction.apply(xk, sim, bm, valid, 0.3, 3, 2)
-        vk.backward()
-        xp = x.clone().requires_grad_(True)
-        vp = pw.PlainPairwiseLossFunction.apply(xp, sim, bm, valid, 0.3, 3,
-                                                2)
-        vp.backward()
-        g_kernel = pw.pairwise_grad_cuda(x, sim, bm, valid, one)
-        g_plain = pw.pairwise_grad_plain(x, sim, bm, valid)
-        _, den = pw.pairwise_num_den_plain(x, sim, bm, valid)
-        torch.cuda.synchronize()
-        inv_den = 1.0 / max(den.item(), 1.0)
-        v_err = abs(vk.item() - vp.item())
-        g_err = (g_kernel - g_plain).abs().max().item()
-        g_max = g_plain.abs().max().item()
-        print(f'{shape}: value kernel {vk.item():.9g} plain {vp.item():.9g}'
-              f' abs err {v_err:.3g}; unnormalised grad max abs err '
-              f'{g_err:.3g} (max |grad| {g_max:.3g}); through autograd '
-              f'{(xk.grad - xp.grad).abs().max().item():.3g} (x 1/den '
-              f'{inv_den:.3g})')
-        if not math.isfinite(vk.item()) or v_err > VALUE_RTOL * abs(
-                vp.item()):
-            fail(f'K1 value {vk.item()} vs plain {vp.item()} at {shape}')
-        if not g_max > 0.1:
-            fail(f'plain gradient max {g_max} at {shape}: check is vacuous')
-        if not torch.allclose(g_kernel, g_plain, atol=GRAD_ATOL,
-                              rtol=GRAD_RTOL):
-            fail(f'K2 gradient differs from plain at {shape}: {g_err}')
-        if not torch.allclose(xk.grad, xp.grad, atol=GRAD_ATOL * inv_den,
-                              rtol=GRAD_RTOL):
-            fail(f'K2 through autograd differs from plain at {shape}')
+        v_err, g_err = check_pairwise(f'{shape}', x, sim, bm, valid)
         if shape == MAIN_SHAPE:
-            scale = torch.full((1,), inv_den, device='cuda')
-            pixels = x.numel()
-            # K1 writes a (2, B, K, tiles) buffer of partial sums
-            partials = 2 * x.numel() // (32 * 8) * 4
-            report['pairwise_forward'] = dict(
-                max_abs_err=v_err,
-                ms=cuda_ms(lambda: pw.pairwise_forward_cuda(x, sim, bm,
-                                                            valid)),
-                plain_ms=cuda_ms(lambda: pw.pairwise_num_den_plain(
-                    x, sim, bm, valid)),
-                library_ms=None,
-                **bound(nbytes(x, sim, bm, valid) + partials,
-                        K1_OPS * pixels))
-            report['pairwise_backward'] = dict(
-                max_abs_err=g_err,
-                ms=cuda_ms(lambda: pw.pairwise_grad_cuda(x, sim, bm, valid,
-                                                         scale)),
-                plain_ms=cuda_ms(lambda: pw.pairwise_grad_plain(
-                    x, sim, bm, valid) * scale),
-                library_ms=None,
-                **bound(nbytes(x, sim, bm, valid, x), K2_OPS * pixels))
+            times = time_pairwise(x, sim, bm, valid)
+            _, bounds = pairwise_bounds(x, sim, bm, valid)
+            for name, err in (('pairwise_forward', v_err),
+                              ('pairwise_backward', g_err)):
+                report[name] = dict(random_max_abs_err=err,
+                                    random_ms=times[name]['ms'],
+                                    random_device_ms=times[name][
+                                        'device_ms'],
+                                    random_bound_ms=bounds[name][0][
+                                        'bound_ms'])
+    for kernel_size, dilation in ((3, 2), (3, 1), (5, 1)):
+        for shape in ((2, 6, 37, 53), (1, 6, 16, 64)):
+            check_pairwise(f'boxes {shape}, kernel {kernel_size}, dilation '
+                           f'{dilation}', *box_inputs(shape, kernel_size,
+                                                      gen),
+                           (0.3, kernel_size, dilation))
+    x, sim, bm, valid = kernel_inputs(MAIN_SHAPE, gen)
+    report['pairwise_forward']['plain_ms'] = cuda_ms(
+        lambda: pw.pairwise_num_den_plain(x, sim, bm, valid))
+    report['pairwise_backward']['plain_ms'] = cuda_ms(
+        lambda: pw.pairwise_grad_plain(x, sim, bm, valid))
     for name, r in report.items():
-        print(f'{name} at {MAIN_SHAPE}: kernel {r["ms"]:.4f} ms, plain '
-              f'{r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
-              f'({r["bound_by"]})')
+        print(f'{name} at {MAIN_SHAPE}, random inputs: kernel '
+              f'{r["random_ms"]:.4f} ms (device time of its C entry '
+              f'{r["random_device_ms"]:.4f}), plain {r["plain_ms"]:.4f} ms, '
+              f'dense bound {r["random_bound_ms"]:.4f} ms')
+    return report
+
+
+def phase_pairwise_main_path(kept, report):
+    """K1/K2 at the inputs of the slice's last pairwise call (box bitmasks
+    of the sampled GTs, the synthetic images' gates): against the plain
+    version, their coverage, and times beside the dense and live bounds;
+    then both input sets against the one-block-a-tile kernels in turns.
+    Fills the JSON rows: ms, max_abs_err and bound_ms (the live bound) of
+    the main-path inputs, the random inputs' beside them."""
+    import torch
+    x, sim, bm, valid = kept['inputs']
+    if kept['cfg'] != (0.3, 3, 2):
+        fail(f'the slice called the pairwise loss with {kept["cfg"]}')
+    v_err, g_err = check_pairwise(f'main-path inputs {tuple(x.shape)}', x,
+                                  sim, bm, valid)
+    cov, bounds = pairwise_bounds(x, sim, bm, valid)
+    baseline = load_baseline('pairwise')
+    times = time_pairwise(x, sim, bm, valid, baseline)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    random = time_pairwise(*kernel_inputs(MAIN_SHAPE, gen),
+                           baseline=baseline)
+    for name, err in (('pairwise_forward', v_err),
+                      ('pairwise_backward', g_err)):
+        dense, live = bounds[name]
+        r = report[name]
+        r.update(max_abs_err=err, ms=times[name]['ms'], library_ms=None,
+                 **live, dense_bound_ms=dense['bound_ms'],
+                 baseline_turns_ms=times[name]['turns'],
+                 random_baseline_turns_ms=random[name]['turns'],
+                 coverage=cov['k1' if name == 'pairwise_forward' else 'k2'])
+        r['device_ms'] = times[name]['device_ms']
+        print(f'{name} at the main-path inputs: kernel {r["ms"]:.4f} ms '
+              f'(device time of its C entry {r["device_ms"]:.4f}), live '
+              f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}), dense bound '
+              f'{r["dense_bound_ms"]:.4f} ms; random inputs '
+              f'{r["random_ms"]:.4f} ms ({r["random_device_ms"]:.4f})')
     return report
 
 
@@ -608,18 +838,24 @@ def in_turns(label, old, new, iters=20):
     """Times of ``old`` and ``new`` in the order old, new, new, old."""
     t = [cuda_ms(fn, iters) for fn in (old, new, new, old)]
     print(f'{label}: old {t[0]:.4f} / {t[3]:.4f} ms, new {t[1]:.4f} / '
-          f'{t[2]:.4f} ms (one block a plane against the redesign, in '
-          f'turns)')
+          f'{t[2]:.4f} ms (the baseline against the redesign, in turns)')
     return t
 
 
 def load_baseline(name):
-    """The one-block-per-plane kernel of ``BASELINES[name]``, typed."""
+    """The baseline kernels of ``BASELINES[name]``, typed."""
     import ctypes
     from boxinstseg_tpu_torch.ops import _native
     lib = _native.load_library(BASELINES[name])
     p, i = ctypes.c_void_p, ctypes.c_int
-    if name == 'lcm':
+    if name == 'pairwise':
+        for fn in (lib.baseline_pairwise_forward,
+                   lib.baseline_pairwise_backward):
+            fn.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, p]
+            fn.restype = i
+        lib.baseline_pairwise_tiles.argtypes = [i, i]
+        lib.baseline_pairwise_tiles.restype = i
+    elif name == 'lcm':
         for fn in (lib.lcm_forward, lib.lcm_adjoint):
             fn.argtypes = [p] * 3 + [i] * 5 + [p, p, i, p]
             fn.restype = i
@@ -627,6 +863,39 @@ def load_baseline(name):
         lib.crf_mean_field.argtypes = [p] * 5 + [i] * 5 + [p]
         lib.crf_mean_field.restype = i
     return lib
+
+
+def pairwise_baseline(lib, x, sim, bm, valid, scale, thresh=0.3,
+                      kernel_size=3, dilation=2):
+    """Calls of the one-block-a-tile K1 (with the torch.sum of its
+    partials, as its wrapper did) and K2 from ``load_baseline('pairwise')``
+    on these inputs: (forward -> (2,) num and den, backward -> gradient x
+    scale)."""
+    import torch
+    b, k, h, w = x.shape
+    part = torch.empty((2, b, k, lib.baseline_pairwise_tiles(h, w)),
+                       device=x.device)
+    grad = torch.empty_like(x)
+    cfg = (b, k, h, w, kernel_size ** 2 - 1, kernel_size // 2, dilation,
+           thresh)
+    ins = [t.data_ptr() for t in (x, sim, bm, valid)]
+
+    def forward():
+        err = lib.baseline_pairwise_forward(
+            *ins, part[0].data_ptr(), part[1].data_ptr(), *cfg,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f'baseline K1: CUDA error {err}')
+        return part.sum(dim=(1, 2, 3))
+
+    def backward():
+        err = lib.baseline_pairwise_backward(
+            *ins, scale.data_ptr(), grad.data_ptr(), *cfg,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f'baseline K2: CUDA error {err}')
+        return grad
+    return forward, backward
 
 
 def phase_lcm_kernels():
@@ -938,7 +1207,9 @@ def print_steps(result, peak, gts, teacher_after=None):
 
 
 def phase_slice(tool):
-    """5 SGD steps of BoxInst R-50-FPN 1x through the train entry point."""
+    """5 SGD steps of BoxInst R-50-FPN 1x through the train entry point.
+    Returns the pairwise kernels' launches and the inputs (and config) of
+    the last step's pairwise call."""
     import torch
     from boxinstseg_tpu_torch.ops import pairwise as pw
     register_dataset()
@@ -959,7 +1230,7 @@ def phase_slice(tool):
         torch.cuda.reset_peak_memory_stats()
         pw.pairwise_forward_cuda.launches = 0
         pw.pairwise_grad_cuda.launches = 0
-        with live_gt_counts() as gts:
+        with live_gt_counts() as gts, capture_pairwise_inputs() as kept:
             result = tool.main([CONFIG, '--work-dir', work_dir, '--seed',
                                 str(seed), '--device', 'cuda',
                                 '--cfg-options', *opts])
@@ -976,7 +1247,10 @@ def phase_slice(tool):
             fail('no parameter changed in training')
         print(f'{len(changed)} tensors changed; launches {launches}')
         print_steps(result, peak, gts)
-        return launches
+        if tuple(kept['inputs'][0].shape) != MAIN_SHAPE:
+            fail(f'the last pairwise call took {kept["inputs"][0].shape}, '
+                 f'not {MAIN_SHAPE}')
+        return launches, kept
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -1638,7 +1912,7 @@ def main():
     _native.build_all(['pairwise', 'msda', 'lcm', 'swin_attention', 'crf',
                        *BASELINES.values()])
     print(f'pairwise.cu, msda.cu, lcm.cu, swin_attention.cu, crf.cu and the '
-          f'one-block-a-plane baselines of lcm.cu and crf.cu: '
+          f'baselines of pairwise.cu, lcm.cu and crf.cu: '
           f'{time.perf_counter() - t0:.2f} s (nvcc ' + ', '.join(
               f'{os.path.basename(k)} {v:.2f} s'
               for k, v in _native.BUILD_SECONDS.items()) + ')')
@@ -1650,7 +1924,11 @@ def main():
 
     tool = load_train_tool()
     phase('slice')
-    launches = phase_slice(tool)
+    launches, kept = phase_slice(tool)
+
+    phase('pairwise main path')
+    phase_pairwise_main_path(kept, report)
+    del kept
 
     phase('reference')
     phase_reference()

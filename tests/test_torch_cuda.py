@@ -5,9 +5,12 @@ is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances (fp32, summation order): pairwise value rtol 1e-5; gradient
-atol 1e-6 / rtol 1e-5 on the unnormalised gradient d(num)/d(logits), whose
-entries are O(1). Through autograd the gradient is divided by max(den, 1),
+Tolerances (fp32, summation order): pairwise value rtol 1e-5 (den
+exact); gradient atol 1e-6 / rtol 1e-5 on the unnormalised gradient
+d(num)/d(logits), whose entries are O(1); the pairwise pair also on box
+bitmasks (the inputs of ``tests/test_torch_pairwise_plan.py``), at every
+instance chunk and tile height it takes, and bit for bit from call to
+call. Through autograd the gradient is divided by max(den, 1),
 so there the absolute term is divided by it too. MSDA and LCM: atol 1e-5
 of the reference's largest entry (1e-5 at least) and rtol 1e-4: the MSDA
 d(value) sums with float atomics in an order that changes between runs. The
@@ -30,6 +33,7 @@ from boxinstseg_tpu_torch.models.dense_heads.discobox_head import \
 from boxinstseg_tpu_torch.ops import crf, lcm, msda
 from boxinstseg_tpu_torch.ops import pairwise as pw
 from boxinstseg_tpu_torch.ops import swin_attention as swa
+from test_torch_pairwise_plan import BOX_SHAPES, box_inputs, gate_sim
 
 pytestmark = pytest.mark.cuda
 
@@ -120,6 +124,74 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     # the C side refuses it and the wrapper raises
     with pytest.raises(RuntimeError, match='CUDA error'):
         pw.pairwise_forward_cuda(logits, sim, masks, valid, 0.3, 3, 17)
+    # a live map that K1 did not make for these inputs
+    with pytest.raises(ValueError, match='live'):
+        pw.pairwise_grad_cuda(logits, sim, masks, valid,
+                              torch.ones(1, device=cuda),
+                              live=torch.ones(3, dtype=torch.uint8,
+                                              device=cuda))
+
+
+def _box_case(shape, kernel_size, copies, device):
+    """``copies`` draws of the six box instances an image, one after the
+    other along K: 6, 18 or 36 instances, in K1's chunks of 16 and K2's of
+    8 (a short last chunk each)."""
+    draws = [box_inputs(shape, 7 + c) for c in range(copies)]
+    logits, masks, valid = (np.concatenate([d[i] for d in draws], 1)
+                            for i in (0, 2, 3))
+    sim = gate_sim(draws[0][1], kernel_size).numpy()
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in
+            (logits, sim, masks, valid)]
+
+
+# box bitmasks (a box inside one tile, a frame on every border, an empty
+# and an invalid instance, the whole plane, a box across tiles) at the main
+# path's stencil (the fast kernels) and generic ones, W a multiple of 4 or
+# not; 6, 18 and 36 instances an image
+@pytest.mark.parametrize('copies', [1, 3, 6])
+@pytest.mark.parametrize('shape,kernel_size,dilation', BOX_SHAPES)
+def test_pairwise_kernels_on_boxes_match_plain(cuda, shape, kernel_size,
+                                               dilation, copies):
+    x, sim, bm, valid = _box_case(shape, kernel_size, copies, cuda)
+    cfg = (0.3, kernel_size, dilation)
+    num, den = pw.pairwise_forward_cuda(x, sim, bm, valid, *cfg)
+    want_num, want_den = pw.pairwise_num_den_plain(x, sim, bm, valid, *cfg)
+    assert num.item() == pytest.approx(want_num.item(), rel=1e-5)
+    assert den.item() == want_den.item()
+    one = torch.ones(1, device=cuda)
+    grad = pw.pairwise_grad_cuda(x, sim, bm, valid, one, *cfg)
+    want = pw.pairwise_grad_plain(x, sim, bm, valid, *cfg)
+    assert want.abs().max().item() > 0.1
+    torch.testing.assert_close(grad, want, atol=1e-6, rtol=1e-5)
+    assert not grad[:, 2::6].any() and not grad[:, 3::6].any()
+    # K2 led by K1's live map finds the same work as by its own vote
+    *sums, live = pw.pairwise_forward_cuda(x, sim, bm, valid, *cfg,
+                                           keep_live=True)
+    assert torch.equal(torch.stack(sums), torch.stack([num, den]))
+    b, k = x.shape[:2]
+    tiles = live.reshape(b, k, -1)
+    r = kernel_size // 2 * dilation
+    assert torch.equal(tiles.bool(), pw.live_tiles(
+        bm, valid, r, r, r).reshape(b, k, -1))
+    assert torch.equal(pw.pairwise_grad_cuda(x, sim, bm, valid, one, *cfg,
+                                             live=live), grad)
+
+
+# K = 13 in chunks of 8: a short last chunk; the sum and the gradient come
+# back with the same bits (no float atomics; K1's partials summed in order)
+def test_pairwise_kernels_give_the_same_bits_twice(cuda):
+    x, sim, bm, valid = _inputs((2, 13, 45, 70), 4, cuda)
+    one = torch.ones(1, device=cuda)
+    first = torch.stack(pw.pairwise_forward_cuda(x, sim, bm, valid))
+    grad = pw.pairwise_grad_cuda(x, sim, bm, valid, one)
+    for _ in range(3):
+        assert torch.equal(torch.stack(pw.pairwise_forward_cuda(
+            x, sim, bm, valid)), first)
+        assert torch.equal(pw.pairwise_grad_cuda(x, sim, bm, valid, one),
+                           grad)
+    want_num, want_den = pw.pairwise_num_den_plain(x, sim, bm, valid)
+    assert first[0].item() == pytest.approx(want_num.item(), rel=1e-5)
+    assert first[1].item() == want_den.item()
 
 
 def _close_scaled(got, want):

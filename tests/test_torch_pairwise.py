@@ -130,3 +130,30 @@ def test_kernel_wrappers_reject_cpu_tensors():
         pw.pairwise_forward_cuda(*t)
     with pytest.raises(ValueError, match='CUDA'):
         pw.pairwise_grad_cuda(*t, torch.ones(1))
+
+
+@pytest.mark.parametrize('shape,kernel_size,dilation',
+                         [((2, 6, 37, 53), 3, 2), ((2, 6, 21, 30), 3, 1),
+                          ((1, 6, 37, 53), 5, 1)])
+def test_kernel_pair_arithmetic_matches_jax_on_boxes(shape, kernel_size,
+                                                     dilation):
+    """The redesigned kernels' arithmetic (one evaluation an unordered pair
+    with den counted apart; forward pair probabilities gathered G a
+    pixel), written out in ``test_torch_pairwise_plan``, against JAX's
+    ``boxinst_pairwise_loss`` and its analytic backward, on box bitmasks
+    (inside one tile, a frame on every border, empty, invalid, the whole
+    plane, across tiles)."""
+    from test_torch_pairwise_plan import (box_inputs, gate_sim,
+                                          pair_grad, pair_num_den)
+    logits, sim8, masks, valid = box_inputs(shape, 6)
+    sim = gate_sim(sim8, kernel_size).numpy()
+    args = tuple(jnp.asarray(a) for a in (sim, masks, valid))
+    want, g_want = jax.value_and_grad(lambda x: jax_loss(
+        x, *args, 0.3, kernel_size, dilation))(jnp.asarray(logits))
+    t = [torch.tensor(a) for a in (logits, sim, masks, valid)]
+    num, den = pair_num_den(*t, 0.3, kernel_size, dilation)
+    scale = max(den.item(), 1.0)
+    assert num.item() / scale == pytest.approx(float(want), rel=1e-5)
+    grad = pair_grad(*t, 0.3, kernel_size, dilation)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(g_want) * scale,
+                               atol=1e-5, rtol=1e-4)

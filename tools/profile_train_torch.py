@@ -17,7 +17,9 @@ teacher's forward runs). A config without ``canvases`` uses the largest
 of the train pipeline's default canvases. Prints the wall ms/step, and for
 the traced steps their wall ms/step, the device-busy ms a step (union of
 kernel intervals) and the idle share (1 - busy / traced wall), and the top
-ops by device time. Busy and idle are of the traced steps only: the
+ops by device time, and the device ms a step of the kernels whose names
+hold each ``--kernels`` string (the pairwise pair's by default). Busy and
+idle are of the traced steps only: the
 profiler adds host and device cost, so they are not compared with the
 untraced wall. The forward passes of the model's parts (backbone,
 neck, bbox_head, mask_branch, mask_feat_head; panoptic_head and its
@@ -45,6 +47,9 @@ def parse_args():
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--top', type=int, default=25)
     p.add_argument('--trace', help='write a Chrome trace here')
+    p.add_argument('--kernels', nargs='+', default=['pairwise_'],
+                   help='print the device ms a step of the kernels whose '
+                        'names hold each of these')
     p.add_argument('--cfg-options', nargs='+', default=[])
     return p.parse_args()
 
@@ -222,6 +227,12 @@ def main():
               f'device busy {busy:.3f} ms/step, idle share '
               f'{1 - busy / traced:.3f}; kernels/step '
               f'{len(kernels) / args.steps:.0f}')
+        for part in args.kernels:
+            hit = [e for e in kernels if part in e.name]
+            ms = sum(e.time_range.end - e.time_range.start
+                     for e in hit) / 1e3 / args.steps
+            print(f'kernels named *{part}*: {len(hit) / args.steps:.0f} a '
+                  f'step, {ms:.4f} device ms a step')
         print(prof.key_averages().table(sort_by='cuda_time_total',
                                         row_limit=args.top,
                                         max_name_column_width=60))
