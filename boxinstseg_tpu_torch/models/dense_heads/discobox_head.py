@@ -31,6 +31,7 @@ from ...core.targets.solo import sample_positive_cells, solo_targets
 from ...ops.correspondence import (bank_retrieve_batch, info_nce_loss,
                                    relu_l2_norm, solve_correspondence)
 from ...ops.crf import crf_mean_field, kernel_sum, stencil_sum
+from ...ops.nms import mask_matrix_nms, points_nms_2x2, top_k
 from ...ops.roi_align import roi_align
 from ...ops.upsample import interpolate_bilinear
 from ...registry import HEADS, LOSSES
@@ -228,9 +229,9 @@ class DiscoBoxMaskFeatHead(nn.Module):
 @HEADS.register_module()
 class DiscoBoxSOLOv2Head(nn.Module):
     """Grid category and kernel branches (reference DiscoBoxSOLOv2Head,
-    discobox_head.py:656-857), the DiscoBox losses and the correspondence
-    terms. The prediction path (points NMS, matrix NMS) is not ported
-    yet."""
+    discobox_head.py:656-857), the DiscoBox losses, the correspondence
+    terms and the prediction path (points NMS, then matrix NMS in
+    ``get_seg``)."""
 
     def __init__(self, num_classes: int, in_channels: int = 256,
                  seg_feat_channels: int = 512, stacked_convs: int = 4,
@@ -256,6 +257,7 @@ class DiscoBoxSOLOv2Head(nn.Module):
             raise NotImplementedError('deformable tower convs are not '
                                       'ported yet')
         self.num_classes = num_classes
+        self.strides = tuple(strides)
         self.scale_ranges = tuple(tuple(r) for r in scale_ranges)
         self.sigma = sigma
         self.num_grids = tuple(num_grids)
@@ -291,13 +293,9 @@ class DiscoBoxSOLOv2Head(nn.Module):
 
     def forward(self, feats, train: bool = True
                 ) -> Dict[str, torch.Tensor]:
-        """Raw (pre-sigmoid) outputs, the JAX head's ``train=True`` branch:
-        kernels (B, Pc, E) and cates (B, Pc, C), cells level-major. The
-        ``train=False`` branch (sigmoid and points NMS) belongs to predict,
-        which is not ported yet."""
-        if not train:
-            raise NotImplementedError('the DiscoBox prediction outputs '
-                                      '(points NMS) are not ported yet')
+        """Kernels (B, Pc, E) and cates (B, Pc, C), cells level-major. With
+        ``train`` the cates are logits; without it they are sigmoid scores
+        after the points NMS, the prediction outputs."""
         b = feats[0].shape[0]
         p2h, p2w = feats[0].shape[-2:]
         new_feats = [interpolate_bilinear(feats[0], (p2h // 2, p2w // 2)),
@@ -314,8 +312,12 @@ class DiscoBoxSOLOv2Head(nn.Module):
             for kconv, cconv in zip(self.kernel_convs, self.cate_convs):
                 kfeat = kconv(kfeat)
                 cfeat = cconv(cfeat)
+            cate = self.solo_cate(cfeat)
+            if not train:
+                # fp32 under the bf16 policy, as the selection after it
+                cate = points_nms_2x2(torch.sigmoid(cate.float()))
             kernels.append(self.solo_kernel(kfeat).flatten(2).transpose(1, 2))
-            cates.append(self.solo_cate(cfeat).flatten(2).transpose(1, 2))
+            cates.append(cate.flatten(2).transpose(1, 2))
         return dict(kernels=torch.cat(kernels, dim=1),
                     cates=torch.cat(cates, dim=1))
 
@@ -546,6 +548,54 @@ class DiscoBoxSOLOv2Head(nn.Module):
             losses['_corr_append'] = corr[2]
         return losses
 
-    def get_seg(self, outs, mask_feat, test_cfg):
-        raise NotImplementedError('DiscoBox prediction (points NMS, matrix '
-                                  'NMS) is not ported yet')
+    def get_seg(self, outs: Dict[str, torch.Tensor], mask_feat: torch.Tensor,
+                test_cfg: Optional[Dict]) -> Dict[str, torch.Tensor]:
+        """Prediction from the ``train=False`` outputs (reference
+        get_seg_single): the top ``nms_pre`` (cell, class) scores, their
+        masks decoded, binarised at ``mask_thr`` and kept when larger than
+        their level's stride, rescored by their mean mask score, matrix
+        NMS, ``filter_thr``, then the top ``max_per_img``. Returns scores,
+        labels, valid (B, D) and masks (B, D, H, W) sigmoid scores at the
+        mask feature's resolution."""
+        cfg = dict(test_cfg or {})
+        score_thr = float(cfg.get('score_thr', 0.1))
+        mask_thr = float(cfg.get('mask_thr', 0.4))
+        filter_thr = float(cfg.get('filter_thr', 0.05))
+        nms_pre = int(cfg.get('nms_pre', 500))
+        max_per_img = int(cfg.get('max_per_img', 100))
+
+        cates = outs['cates']
+        B, Pc, C = cates.shape
+        strides = torch.tensor(np.concatenate([
+            np.full(s * s, st, np.float32)
+            for s, st in zip(self.num_grids, self.strides)]),
+            device=cates.device)
+
+        flat = torch.where(cates > score_thr, cates,
+                           torch.zeros_like(cates)).reshape(B, Pc * C)
+        top_scores, top_idx = top_k(flat, min(nms_pre, Pc * C))
+        cell = top_idx // C
+        labels = (top_idx % C).int()
+        e = outs['kernels'].shape[-1]
+        kernels = torch.gather(outs['kernels'], 1,
+                               cell[..., None].expand(-1, -1, e))
+        mask_scores = torch.sigmoid(self.decode_masks(mask_feat, kernels))
+        seg_masks = (mask_scores > mask_thr).float()
+        sum_masks = seg_masks.sum(dim=(2, 3))
+        keep = (sum_masks > strides[cell]) & (top_scores > 0)
+        seg_score = (mask_scores * seg_masks).sum(dim=(2, 3)) \
+            / sum_masks.clamp(min=1e-6)
+        scores = torch.where(keep, top_scores * seg_score,
+                             torch.zeros_like(top_scores))
+        new_scores = mask_matrix_nms(seg_masks, labels, scores, keep,
+                                     kernel=cfg.get('kernel', 'gaussian'),
+                                     sigma=float(cfg.get('sigma', 2.0)))
+        del seg_masks
+        new_scores = torch.where(new_scores > filter_thr, new_scores,
+                                 torch.zeros_like(new_scores))
+        final_scores, order = top_k(new_scores, min(max_per_img, Pc))
+        final_masks = torch.gather(mask_scores, 1, order[..., None, None]
+                                   .expand(-1, -1, *mask_scores.shape[2:]))
+        return dict(scores=final_scores,
+                    labels=torch.gather(labels, 1, order),
+                    masks=final_masks, valid=final_scores > 0)

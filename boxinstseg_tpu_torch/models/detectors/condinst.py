@@ -2,7 +2,9 @@
 ``boxinstseg_tpu/models/detectors/condinst.py`` (reference:
 mmdet/models/detectors/condinst.py): backbone -> FPN -> box head -> mask
 branch -> dynamic mask head. ``loss`` is the full BoxInst training
-objective on a static-shape batch.
+objective on a static-shape batch; ``predict`` emits fixed-capacity
+detections and stride-4 mask scores, which ``apis.test.format_detection``
+resizes to each image's original resolution.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import torch.nn as nn
 from ..dense_heads.condinst_head import flatten_levels
 from ..layers import f32_tree, fp32_region
 from ...core.targets.fcos import sample_positives_per_gt
+from ...ops.boxes import distance2bbox
+from ...ops.nms import greedy_nms, top_k
 from ...registry import BACKBONES, DETECTORS, HEADS, NECKS
 
 DEFAULT_MEAN = (123.675, 116.28, 103.53)
@@ -109,3 +113,85 @@ class CondInst(nn.Module):
         losses.update(self.mask_head.loss(mask_logits, boxes, sample_valid,
                                           sim.detach(), iteration))
         return losses
+
+    # -------------------------------------------------------------- inference
+    @torch.no_grad()
+    def predict(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """Static-shape detection and mask decode.
+
+        batch keys: image (B, 3, H, W), img_shape (B, 2) and, optionally,
+        scale_factor (B, 4), by which the boxes are divided. Returns bboxes
+        (B, D, 4), scores (B, D), labels (B, D), valid (B, D) and masks
+        (B, D, H/4, W/4): sigmoid scores on the padded canvas, which
+        ``format_detection`` crops and rescales. The caller puts the model
+        in ``eval()``."""
+        outs, mask_feat = f32_tree(self(batch['image']))
+        with fp32_region(mask_feat.device):
+            return self._predict(outs, mask_feat, batch)
+
+    def _predict(self, outs, mask_feat, batch):
+        test_cfg = dict(self.test_cfg or {})
+        nms_pre = int(test_cfg.get('nms_pre', 1000))
+        score_thr = float(test_cfg.get('score_thr', 0.05))
+        iou_thr = float(test_cfg.get('nms', {}).get('iou_threshold', 0.5))
+        pre_nms_limit = int(test_cfg.get('pre_nms_limit', 1000))
+        max_det = int(min(test_cfg.get('max_per_img', 100),
+                          test_cfg.get('post_nms_top_k', 100)))
+
+        featmap_sizes = [tuple(x.shape[-2:]) for x in outs['cls']]
+        pts = self.bbox_head.points_meta(featmap_sizes, mask_feat.device)
+        B = mask_feat.shape[0]
+        img_shape = batch['img_shape'].float()[:, None, :]     # (B, 1, 2)
+
+        def take(a, idx):                    # a (B, P[, C]) by idx (B, K)
+            if a.dim() == 2:
+                return torch.gather(a, 1, idx)
+            return torch.gather(a, 1, idx[..., None].expand(
+                -1, -1, a.shape[-1]))
+
+        scores, boxes, ctr_s, params, coors, levels = ([] for _ in range(6))
+        offset = 0
+        for lvl, (h, w) in enumerate(featmap_sizes):
+            cls = outs['cls'][lvl].flatten(2).transpose(1, 2)   # (B, hw, C)
+            s = torch.sigmoid(cls)
+            c = torch.sigmoid(outs['ctr'][lvl].flatten(1))       # (B, hw)
+            k = min(nms_pre, h * w)
+            _, top = top_k((s * c[..., None]).amax(-1), k)
+            points = pts['points'][offset:offset + h * w][top]   # (B, k, 2)
+            offset += h * w
+            bbox = take(outs['bbox'][lvl].flatten(2).transpose(1, 2), top)
+            scores.append(take(s, top))
+            boxes.append(distance2bbox(points, bbox, max_shape=img_shape))
+            ctr_s.append(take(c, top))
+            params.append(take(
+                outs['param'][lvl].flatten(2).transpose(1, 2), top))
+            coors.append(points)
+            levels.append(torch.full((B, k), lvl, dtype=torch.long,
+                                     device=mask_feat.device))
+        scores, boxes, ctr_s, params, coors, levels = (
+            torch.cat(x, 1) for x in (scores, boxes, ctr_s, params, coors,
+                                      levels))
+        pc, C = scores.shape[1:]
+
+        cand = torch.where(scores > score_thr, scores * ctr_s[..., None],
+                           torch.zeros_like(scores))
+        cand_scores, cand_idx = top_k(cand.reshape(B, pc * C),
+                                      min(pre_nms_limit, pc * C))
+        box_idx = cand_idx // C
+        cand_labels = (cand_idx % C).int()
+        cand_boxes = take(boxes, box_idx)
+        keep_idx, keep_valid = greedy_nms(cand_boxes, cand_scores,
+                                          cand_labels, iou_thr, max_det)
+
+        det_box_idx = take(box_idx, keep_idx)                    # into Pc
+        det_boxes = take(cand_boxes, keep_idx)
+        masks = torch.sigmoid(self.mask_head.decode(
+            mask_feat, take(params, det_box_idx), take(coors, det_box_idx),
+            take(levels, det_box_idx)))                          # (B,D,H4,W4)
+        if 'scale_factor' in batch:
+            det_boxes = det_boxes / batch['scale_factor'][:, None, :]
+        return dict(bboxes=det_boxes,
+                    scores=take(cand_scores, keep_idx) * keep_valid,
+                    labels=take(cand_labels, keep_idx), valid=keep_valid,
+                    masks=masks)

@@ -88,8 +88,19 @@ class SingleStageWSInsDetector(nn.Module):
                 bank=bank, s_feat=feats[0],
                 t_feat=None if teacher_out is None else teacher_out['p2'])
 
-    def predict(self, batch):
-        raise NotImplementedError('DiscoBox prediction is not ported yet')
+    @torch.no_grad()
+    def predict(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """batch['image'] (B, 3, H, W) -> the head's ``get_seg``: scores,
+        labels, valid (B, D) and masks (B, D, H/4, W/4) sigmoid scores on
+        the padded canvas. Under the bf16 policy the selection and the
+        matrix NMS run in fp32 (its mask products count pixels). The
+        caller puts the model in ``eval()``."""
+        feats = self.extract_feat(batch['image'])
+        outs = f32_tree(self.bbox_head(feats, train=False))
+        mask_feat = self.mask_feat_head(self._mask_feat_inputs(feats)).float()
+        with fp32_region(mask_feat.device):
+            return self.bbox_head.get_seg(outs, mask_feat, self.test_cfg)
 
 
 @DETECTORS.register_module()

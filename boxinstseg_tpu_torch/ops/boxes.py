@@ -3,22 +3,43 @@
 mmdet/models/losses/iou_loss.py)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
-def distance2bbox(points: torch.Tensor, distance: torch.Tensor
-                  ) -> torch.Tensor:
+def distance2bbox(points: torch.Tensor, distance: torch.Tensor,
+                  max_shape: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode (l, t, r, b) distances at ``points`` (..., 2) as (x, y) into
-    xyxy boxes."""
-    return torch.stack([points[..., 0] - distance[..., 0],
-                        points[..., 1] - distance[..., 1],
-                        points[..., 0] + distance[..., 2],
-                        points[..., 1] + distance[..., 3]], dim=-1)
+    xyxy boxes, clipped to ``max_shape`` (..., 2) as (h, w) when given."""
+    x1 = points[..., 0] - distance[..., 0]
+    y1 = points[..., 1] - distance[..., 1]
+    x2 = points[..., 0] + distance[..., 2]
+    y2 = points[..., 1] + distance[..., 3]
+    if max_shape is not None:
+        h, w = max_shape[..., 0], max_shape[..., 1]
+        zero = torch.zeros_like(h)
+        x1 = torch.clamp(x1, zero, w)
+        y1 = torch.clamp(y1, zero, h)
+        x2 = torch.clamp(x2, zero, w)
+        y2 = torch.clamp(y2, zero, h)
+    return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
 def bbox_area(boxes: torch.Tensor) -> torch.Tensor:
     return (boxes[..., 2] - boxes[..., 0]).clamp(min=0) * \
         (boxes[..., 3] - boxes[..., 1]).clamp(min=0)
+
+
+def bbox_overlaps(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """Pairwise IoU between (..., N, 4) and (..., M, 4) -> (..., N, M)."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = bbox_area(a)[..., :, None] + bbox_area(b)[..., None, :] - inter
+    return inter / union.clamp(min=eps)
 
 
 def aligned_iou(a: torch.Tensor, b: torch.Tensor, mode: str = 'iou',

@@ -58,7 +58,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 9. swin-l    - Box2Mask Swin-L LSJ at full width trained for 5 AdamW steps
                through tools/train_torch.py on seeded synthetic 1024x1024
                images, batch 1; then MaskFormer.predict on one image (K5
-               only, no K6).
+               only, no K6), its output through format_detection and the
+               RLE codec.
 10. swin reference - a small Box2Mask on a tiny Swin (window 4, odd maps,
                shifted blocks): loss dict and backbone gradients on the card
                against the CPU.
@@ -80,6 +81,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 13. discobox reference - a small DiscoBox with the correspondence loss and
                the gates forced open, two teacher-student steps on the card
                against the CPU: logs, the object bank and the parameters.
+14. boxinst predict - the slice's checkpoint through init_detector, then
+               CondInst.predict on one synthetic 800x1333 image (batch 1,
+               score_thr 0: 100 detections): shapes, finite values, and
+               the predict, format_detection and RLE times (median of 3
+               after 1 warm-up).
+15. predict reference - a small CondInst's predict on the card against the
+               CPU, valid slots at the CPU tests' tolerances.
+16. eval     - tools/test_torch.py's main at full width on 8 synthetic
+               800x1333 images with RLE ground truth (the slice's
+               checkpoint): the native RLE codec built, cv2 never imported,
+               images/s split into format, RLE, COCOeval and the rest; the
+               ground truth as detections must read bbox and segm mAP 1.
+17. discobox predict - the trained DiscoBox's predict under its bf16 policy
+               (score_thr and filter_thr 0: 100 detections), times as in 14.
 
 Prints a JSON line with one entry per kernel, the card's nvidia-smi line,
 and as its last line {"ok": true, "device": {...}}.
@@ -170,6 +185,11 @@ CRF_SHAPES = (((2, 128, 336, 200), 10, False), ((1, 1, 37, 53), 10, False),
 CRF_TOO_BIG = (1, 1, 1200, 1200)   # more than 8 bands: must raise
 CRF_ITERS = 10
 DISCO_START_ITER = 2
+# the evaluation phases: score_thr 0 keeps max_per_img detections an image
+# on the briefly trained models, and the test set is synthetic
+EVAL_OPTS = ['model.test_cfg.score_thr=0',
+             'data.test.type=SyntheticEvalDataset']
+EVAL_IMAGES = 8
 ADJOINT_RTOL = 1e-5                # <A x, y> vs <x, A^T y>, float64 sums
 
 # the least time of a kernel: bytes over the memory rate or operations over
@@ -225,9 +245,10 @@ def phase(name):
     print(f'== {name}', flush=True)
 
 
-def load_train_tool():
+def load_tool(name):
+    """``tools/<name>.py`` as a module."""
     spec = importlib.util.spec_from_file_location(
-        'train_torch', os.path.join(ROOT, 'tools', 'train_torch.py'))
+        name, os.path.join(ROOT, 'tools', f'{name}.py'))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -253,6 +274,25 @@ def bound_3xtf32(nbytes, product_ops, other_ops):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def synthetic_image(rng, h, w):
+    """A uint8 BGR image of flat 32x32 colour blocks with 1-8 solid-colour
+    boxes on top, and the boxes (n, 4) xyxy."""
+    import numpy as np
+    blocks = rng.randint(0, 256, (h // 32 + 1, w // 32 + 1, 3))
+    img = np.repeat(np.repeat(blocks, 32, 0), 32, 1)[:h, :w]
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    n = rng.randint(1, 9)
+    boxes = np.zeros((n, 4), np.float32)
+    for i in range(n):
+        bw = rng.randint(32, min(400, w))
+        bh = rng.randint(32, min(300, h))
+        x1 = rng.randint(0, w - bw)
+        y1 = rng.randint(0, h - bh)
+        boxes[i] = (x1, y1, x1 + bw, y1 + bh)
+        img[y1:y1 + bh, x1:x1 + bw] = rng.randint(0, 256, 3)
+    return img, boxes
 
 
 class SyntheticBoxDataset:
@@ -284,25 +324,95 @@ class SyntheticBoxDataset:
         return self.length
 
     def prepare(self, idx, rng, scale=None):
-        import numpy as np
-        h, w = self.img_h, self.img_w
-        blocks = rng.randint(0, 256, (h // 32 + 1, w // 32 + 1, 3))
-        img = np.repeat(np.repeat(blocks, 32, 0), 32, 1)[:h, :w]
-        img = np.ascontiguousarray(img, dtype=np.uint8)
-        n = rng.randint(1, 9)
-        boxes = np.zeros((n, 4), np.float32)
-        for i in range(n):
-            bw = rng.randint(32, min(400, w))
-            bh = rng.randint(32, min(300, h))
-            x1 = rng.randint(0, w - bw)
-            y1 = rng.randint(0, h - bh)
-            boxes[i] = (x1, y1, x1 + bw, y1 + bh)
-            img[y1:y1 + bh, x1:x1 + bw] = rng.randint(0, 256, 3)
+        img, boxes = synthetic_image(rng, self.img_h, self.img_w)
+        n = len(boxes)
         results = dict(img=img, img_shape=img.shape, ori_shape=img.shape,
                        gt_bboxes=boxes,
                        gt_labels=rng.randint(0, self.num_classes, n),
                        bbox_fields=['gt_bboxes'], mask_fields=[], rng=rng)
         return self.pipeline(results)
+
+
+class SyntheticEvalDataset:
+    """Seeded stand-in for CocoDataset in test mode, with the interface
+    ``run_evaluation`` uses (``flag``, ``__len__``, ``prepare(idx)``,
+    ``coco``, ``img_ids``, ``cat_ids``, ``evaluate``).
+
+    Each image is one of ``synthetic_image``'s at the test scale, sent
+    through the config's test pipeline without its file-loading and resize
+    steps (RandomFlip, Normalize, Pad, ImageToTensor, Collect). The ground
+    truth is the painted boxes with their filled rectangles as masks,
+    written as RLE (the polygon fill needs cv2)."""
+
+    SKIP = ('LoadImageFromFile', 'Resize')
+
+    def __init__(self, pipeline, num_classes=80, length=8, img_h=800,
+                 img_w=1333, seed=0, **unused):
+        import numpy as np
+        from boxinstseg_tpu_torch.data.coco_api import COCO, rle_encode
+        from boxinstseg_tpu_torch.data.pipelines import Compose
+        steps = []
+        for t in pipeline:
+            if t['type'] == 'MultiScaleFlipAug':
+                t = dict(t, transforms=[x for x in t['transforms']
+                                        if x['type'] not in self.SKIP])
+            if t['type'] not in self.SKIP:
+                steps.append(t)
+        self.pipeline = Compose(steps)
+        rng = np.random.RandomState(seed)
+        self.images, images, anns = [], [], []
+        for i in range(length):
+            img, boxes = synthetic_image(rng, img_h, img_w)
+            self.images.append(img)
+            images.append(dict(id=i + 1, height=img_h, width=img_w))
+            for box, label in zip(boxes.astype(int),
+                                  rng.randint(0, num_classes, len(boxes))):
+                x1, y1, x2, y2 = (int(v) for v in box)
+                mask = np.zeros((img_h, img_w), np.uint8)
+                mask[y1:y2, x1:x2] = 1
+                anns.append(dict(
+                    id=len(anns) + 1, image_id=i + 1,
+                    category_id=int(label) + 1, iscrowd=0,
+                    bbox=[x1, y1, x2 - x1, y2 - y1],
+                    area=(x2 - x1) * (y2 - y1),
+                    segmentation=rle_encode(mask)))
+        self.coco = COCO(dataset=dict(
+            images=images, annotations=anns,
+            categories=[dict(id=c + 1, name=str(c))
+                        for c in range(num_classes)]))
+        self.img_ids = [im['id'] for im in images]
+        self.cat_ids = list(range(1, num_classes + 1))
+        self.flag = np.ones(length, np.uint8)
+
+    def __len__(self):
+        return len(self.images)
+
+    def prepare(self, idx, rng=None, scale=None):
+        img = self.images[idx]
+        return self.pipeline(dict(img=img, img_shape=img.shape,
+                                  ori_shape=img.shape, bbox_fields=[],
+                                  mask_fields=[]))
+
+    def ground_truth_results(self):
+        """The ground truth as detections of score 1, per image."""
+        import numpy as np
+        out = []
+        for i in self.img_ids:
+            anns = self.coco.load_anns(self.coco.get_ann_ids(img_ids=[i]))
+            out.append(dict(
+                bboxes=np.array([[a['bbox'][0], a['bbox'][1],
+                                  a['bbox'][0] + a['bbox'][2],
+                                  a['bbox'][1] + a['bbox'][3], 1.0]
+                                 for a in anns]),
+                labels=np.array([a['category_id'] - 1 for a in anns]),
+                masks=[a['segmentation'] for a in anns]))
+        return out
+
+    def evaluate(self, results, metric=('bbox', 'segm'), **unused):
+        from boxinstseg_tpu_torch.core.eval import evaluate_coco
+        return evaluate_coco(self.coco, self.img_ids, self.cat_ids, results,
+                             [metric] if isinstance(metric, str)
+                             else list(metric))
 
 
 def cuda_ms(fn, iters=20):
@@ -1135,8 +1245,9 @@ def phase_swin_kernels():
 
 def register_dataset():
     from boxinstseg_tpu_torch.registry import DATASETS
-    if 'SyntheticBoxDataset' not in DATASETS:
-        DATASETS.register_module(module=SyntheticBoxDataset)
+    for cls in (SyntheticBoxDataset, SyntheticEvalDataset):
+        if cls.__name__ not in DATASETS:
+            DATASETS.register_module(module=cls)
 
 
 def check_history(result, steps, required=()):
@@ -1164,6 +1275,30 @@ def changed_tensors(tool, cfg, seed, result):
                if v.is_floating_point() and not torch.equal(v, init[k])]
     model.load_state_dict(final['state_dict'])
     return changed, model
+
+
+@contextlib.contextmanager
+def timed_calls(owner, names):
+    """Wrap the functions ``names`` of ``owner`` (a module or a class) to
+    sum the host seconds spent in each."""
+    seconds = dict.fromkeys(names, 0.0)
+    saved = {name: getattr(owner, name) for name in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] += time.perf_counter() - t0
+        return timed
+    for name, fn in saved.items():
+        setattr(owner, name, wrap(name, fn))
+    try:
+        yield seconds
+    finally:
+        for name, fn in saved.items():
+            setattr(owner, name, fn)
 
 
 @contextlib.contextmanager
@@ -1206,53 +1341,50 @@ def print_steps(result, peak, gts, teacher_after=None):
     print(f'{medians}; peak memory {peak / 2**30:.3f} GiB')
 
 
-def phase_slice(tool):
-    """5 SGD steps of BoxInst R-50-FPN 1x through the train entry point.
-    Returns the pairwise kernels' launches and the inputs (and config) of
-    the last step's pairwise call."""
+def phase_slice(tool, work_dir):
+    """5 SGD steps of BoxInst R-50-FPN 1x through the train entry point,
+    the checkpoint written under ``work_dir``. Returns the pairwise
+    kernels' launches, the inputs (and config) of the last step's pairwise
+    call and the checkpoint's path."""
     import torch
     from boxinstseg_tpu_torch.ops import pairwise as pw
     register_dataset()
-    work_dir = tempfile.mkdtemp(prefix='chip_smoke_')
     seed = 0
     opts = ['model.mask_head.pairwise_warmup=1',
             'runner.type=IterBasedRunner', f'runner.max_iters={STEPS}',
             'data.samples_per_gpu=2', 'data.train.type=SyntheticBoxDataset']
-    try:
-        cfg = tool.load_config(CONFIG, opts, work_dir, seed)
-        head = cfg.model.bbox_head
-        gen_params = tool.build_model(cfg, seed).mask_head.num_gen_params
-        print(f'model: {cfg.model.backbone.type}-{cfg.model.backbone.depth}'
-              f', FPN {cfg.model.neck.out_channels}, '
-              f'{head.stacked_convs}x GN towers, {gen_params} dynamic '
-              f'params, {head.num_classes} classes, topk_per_img '
-              f'{cfg.model.mask_head.topk_per_img}')
-        torch.cuda.reset_peak_memory_stats()
-        pw.pairwise_forward_cuda.launches = 0
-        pw.pairwise_grad_cuda.launches = 0
-        with live_gt_counts() as gts, capture_pairwise_inputs() as kept:
-            result = tool.main([CONFIG, '--work-dir', work_dir, '--seed',
-                                str(seed), '--device', 'cuda',
-                                '--cfg-options', *opts])
-        torch.cuda.synchronize()
-        launches = {'pairwise_forward': pw.pairwise_forward_cuda.launches,
-                    'pairwise_backward': pw.pairwise_grad_cuda.launches}
-        peak = torch.cuda.max_memory_allocated()
-        check_history(result, STEPS, required=('loss_pairwise',))
-        for name, n in launches.items():
-            if n != STEPS:
-                fail(f'{name} launched {n} times in {STEPS} steps')
-        changed, _ = changed_tensors(tool, cfg, seed, result)
-        if not changed:
-            fail('no parameter changed in training')
-        print(f'{len(changed)} tensors changed; launches {launches}')
-        print_steps(result, peak, gts)
-        if tuple(kept['inputs'][0].shape) != MAIN_SHAPE:
-            fail(f'the last pairwise call took {kept["inputs"][0].shape}, '
-                 f'not {MAIN_SHAPE}')
-        return launches, kept
-    finally:
-        shutil.rmtree(work_dir, ignore_errors=True)
+    cfg = tool.load_config(CONFIG, opts, work_dir, seed)
+    head = cfg.model.bbox_head
+    gen_params = tool.build_model(cfg, seed).mask_head.num_gen_params
+    print(f'model: {cfg.model.backbone.type}-{cfg.model.backbone.depth}'
+          f', FPN {cfg.model.neck.out_channels}, '
+          f'{head.stacked_convs}x GN towers, {gen_params} dynamic '
+          f'params, {head.num_classes} classes, topk_per_img '
+          f'{cfg.model.mask_head.topk_per_img}')
+    torch.cuda.reset_peak_memory_stats()
+    pw.pairwise_forward_cuda.launches = 0
+    pw.pairwise_grad_cuda.launches = 0
+    with live_gt_counts() as gts, capture_pairwise_inputs() as kept:
+        result = tool.main([CONFIG, '--work-dir', work_dir, '--seed',
+                            str(seed), '--device', 'cuda',
+                            '--cfg-options', *opts])
+    torch.cuda.synchronize()
+    launches = {'pairwise_forward': pw.pairwise_forward_cuda.launches,
+                'pairwise_backward': pw.pairwise_grad_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    check_history(result, STEPS, required=('loss_pairwise',))
+    for name, n in launches.items():
+        if n != STEPS:
+            fail(f'{name} launched {n} times in {STEPS} steps')
+    changed, _ = changed_tensors(tool, cfg, seed, result)
+    if not changed:
+        fail('no parameter changed in training')
+    print(f'{len(changed)} tensors changed; launches {launches}')
+    print_steps(result, peak, gts)
+    if tuple(kept['inputs'][0].shape) != MAIN_SHAPE:
+        fail(f'the last pairwise call took {kept["inputs"][0].shape}, '
+             f'not {MAIN_SHAPE}')
+    return launches, kept, result.checkpoint
 
 
 def describe_backbone(bb):
@@ -1341,8 +1473,11 @@ def phase_box2mask(tool, config, samples, parts):
 def phase_swin_predict(cfg, model):
     """``MaskFormer.predict`` of the trained Swin-L on one 1024x1024 image:
     K5 once per block a call, K6 never; the instance candidates' shapes;
-    the median wall time of 3 calls after 1 warm-up."""
+    the median wall time of 3 calls after 1 warm-up; then
+    ``format_detection`` and the RLE codec on its output."""
     import torch
+    from boxinstseg_tpu_torch.apis.test import format_detection
+    from boxinstseg_tpu_torch.data.coco_api import rle_encode
     from boxinstseg_tpu_torch.ops import swin_attention as swa
     fwd, bwd = (swa.window_attention_forward_cuda,
                 swa.window_attention_backward_cuda)
@@ -1379,6 +1514,34 @@ def phase_swin_predict(cfg, model):
           f'{tuple(out["masks_logit"].shape)}; K5 {blocks} launches a call,'
           f' K6 none; wall ms {[round(t, 3) for t in times]}, median '
           f'{statistics.median(times):.3f} ms')
+    # the MaskFormer family's host half: logits to the image's resolution,
+    # binarised and rescored, then the RLE codec. After STEPS steps from
+    # random weights no logit is positive, so every mask would be empty:
+    # each query's logits are shifted so that its top tenth is positive,
+    # and the formatting runs on real masks.
+    raw = int((out['masks_logit'] > 0).flatten(2).any(2).sum())
+    flat = out['masks_logit'].flatten(2)
+    top = flat.kthvalue(int(0.9 * flat.shape[-1]), dim=2).values
+    shifted = dict(out, masks_logit=out['masks_logit'] - top[..., None, None])
+    test_cfg = dict(cfg.model.test_cfg)
+    format_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        det = format_detection(shifted, 0, (1024, 1024), (1024, 1024),
+                               test_cfg)
+        rles = [rle_encode(m) for m in det['masks']]
+        format_ms.append(1e3 * (time.perf_counter() - t0))
+    n_valid = int(out['valid'].sum())
+    if not len(rles) == len(det['bboxes']) == n_valid > 0 or not all(
+            m.shape == (1024, 1024) for m in det['masks']):
+        fail(f'format_detection gave {len(rles)} masks for '
+             f'{len(det["bboxes"])} detections of {n_valid} valid queries')
+    print(f'format + RLE: {raw} of {k} raw masks non-empty; with the top '
+          f'tenth of each query made positive {len(rles)} masks, ms '
+          f'{[round(t, 3) for t in format_ms]}, median '
+          f'{statistics.median(format_ms):.3f}')
+    check_format_on_cpu('Swin-L Box2Mask', shifted, (1024, 1024),
+                        (1024, 1024), test_cfg, det)
 
 
 def tiny_cfg():
@@ -1688,7 +1851,8 @@ def record_ema_gaps(step_cls, gaps):
 
 def phase_discobox(tool):
     """5 SGD steps of DiscoBox R-50 3x through the train entry point, the
-    teacher switched on after step DISCO_START_ITER."""
+    teacher switched on after step DISCO_START_ITER. Returns the CRF
+    kernel's launches, the config and the trained model (on the CPU)."""
     import torch
     from boxinstseg_tpu_torch.engine.train_state import TSTrainStep
     from boxinstseg_tpu_torch.ops import crf
@@ -1745,7 +1909,7 @@ def phase_discobox(tool):
         ckpt = torch.load(result.checkpoint, map_location='cpu')
         if not {'teacher_state_dict', 'object_bank'} <= set(ckpt):
             fail(f'checkpoint keys {sorted(ckpt)}')
-        changed, _ = changed_tensors(tool, cfg, seed, result)
+        changed, model = changed_tensors(tool, cfg, seed, result)
         for part in ('backbone.layer2.', 'neck.', 'bbox_head.kernel_convs.',
                      'bbox_head.solo_cate.', 'mask_feat_head.'):
             if not any(k.startswith(part) for k in changed):
@@ -1755,7 +1919,7 @@ def phase_discobox(tool):
               f'{[f"{g:.3g}" for g in gaps]}; avg_loss_ins by step '
               f'{[round(h["avg_loss_ins"], 5) for h in result.history]}')
         print_steps(result, peak, gts, teacher_after=DISCO_START_ITER)
-        return launches
+        return launches, cfg, model
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -1884,6 +2048,331 @@ def phase_discobox_reference():
           f'{worst:.3g})')
 
 
+def eval_inputs(cfg, dataset, idx=0):
+    """One test image of ``dataset`` batched as ``run_evaluation`` does:
+    the device inputs and the image's (img_shape, ori_shape)."""
+    import torch
+    from boxinstseg_tpu_torch.apis.test import eval_batcher
+    from boxinstseg_tpu_torch.apis.train import batch_to_device
+    batch = eval_batcher(cfg)([dataset.prepare(idx)])
+    inputs = batch_to_device({k: batch[k] for k in (
+        'image', 'img_shape', 'scale_factor')}, torch.device('cuda'))
+    return inputs, batch['img_shape'][0], batch['ori_shape'][0]
+
+
+def time_predict(model, test_cfg, inputs, img_shape, ori_shape, bf16=False):
+    """``predict`` on one image, then ``format_detection`` and the RLE
+    codec on its output: 1 warm-up and 3 timed calls. Returns the last
+    output, its formatted detections and the two lists of ms (predict:
+    host clock around the call, ending in a device sync; format + RLE:
+    host clock)."""
+    import torch
+    from boxinstseg_tpu_torch.apis.test import format_detection
+    from boxinstseg_tpu_torch.data.coco_api import rle_encode
+    from boxinstseg_tpu_torch.engine.train_state import autocast_bf16
+    times = {'predict': [], 'format': [], 'RLE': []}
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode(), autocast_bf16('cuda', bf16):
+            out = model.predict(inputs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        det = format_detection(out, 0, img_shape, ori_shape, test_cfg)
+        t2 = time.perf_counter()
+        rles = [rle_encode(m) for m in det['masks']]
+        t3 = time.perf_counter()
+        if i:
+            for k, t in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+                times[k].append(1e3 * t)
+    if len(rles) != len(det['bboxes']) or not len(rles):
+        fail(f'{len(rles)} masks for {len(det["bboxes"])} detections')
+    return out, det, times
+
+
+def check_format_on_cpu(what, out, img_shape, ori_shape, test_cfg, det):
+    """``format_detection`` of image 0 of the same ``out`` on the CPU
+    against ``det``, the card's: the same labels and count; binary masks
+    equal except at pixels whose CPU field lies within 1e-4 of the
+    threshold (0.5, ``mask_thr`` or logit 0); boxes and scores within rtol
+    1e-5 / atol 1e-4, the SOLO family's mask-extent boxes where no pixel
+    flipped."""
+    import numpy as np
+    from boxinstseg_tpu_torch.apis.test import format_detection, \
+        upsample_masks
+    host = {k: v.cpu() for k, v in out.items()}
+    want = format_detection(host, 0, img_shape, ori_shape, test_cfg)
+    valid = host['valid'][0]
+    if 'masks_logit' in host:
+        src, thr, aligned = host['masks_logit'][0][valid], 0.0, False
+    elif 'bboxes' in host:
+        src, thr, aligned = host['masks'][0][valid], 0.5, True
+    else:
+        src, thr = host['masks'][0][valid], float(test_cfg['mask_thr'])
+        aligned = False
+    field = upsample_masks(src, img_shape, ori_shape, aligned=aligned)
+    if 'masks_logit' in host:
+        field = field[(field > 0).flatten(1).any(1)]
+    if not (len(det['masks']) == len(want['masks']) == len(field) > 0
+            and np.array_equal(det['labels'], want['labels'])):
+        fail(f'{what}: format_detection kept {len(det["masks"])} masks on '
+             f'the card and {len(want["masks"])} on the CPU, or other labels')
+    got, ref = np.stack(det['masks']), np.stack(want['masks'])
+    flips = got != ref
+    far = flips & (np.abs(field.numpy() - thr) >= 1e-4)
+    if far.any():
+        fail(f'{what}: {int(far.sum())} mask pixels differ between the '
+             f'card and the CPU away from the threshold {thr}')
+    rows = np.ones(len(got), bool) if 'bboxes' in host \
+        else ~flips.any(axis=(1, 2))
+    err = float(np.abs(det['bboxes'][rows] - want['bboxes'][rows]).max(
+        initial=0.0))
+    if not np.allclose(det['bboxes'][rows], want['bboxes'][rows],
+                       rtol=1e-5, atol=1e-4):
+        fail(f'{what}: boxes or scores on the card vs the CPU: max abs '
+             f'err {err}')
+    print(f'{what}: format_detection on the card vs the CPU: {len(got)} '
+          f'masks, {int(flips.sum())} of {flips.size} pixels differ (all '
+          f'within 1e-4 of {thr}); boxes and scores max abs err {err}')
+
+
+def print_predict_times(what, det, times, ori_shape):
+    host = [f + r for f, r in zip(times['format'], times['RLE'])]
+    print(f'{what}: {len(det["bboxes"])} detections at '
+          f'{tuple(int(v) for v in ori_shape)}; ' + '; '.join(
+              f'{k} ms {[round(t, 3) for t in v]}, median '
+              f'{statistics.median(v):.3f}' for k, v in times.items())
+          + f'; format + RLE median {statistics.median(host):.3f} ms')
+
+
+def check_outputs(out, want):
+    """Shapes as ``want`` says, every value finite."""
+    import torch
+    for key, shape in want.items():
+        if tuple(out[key].shape) != shape:
+            fail(f'predict {key} {tuple(out[key].shape)}, expected {shape}')
+        if out[key].is_floating_point() and not torch.isfinite(
+                out[key]).all():
+            fail(f'predict gave non-finite {key}')
+    if not out['valid'].any():
+        fail('predict kept no detection')
+
+
+def phase_boxinst_predict(tool, checkpoint):
+    """The slice's checkpoint through ``init_detector``, then ``predict``
+    on one 800x1333 image in its 800x1344 canvas, with ``score_thr`` 0 so
+    that it keeps ``max_per_img`` detections, as a trained model's
+    crowded images do: shapes, finite values, times."""
+    from boxinstseg_tpu_torch.apis.inference import init_detector
+    cfg = tool.load_config(CONFIG, EVAL_OPTS)
+    model, cfg = init_detector(cfg, checkpoint, device='cuda')
+    d = cfg.model.test_cfg.max_per_img
+    inputs, img_shape, ori_shape = eval_inputs(
+        cfg, SyntheticEvalDataset(cfg.data.test.pipeline, length=1))
+    out, det, times = time_predict(
+        model, dict(cfg.model.test_cfg), inputs, img_shape, ori_shape)
+    check_outputs(out, {'bboxes': (1, d, 4), 'scores': (1, d),
+                        'labels': (1, d), 'valid': (1, d),
+                        'masks': (1, d, 200, 336)})
+    print(f'test_cfg {dict(cfg.model.test_cfg)}')
+    print_predict_times('BoxInst R-50-FPN predict, batch 1', det, times,
+                        ori_shape)
+    check_format_on_cpu('BoxInst', out, img_shape, ori_shape,
+                        dict(cfg.model.test_cfg), det)
+
+
+def phase_predict_reference():
+    """A small CondInst's ``predict`` on the card against the CPU, same
+    weights (random BN statistics; the box regression scaled so that the
+    boxes are a stride or two wide), in fp32: validity and labels exactly;
+    boxes and scores within rtol 1e-4 / atol 1e-5 and masks within atol
+    1e-5 on valid slots, the tolerances of tests/test_torch_predict.py.
+    Then the small DiscoBox under the bf16 policy
+    (``discobox_bf16_reference``)."""
+    import numpy as np
+    import torch
+    from boxinstseg_tpu_torch.registry import build_detector
+    cfg = tiny_cfg()
+    cfg['test_cfg'] = dict(nms_pre=200, score_thr=0.003,
+                           nms=dict(type='nms', iou_threshold=0.5),
+                           max_per_img=20, pre_nms_limit=300)
+    gen = torch.Generator().manual_seed(0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_detector(cfg).eval()
+    with torch.no_grad():
+        model.bbox_head.conv_reg.weight.mul_(30)
+        model.bbox_head.conv_reg.bias.add_(1.5)
+        for name, buf in model.named_buffers():
+            if name.endswith('running_mean'):
+                buf.copy_(0.1 * torch.randn(buf.shape, generator=gen))
+            elif name.endswith('running_var'):
+                buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
+    batch = dict(image=torch.randn((2, 3, 128, 160), generator=gen) * 2,
+                 img_shape=torch.tensor([[120, 150], [100, 160]]),
+                 scale_factor=torch.tensor([[2.0] * 4, [1.5] * 4]))
+    outs = {}
+    for dev in ('cpu', 'cuda'):
+        model.to(dev)
+        outs[dev] = {k: v.cpu().numpy() for k, v in model.predict(
+            {k: v.to(dev) for k, v in batch.items()}).items()}
+    got, want = outs['cuda'], outs['cpu']
+    m = want['valid']
+    if not (np.array_equal(got['valid'], m)
+            and np.array_equal(got['labels'][m], want['labels'][m])):
+        fail('predict on the card keeps other detections than on the CPU')
+    if not m.sum(1).min() >= 10:
+        fail(f'predict kept {m.sum(1)} detections, fewer than 10 an image')
+    errs = {}
+    for k, (atol, rtol) in {'bboxes': (1e-5, 1e-4), 'scores': (1e-5, 1e-4),
+                            'masks': (1e-5, 0)}.items():
+        errs[k] = float(np.abs(got[k][m] - want[k][m]).max())
+        if not np.allclose(got[k][m], want[k][m], rtol=rtol, atol=atol):
+            fail(f'predict {k} on the card vs CPU: max abs err {errs[k]}')
+    print(f'CondInst: {m.sum(1).tolist()} detections an image on both; '
+          f'max abs err card vs CPU {errs}')
+    discobox_bf16_reference()
+
+
+def discobox_bf16_reference():
+    """The small DiscoBox's ``predict`` on the card under the bf16 policy
+    against ``get_seg`` on the CPU in fp32 from the same head outputs (the
+    ones the card's ``predict`` handed its ``get_seg``): the selection, the
+    mask decode and the matrix NMS, whose mask products count pixels, must
+    run in fp32 there. The tolerances of tests/test_torch_predict.py:
+    validity and labels exactly, scores within rtol 1e-4 / atol 1e-5 and
+    masks within atol 1e-5 on valid slots; the compared masks lie off
+    ``mask_thr`` by more than that, and no two valid scores of an image lie
+    closer than twice the scores' largest difference. The kernel branch's
+    last conv is scaled by 30, as in ``phase_discobox_reference``, so that
+    the mask scores sit away from ``mask_thr``."""
+    import numpy as np
+    import torch
+    from boxinstseg_tpu_torch.engine.train_state import autocast_bf16
+    from boxinstseg_tpu_torch.registry import build_detector
+    cfg = tiny_discobox_cfg()
+    cfg['test_cfg'] = dict(nms_pre=50, score_thr=0.005, mask_thr=0.4,
+                           filter_thr=0.002, kernel='gaussian', sigma=2.0,
+                           max_per_img=20)
+    gen = torch.Generator().manual_seed(0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_detector(cfg).eval()
+    with torch.no_grad():
+        model.bbox_head.solo_kernel.weight.mul_(30)
+    image = torch.randn((2, 3, 128, 128), generator=gen)
+    model.cuda()
+    seen = {}
+    get_seg = model.bbox_head.get_seg
+
+    def spy(outs, mask_feat, test_cfg):
+        seen.update(outs=outs, mask_feat=mask_feat,
+                    autocast=torch.is_autocast_enabled('cuda'))
+        return get_seg(outs, mask_feat, test_cfg)
+
+    model.bbox_head.get_seg = spy
+    with autocast_bf16('cuda', True):
+        got = model.predict({'image': image.cuda()})
+    del model.bbox_head.get_seg
+    if seen['autocast'] or seen['mask_feat'].dtype != torch.float32:
+        fail(f'get_seg ran with autocast {seen["autocast"]} on '
+             f'{seen["mask_feat"].dtype} mask features')
+    model.cpu()
+    want = get_seg({k: v.cpu() for k, v in seen['outs'].items()},
+                   seen['mask_feat'].cpu(), model.test_cfg)
+    got, want = ({k: v.cpu().numpy() for k, v in d.items()}
+                 for d in (got, want))
+    m = want['valid']
+    if not (np.array_equal(got['valid'], m)
+            and np.array_equal(got['labels'][m], want['labels'][m])):
+        fail('DiscoBox predict in bf16 on the card keeps other detections '
+             'than get_seg in fp32 on the CPU')
+    if not m.sum(1).min() >= 10:
+        fail(f'DiscoBox predict kept {m.sum(1)} detections, fewer than 10 '
+             f'an image')
+    if (np.abs(want['masks'][m] - 0.4) < 1e-5).any():
+        fail('a compared DiscoBox mask score lies within 1e-5 of mask_thr')
+    gap = min(np.diff(np.sort(s[v])).min()
+              for s, v in zip(want['scores'], m))
+    if not gap > 2 * np.abs(got['scores'][m] - want['scores'][m]).max():
+        fail(f'DiscoBox scores closer than twice their error: gap {gap}')
+    errs = {}
+    for k, (atol, rtol) in {'scores': (1e-5, 1e-4),
+                            'masks': (1e-5, 0)}.items():
+        errs[k] = float(np.abs(got[k][m] - want[k][m]).max())
+        if not np.allclose(got[k][m], want[k][m], rtol=rtol, atol=atol):
+            fail(f'DiscoBox predict {k} in bf16 on the card vs get_seg in '
+                 f'fp32 on the CPU: max abs err {errs[k]}')
+    print(f'DiscoBox under bf16 autocast: get_seg ran with autocast off; '
+          f'{m.sum(1).tolist()} detections an image; max abs err card vs '
+          f'CPU fp32 get_seg {errs}')
+
+
+def phase_eval(checkpoint):
+    """``tools/test_torch.py``'s ``main`` at full width on EVAL_IMAGES
+    synthetic 800x1333 images with RLE ground truth (the slice's
+    checkpoint, score_thr 0): the native RLE codec built, cv2 never
+    imported, metrics finite; images/s over ``run_evaluation``. Then the
+    ground truth itself as detections must read bbox and segm mAP 1.000."""
+    from boxinstseg_tpu_torch import native
+    from boxinstseg_tpu_torch.apis import test as eval_api
+    register_dataset()
+    if native.rle_lib() is None:
+        fail(f'the native RLE codec did not build: {native.BUILD_ERROR}')
+    with timed_calls(eval_api, ('run_evaluation', 'format_detection',
+                                'rle_encode')) as seconds, \
+            timed_calls(SyntheticEvalDataset, ('evaluate',)) as cocoeval:
+        metrics = load_tool('test_torch').main([
+            CONFIG, checkpoint, '--eval', 'bbox', 'segm',
+            '--cfg-options', *EVAL_OPTS,
+            f'data.test.length={EVAL_IMAGES}'])
+    if not {'bbox_mAP', 'segm_mAP'} <= set(metrics) or not all(
+            math.isfinite(v) for v in metrics.values()):
+        fail(f'metrics {metrics}')
+    if 'cv2' in sys.modules:
+        fail('the evaluation imported cv2')
+    total = seconds['run_evaluation']
+    parts = dict(format=seconds['format_detection'],
+                 RLE=seconds['rle_encode'], COCOeval=cocoeval['evaluate'])
+    print(f'{EVAL_IMAGES} images in {total:.3f} s: '
+          f'{EVAL_IMAGES / total:.3f} images/s (run_evaluation at batch 2);'
+          f' of it ' + ', '.join(f'{k} {v:.3f} s' for k, v in parts.items())
+          + f', loading and predict {total - sum(parts.values()):.3f} s; '
+          f'bbox mAP {metrics["bbox_mAP"]}, segm mAP {metrics["segm_mAP"]}')
+    data = SyntheticEvalDataset([], length=EVAL_IMAGES)
+    oracle = data.evaluate(data.ground_truth_results())
+    if not oracle['bbox_mAP'] == oracle['segm_mAP'] == 1.0:
+        fail(f'the ground truth as detections reads {oracle}')
+    print(f'the ground truth as detections ({len(data.coco.anns)} boxes): '
+          f'bbox mAP {oracle["bbox_mAP"]:.3f}, segm mAP '
+          f'{oracle["segm_mAP"]:.3f}')
+
+
+def phase_discobox_predict(cfg, model):
+    """``predict`` of the trained DiscoBox on one 800x1333 image under its
+    bf16 policy, with ``score_thr`` and ``filter_thr`` 0 so that it keeps
+    ``max_per_img`` detections; the SOLO family's formatting."""
+    from boxinstseg_tpu_torch.apis.train import apply_precision_policy
+    bf16 = apply_precision_policy(cfg)
+    if not bf16:
+        fail('the shipped DiscoBox config no longer asks for mixed '
+             'precision')
+    test_cfg = dict(cfg.model.test_cfg, score_thr=0.0, filter_thr=0.0)
+    model.test_cfg = test_cfg
+    model = model.cuda().eval()
+    d = test_cfg['max_per_img']
+    inputs, img_shape, ori_shape = eval_inputs(
+        cfg, SyntheticEvalDataset(cfg.data.test.pipeline, length=1))
+    out, det, times = time_predict(
+        model, test_cfg, inputs, img_shape, ori_shape, bf16=True)
+    check_outputs(out, {'scores': (1, d), 'labels': (1, d), 'valid': (1, d),
+                        'masks': (1, d, 200, 336)})
+    print(f'bf16 autocast; test_cfg {test_cfg}')
+    print_predict_times('DiscoBox R-50 predict, batch 1', det, times,
+                        ori_shape)
+    check_format_on_cpu('DiscoBox', out, img_shape, ori_shape, test_cfg, det)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, 'boxinstseg_tpu_torch')):
         fail(f'the boxinstseg_tpu_torch package is not beside {__file__}')
@@ -1922,9 +2411,19 @@ def main():
     report.update(phase_msda_kernels())
     report.update(phase_lcm_kernels())
 
-    tool = load_train_tool()
+    tool = load_tool('train_torch')
+    work_dir = tempfile.mkdtemp(prefix='chip_smoke_')
+    try:
+        run_phases(tool, work_dir, report, smi, t_start)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+
+def run_phases(tool, work_dir, report, smi, t_start):
+    """Every phase from the slice on, then the result lines."""
+    import torch
     phase('slice')
-    launches, kept = phase_slice(tool)
+    launches, kept, checkpoint = phase_slice(tool, work_dir)
 
     phase('pairwise main path')
     phase_pairwise_main_path(kept, report)
@@ -1968,10 +2467,23 @@ def main():
     report.update(phase_crf_kernel())
 
     phase('discobox')
-    launches.update(phase_discobox(tool))
+    disco_launches, disco_cfg, disco_model = phase_discobox(tool)
+    launches.update(disco_launches)
 
     phase('discobox reference')
     phase_discobox_reference()
+
+    phase('boxinst predict')
+    phase_boxinst_predict(tool, checkpoint)
+    phase('predict reference')
+    phase_predict_reference()
+
+    phase('eval')
+    phase_eval(checkpoint)
+
+    phase('discobox predict')
+    phase_discobox_predict(disco_cfg, disco_model)
+    del disco_model
 
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

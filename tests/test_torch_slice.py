@@ -10,9 +10,11 @@ A tiny CondInst (ResNet-18, narrow FPN and heads) with the same weights
   (rtol 1e-4, atol 1e-6); a heavy-decay step moves the frozen stages by
   lr * wd * p exactly as optax does;
 - ``params_from_jax`` round-trips through ``convert_reference_checkpoint``;
-- importing every module of the port and running its CondInst, Box2Mask
-  and DiscoBox train steps leaves JAX, flax, optax and cv2 out of
-  ``sys.modules`` (in a subprocess: this suite imports JAX);
+- importing every module of the port, running its CondInst, Box2Mask
+  and DiscoBox train steps, and predicting, formatting, RLE-encoding and
+  evaluating with each of them, with cv2 made unimportable, leaves JAX,
+  flax and optax out of ``sys.modules`` (in a subprocess: this suite
+  imports JAX);
 - ``train_detector`` runs the loop on the CPU and saves ``_iter``, and
   applies the shipped DiscoBox config's ``fp16`` key as bf16 autocast;
 - an error in the loader's producer thread reaches the consumer.
@@ -288,6 +290,7 @@ def tiny_discobox_cfg():
 def test_port_never_imports_jax_or_cv2():
     code = textwrap.dedent(f'''
         import sys
+        sys.modules['cv2'] = None     # cv2 absent: importing it raises
         sys.path.insert(0, {ROOT!r})
         import torch
         import boxinstseg_tpu_torch
@@ -385,9 +388,45 @@ def test_port_never_imports_jax_or_cv2():
             assert all(torch.isfinite(v) for v in logs.values()), logs
         assert 'loss_corr' in logs and step.teacher_forwards == 2
         assert int(step.bank.count.sum()) > 0
-        bad = [m for m in ('jax', 'flax', 'optax', 'cv2')
-               if m in sys.modules]
-        assert not bad, bad
+
+        # evaluation: DiscoBox, CondInst and Box2Mask predict, each output
+        # family formatted, RLE-encoded and evaluated against RLE GT
+        import numpy as np
+        from boxinstseg_tpu_torch.apis.test import format_detection
+        from boxinstseg_tpu_torch.core.eval import evaluate_coco
+        from boxinstseg_tpu_torch.data.coco_api import COCO, rle_encode
+        gt = np.zeros((64, 64), np.uint8)
+        gt[8:36, 8:40] = 1
+        coco = COCO(dataset=dict(
+            images=[dict(id=1, height=64, width=64)],
+            categories=[dict(id=c, name=str(c)) for c in range(1, 5)],
+            annotations=[dict(id=1, image_id=1, category_id=2, iscrowd=0,
+                              area=int(gt.sum()), bbox=[8, 8, 32, 28],
+                              segmentation=rle_encode(gt))]))
+        disco_out = model.eval().predict(dict(image=batch['image']))
+        cond = build_detector({tiny_cfg(1)!r}).eval()
+        cond.test_cfg = dict(score_thr=0.0)
+        cond_out = cond.predict(dict(
+            image=batch['image'], img_shape=torch.tensor([[64, 64]] * 2),
+            scale_factor=torch.ones(2, 4)))
+        b2m_out = build_detector(b2m).eval().predict(batch)
+        for out in (disco_out, cond_out, b2m_out):
+            det = format_detection(out, 0, (64, 64), (64, 64))
+            assert len(det['masks']) == len(det['bboxes'])
+            result = dict(bboxes=det['bboxes'], labels=det['labels'],
+                          masks=[rle_encode(m) for m in det['masks']])
+            stats = evaluate_coco(coco, [1], [1, 2, 3, 4], [result],
+                                  ['bbox', 'segm'])
+            assert 'segm_mAP' in stats, stats
+        assert cond_out['valid'].any()
+        perfect = dict(bboxes=np.array([[8., 8., 40., 36., 1.]]),
+                       labels=np.array([1]), masks=[rle_encode(gt)])
+        stats = evaluate_coco(coco, [1], [1, 2, 3, 4], [perfect],
+                              ['bbox', 'segm'])
+        assert stats['bbox_mAP'] == stats['segm_mAP'] == 1.0, stats
+
+        bad = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]
+        assert not bad and sys.modules['cv2'] is None, bad
         print('OK')
     ''')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
