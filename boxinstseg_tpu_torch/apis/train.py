@@ -3,13 +3,18 @@
 
 One process: ``StaticBatcher`` + ``TrainLoader`` (the numpy data layer
 shared with the JAX package; box bitmasks at stride 4 when the config asks
-for GT masks), the LR schedule, SGD or AdamW, the train step, a text
-log line per iteration and a final ``torch.save`` checkpoint that keeps
-``_iter``. DiscoBox (a ``SingleStageWSInsTSDetector``, such as
-``DiscoBoxSOLOv2``) takes the teacher-student step, with the object bank built on the device
+for GT masks), the LR schedule, SGD or AdamW, the train step and the hooks
+of ``engine.hooks`` built from the config as the JAX package builds them:
+the text log every ``log_config.interval`` steps, checkpoints by
+``checkpoint_config`` (``iter_{n}.pth`` in the work dir, ``torch.save`` of
+the model, the optimizer and ``_iter``), evaluation of a validation set by
+``evaluation``. A run resumes from ``resume_from`` (or, with
+``auto_resume``, the newest checkpoint of the work dir) at its ``_iter``.
+DiscoBox (a ``SingleStageWSInsTSDetector``, such as ``DiscoBoxSOLOv2``)
+takes the teacher-student step, with the object bank built on the device
 from ``loss_corr.obj_bank`` and the schedule from ``ts_cfg``; its
 checkpoint also keeps the teacher, the bank and ``avg_loss_ins``.
-Distributed data parallelism and the evaluation hook are not ported yet.
+Distributed data parallelism is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import logging
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +30,9 @@ import torch
 from ..config import Config
 from ..data.batcher import StaticBatcher
 from ..data.loader import TrainLoader
+from ..engine.hooks import (CheckLossHook, CheckpointHook, EvalHook,
+                            TextLoggerHook, latest_checkpoint,
+                            num_class_check)
 from ..engine.optimizers import build_optimizer
 from ..engine.schedules import build_lr_schedule
 from ..engine.train_state import TSTrainStep, make_train_step
@@ -88,14 +96,44 @@ def batch_scale_choices(cfg):
     return None
 
 
-def max_iters_of(cfg, iters_per_epoch: int) -> int:
-    """mmcv runner semantics: epochs for EpochBasedRunner, iterations for
-    IterBasedRunner."""
-    runner = cfg.get('runner', {'type': 'EpochBasedRunner',
-                                'max_epochs': 12})
-    if runner.get('type') == 'IterBasedRunner':
-        return int(runner['max_iters'])
-    return int(runner.get('max_epochs', 12)) * iters_per_epoch
+def resolve_intervals(cfg: Config, iters_per_epoch: int) -> Dict[str, Any]:
+    """mmcv ``by_epoch`` semantics as absolute iteration counts, the JAX
+    package's ``resolve_intervals``:
+
+    - ``lr_config.by_epoch`` (default True): step epochs -> iterations;
+    - ``checkpoint_config.by_epoch`` (default True): interval in epochs
+      unless set False (Box2Mask: 5000 iterations, by_epoch=False);
+    - ``evaluation``'s interval is in epochs under an EpochBasedRunner and
+      in iterations under an IterBasedRunner, whatever the evaluation dict
+      says.
+    """
+    runner_cfg = cfg.get('runner', {'type': 'EpochBasedRunner',
+                                    'max_epochs': 12})
+    by_epoch_runner = runner_cfg.get('type') != 'IterBasedRunner'
+    if by_epoch_runner:
+        max_iters = runner_cfg.get('max_epochs', 12) * iters_per_epoch
+    else:
+        max_iters = runner_cfg['max_iters']
+
+    lr_cfg = dict(cfg.get('lr_config') or {})
+    lr_by_epoch = lr_cfg.get('by_epoch', True)
+
+    ckpt_cfg = dict(cfg.get('checkpoint_config') or {})
+    ckpt_iters = ckpt_cfg.get('interval', 1) * (
+        iters_per_epoch if ckpt_cfg.get('by_epoch', True) else 1)
+
+    eval_cfg = dict(cfg.get('evaluation') or {})
+    eval_iters = eval_cfg.get('interval', 1) * (
+        iters_per_epoch if by_epoch_runner else 1)
+    dynamic = eval_cfg.get('dynamic_intervals')
+
+    return dict(max_iters=max_iters, lr_by_epoch=lr_by_epoch,
+                ckpt_interval_iters=int(ckpt_iters),
+                ckpt_max_keep=ckpt_cfg.get('max_keep_ckpts', 3),
+                ckpt_save_last=ckpt_cfg.get('save_last', True),
+                eval_interval_iters=int(eval_iters),
+                eval_dynamic_intervals=dynamic,
+                eval_metrics=eval_cfg.get('metric', ('bbox', 'segm')))
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device
@@ -150,19 +188,110 @@ def apply_precision_policy(cfg) -> bool:
     return bool(cfg.get('bf16', False)) or cfg.get('fp16') is not None
 
 
+def _model_num_classes(model_cfg: dict):
+    """First num_classes/num_things_classes found in the model cfg tree."""
+    for key in ('num_classes', 'num_things_classes'):
+        for sub in model_cfg.values():
+            if isinstance(sub, dict) and key in sub:
+                return sub[key]
+    return None
+
+
 @dataclass
 class TrainResult:
-    """What a run leaves: the step count (``_iter``), the per-iteration
-    logs as floats (with 'time' and 'data_time' in seconds) and the final
-    checkpoint's path."""
+    """What a run leaves: the step count (``_iter``), the logs of the
+    logged steps (one every ``log_config.interval`` steps) as floats, with
+    'time' and 'data_time' the mean seconds a step since the previous
+    logged step, the path of the last checkpoint saved, and the metrics of
+    each evaluation with the step after which it ran."""
     step: int
     history: List[Dict[str, float]] = field(default_factory=list)
     checkpoint: Optional[str] = None
+    evaluations: List[Tuple[int, Dict[str, float]]] = field(
+        default_factory=list)
+
+
+class RunState:
+    """The model, its optimizer and the train step of a run: what a
+    checkpoint holds (``checkpoint``) and a resume restores
+    (``restore``)."""
+
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, step_fn):
+        self.model = model
+        self.optimizer = optimizer
+        self.step_fn = step_fn
+        self.teacher_student = isinstance(step_fn, TSTrainStep)
+
+    def checkpoint(self, step: int, meta=None) -> Dict[str, Any]:
+        ckpt = {'state_dict': self.model.state_dict(),
+                'optimizer': self.optimizer.state_dict(),
+                '_iter': step, 'meta': dict(meta or {})}
+        if self.teacher_student:
+            ts = self.step_fn
+            ckpt['teacher_state_dict'] = ts.teacher.state_dict()
+            ckpt['avg_loss_ins'] = ts.avg_loss_ins
+            if ts.bank is not None:
+                ckpt['object_bank'] = ts.bank._asdict()
+        return ckpt
+
+    def restore(self, ckpt: Dict[str, Any]) -> int:
+        """Load a ``checkpoint`` dict; returns its ``_iter``."""
+        self.model.load_state_dict(ckpt['state_dict'])
+        self.optimizer.load_state_dict(ckpt['optimizer'])
+        if self.teacher_student:
+            ts = self.step_fn
+            ts.teacher.load_state_dict(ckpt['teacher_state_dict'])
+            ts.avg_loss_ins = torch.as_tensor(ckpt['avg_loss_ins']).to(
+                ts.avg_loss_ins.device)
+            if ts.bank is not None:
+                for name, saved in ckpt['object_bank'].items():
+                    getattr(ts.bank, name).copy_(saved)
+        return int(ckpt['_iter'])
+
+
+def build_hooks(cfg: Config, iv: Dict[str, Any], work_dir: str, logger,
+                result: TrainResult, val_dataset=None, classes=None) -> list:
+    """The hook list of the config, in the JAX package's order: the text
+    log and the loss check every ``log_config.interval`` steps, the
+    checkpoints (those of ``work_dir`` up to ``result.step``, where a
+    resumed run starts, count as the run's own), the evaluation of
+    ``val_dataset`` when there is one. A config without
+    ``log_config`` logs every step. Of ``custom_hooks`` only
+    ``NumClassCheckHook`` (run by ``train_detector`` up front) is ported;
+    another raises."""
+    log_interval = dict(cfg.get('log_config') or {}).get('interval', 1)
+    meta = dict(seed=cfg.get('seed'),
+                exp_name=os.path.basename(cfg.filename or ''),
+                CLASSES=list(classes or cfg.get('classes') or []))
+    hooks = [TextLoggerHook(log_interval, logger, iv['max_iters'],
+                            result.history),
+             CheckLossHook(log_interval),
+             CheckpointHook(work_dir, iv['ckpt_interval_iters'],
+                            iv['ckpt_max_keep'], iv['ckpt_save_last'],
+                            iv['max_iters'], logger, meta=meta,
+                            start=result.step)]
+    if val_dataset is not None:
+        hooks.append(EvalHook(val_dataset, cfg, iv['eval_interval_iters'],
+                              iv['eval_metrics'], logger,
+                              iv['eval_dynamic_intervals'],
+                              result.evaluations))
+    for h in cfg.get('custom_hooks') or []:
+        if h.get('type') != 'NumClassCheckHook':
+            raise NotImplementedError(f'custom hook {h.get("type")} is not '
+                                      f'ported')
+    return hooks
 
 
 def train_detector(model: torch.nn.Module, dataset, cfg: Config,
-                   device='cuda') -> TrainResult:
-    """Train ``model`` on ``dataset`` as ``cfg`` says, on ``device``."""
+                   device='cuda', val_dataset=None,
+                   resume_from: Optional[str] = None) -> TrainResult:
+    """Train ``model`` on ``dataset`` as ``cfg`` says, on ``device``;
+    evaluate on ``val_dataset``, when given, by ``cfg.evaluation``.
+    ``resume_from`` (or ``cfg.resume_from``; with ``cfg.auto_resume`` the
+    newest checkpoint of the work dir) restores the model, the optimizer,
+    the teacher-student state and ``_iter``, and the run goes on from
+    there, its loader from its first batch."""
     device = torch.device(device)
     work_dir = cfg.get('work_dir') or './work_dir'
     os.makedirs(work_dir, exist_ok=True)
@@ -188,17 +317,19 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
                          batch_scales=batch_scale_choices(cfg))
 
     iters_per_epoch = max(len(dataset) // batch_size, 1)
-    max_iters = max_iters_of(cfg, iters_per_epoch)
-    lr_by_epoch = dict(cfg.get('lr_config') or {}).get('by_epoch', True)
+    iv = resolve_intervals(cfg, iters_per_epoch)
+    max_iters = iv['max_iters']
     lr_fn = build_lr_schedule(cfg.get('lr_config', {}), cfg.optimizer['lr'],
-                              iters_per_epoch, by_epoch=lr_by_epoch,
+                              iters_per_epoch, by_epoch=iv['lr_by_epoch'],
                               max_iters=max_iters)
+    num_classes = _model_num_classes(cfg.model)
+    if num_classes is not None and hasattr(dataset, 'CLASSES'):
+        num_class_check(dataset, num_classes)
 
     model.to(device)
     optimizer = build_optimizer(cfg.optimizer, model.named_parameters())
     grad_clip = (cfg.get('optimizer_config') or {}).get('grad_clip')
-    use_ts = isinstance(model, SingleStageWSInsTSDetector)
-    if use_ts:
+    if isinstance(model, SingleStageWSInsTSDetector):
         ts_cfg = dict(cfg.get('ts_cfg') or {})
         step_fn = TSTrainStep(
             model, optimizer, lr_fn, grad_clip,
@@ -210,41 +341,39 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
     else:
         step_fn = make_train_step(model, optimizer, lr_fn, grad_clip,
                                   bf16=bf16)
+    state = RunState(model, optimizer, step_fn)
 
-    result = TrainResult(step=0)
+    resume_from = resume_from or cfg.get('resume_from')
+    if not resume_from and cfg.get('auto_resume'):
+        resume_from = latest_checkpoint(work_dir)
+    start = 0
+    if resume_from:
+        start = state.restore(torch.load(resume_from, map_location='cpu',
+                                         weights_only=False))
+        logger.info(f'resumed from {resume_from} at iter {start}')
+
+    result = TrainResult(step=start)
+    hooks = build_hooks(cfg, iv, work_dir, logger, result,
+                        val_dataset=val_dataset,
+                        classes=getattr(dataset, 'CLASSES', None))
     batches = iter(loader)
     try:
-        for i in range(max_iters):
+        for i in range(start, max_iters):
+            for h in hooks:
+                h.before_step(i)
             t0 = time.perf_counter()
             batch = batch_to_device(next(batches), device)
-            t1 = time.perf_counter()
+            data_time = time.perf_counter() - t0
             logs = step_fn(batch, i)
-            # the per-iteration log line reads every value: one sync a step
-            logs = {k: float(v) for k, v in logs.items()}
-            t2 = time.perf_counter()
-            logs.update(time=t2 - t0, data_time=t1 - t0)
-            result.history.append(logs)
+            logs['data_time'] = data_time
             result.step = i + 1
-            items = ', '.join(f'{k}: {v:.4f}' for k, v in logs.items()
-                              if k not in ('lr', 'time', 'data_time'))
-            logger.info(f'Iter [{i + 1}/{max_iters}] lr: {logs["lr"]:.3e}, '
-                        f'{items}, time: {logs["time"]:.3f}, '
-                        f'data_time: {logs["data_time"]:.3f}')
+            for h in hooks:
+                h.after_step(i, state, logs)
+            if (i + 1) % iters_per_epoch == 0:
+                for h in hooks:
+                    h.after_epoch((i + 1) // iters_per_epoch - 1, state)
     finally:
         batches.close()
-
-    path = os.path.join(work_dir, f'iter_{result.step}.pth')
-    ckpt = {'state_dict': model.state_dict(),
-            'optimizer': optimizer.state_dict(),
-            '_iter': result.step,
-            'meta': dict(seed=cfg.get('seed'),
-                         exp_name=os.path.basename(cfg.filename or ''))}
-    if use_ts:
-        ckpt['teacher_state_dict'] = step_fn.teacher.state_dict()
-        ckpt['avg_loss_ins'] = step_fn.avg_loss_ins
-        if step_fn.bank is not None:
-            ckpt['object_bank'] = step_fn.bank._asdict()
-    torch.save(ckpt, path)
-    logger.info(f'checkpoint saved at iter {result.step}: {path}')
-    result.checkpoint = path
+    result.checkpoint = next(h.last for h in hooks
+                             if isinstance(h, CheckpointHook))
     return result

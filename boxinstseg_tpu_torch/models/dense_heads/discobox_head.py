@@ -27,22 +27,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..layers import Conv2d, ConvModule, bias_init_with_prob, normal_init_
+from .solo_common import coord_feat, decode_masks, solo_get_seg
 from ...core.targets.solo import sample_positive_cells, solo_targets
 from ...ops.correspondence import (bank_retrieve_batch, info_nce_loss,
                                    relu_l2_norm, solve_correspondence)
 from ...ops.crf import crf_mean_field, kernel_sum, stencil_sum
-from ...ops.nms import mask_matrix_nms, points_nms_2x2, top_k
+from ...ops.nms import points_nms_2x2
 from ...ops.roi_align import roi_align
 from ...ops.upsample import interpolate_bilinear
 from ...registry import HEADS, LOSSES
-
-
-def _coord_feat(b: int, h: int, w: int, device) -> torch.Tensor:
-    """(B, 2, H, W): x then y, each a linspace over [-1, 1]."""
-    xs = torch.linspace(-1.0, 1.0, w, device=device)
-    ys = torch.linspace(-1.0, 1.0, h, device=device)
-    return torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)]
-                       )[None].expand(b, 2, h, w)
 
 
 def _shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -213,7 +206,7 @@ class DiscoBoxMaskFeatHead(nn.Module):
         for i, level in enumerate(self.convs_all_levels):
             x = feats[i]
             if i == 3:
-                x = torch.cat([x, _coord_feat(b, x.shape[2], x.shape[3],
+                x = torch.cat([x, coord_feat(b, x.shape[2], x.shape[3],
                                               x.device)], dim=1)
             for conv in level.children():
                 x = conv(x)
@@ -303,7 +296,7 @@ class DiscoBoxSOLOv2Head(nn.Module):
                      interpolate_bilinear(feats[4], feats[3].shape[-2:])]
         kernels, cates = [], []
         for x, s in zip(new_feats, self.num_grids):
-            coord = _coord_feat(b, x.shape[2], x.shape[3], x.device)
+            coord = coord_feat(b, x.shape[2], x.shape[3], x.device)
             # the coordinate-augmented feature goes to the grid first
             # (reference forward_single, discobox_head.py:817-833)
             kfeat = interpolate_bilinear(torch.cat([x, coord], dim=1),
@@ -321,13 +314,7 @@ class DiscoBoxSOLOv2Head(nn.Module):
         return dict(kernels=torch.cat(kernels, dim=1),
                     cates=torch.cat(cates, dim=1))
 
-    @staticmethod
-    def decode_masks(mask_feat: torch.Tensor, kernels: torch.Tensor
-                     ) -> torch.Tensor:
-        """mask_feat (B, E, H, W), kernels (B, K, E) -> (B, K, H, W)."""
-        b, e, h, w = mask_feat.shape
-        return torch.bmm(kernels, mask_feat.reshape(b, e, h * w)).reshape(
-            b, -1, h, w)
+    decode_masks = staticmethod(decode_masks)
 
     # ---------------------------------------------------- correspondence
     @staticmethod
@@ -550,52 +537,17 @@ class DiscoBoxSOLOv2Head(nn.Module):
 
     def get_seg(self, outs: Dict[str, torch.Tensor], mask_feat: torch.Tensor,
                 test_cfg: Optional[Dict]) -> Dict[str, torch.Tensor]:
-        """Prediction from the ``train=False`` outputs (reference
-        get_seg_single): the top ``nms_pre`` (cell, class) scores, their
-        masks decoded, binarised at ``mask_thr`` and kept when larger than
-        their level's stride, rescored by their mean mask score, matrix
-        NMS, ``filter_thr``, then the top ``max_per_img``. Returns scores,
-        labels, valid (B, D) and masks (B, D, H, W) sigmoid scores at the
-        mask feature's resolution."""
+        """Prediction from the ``train=False`` outputs and the mask feature
+        (reference get_seg_single): ``solo_get_seg`` with DiscoBox's
+        defaults."""
         cfg = dict(test_cfg or {})
-        score_thr = float(cfg.get('score_thr', 0.1))
-        mask_thr = float(cfg.get('mask_thr', 0.4))
-        filter_thr = float(cfg.get('filter_thr', 0.05))
-        nms_pre = int(cfg.get('nms_pre', 500))
-        max_per_img = int(cfg.get('max_per_img', 100))
+        return solo_get_seg(
+            outs['cates'], outs['kernels'], mask_feat, self.num_grids,
+            self.strides, score_thr=float(cfg.get('score_thr', 0.1)),
+            mask_thr=float(cfg.get('mask_thr', 0.4)),
+            filter_thr=float(cfg.get('filter_thr', 0.05)),
+            nms_pre=int(cfg.get('nms_pre', 500)),
+            max_per_img=int(cfg.get('max_per_img', 100)),
+            kernel=cfg.get('kernel', 'gaussian'),
+            sigma=float(cfg.get('sigma', 2.0)))
 
-        cates = outs['cates']
-        B, Pc, C = cates.shape
-        strides = torch.tensor(np.concatenate([
-            np.full(s * s, st, np.float32)
-            for s, st in zip(self.num_grids, self.strides)]),
-            device=cates.device)
-
-        flat = torch.where(cates > score_thr, cates,
-                           torch.zeros_like(cates)).reshape(B, Pc * C)
-        top_scores, top_idx = top_k(flat, min(nms_pre, Pc * C))
-        cell = top_idx // C
-        labels = (top_idx % C).int()
-        e = outs['kernels'].shape[-1]
-        kernels = torch.gather(outs['kernels'], 1,
-                               cell[..., None].expand(-1, -1, e))
-        mask_scores = torch.sigmoid(self.decode_masks(mask_feat, kernels))
-        seg_masks = (mask_scores > mask_thr).float()
-        sum_masks = seg_masks.sum(dim=(2, 3))
-        keep = (sum_masks > strides[cell]) & (top_scores > 0)
-        seg_score = (mask_scores * seg_masks).sum(dim=(2, 3)) \
-            / sum_masks.clamp(min=1e-6)
-        scores = torch.where(keep, top_scores * seg_score,
-                             torch.zeros_like(top_scores))
-        new_scores = mask_matrix_nms(seg_masks, labels, scores, keep,
-                                     kernel=cfg.get('kernel', 'gaussian'),
-                                     sigma=float(cfg.get('sigma', 2.0)))
-        del seg_masks
-        new_scores = torch.where(new_scores > filter_thr, new_scores,
-                                 torch.zeros_like(new_scores))
-        final_scores, order = top_k(new_scores, min(max_per_img, Pc))
-        final_masks = torch.gather(mask_scores, 1, order[..., None, None]
-                                   .expand(-1, -1, *mask_scores.shape[2:]))
-        return dict(scores=final_scores,
-                    labels=torch.gather(labels, 1, order),
-                    masks=final_masks, valid=final_scores > 0)

@@ -7,6 +7,8 @@ counterpart of ``boxinstseg_tpu/models/losses/levelset_loss.py``
 - ``region_levelset_shared``: the same energy against a target shared by
   all instances of an image, from four inner products;
 - ``length_regularization``: total-variation curve length;
+- ``LevelsetLoss``: ``region_levelset`` per pixel of the box, weighted,
+  registered so that a config's ``loss_levelset`` builds by name;
 - ``LocalConsistencyModule``: affinity-propagated refinement of phi over
   dilated 3x3 neighbourhoods, run by ``ops.lcm.lcm_refine`` (the CUDA
   kernels on the card).
@@ -19,6 +21,7 @@ import torch
 
 from ...ops.color import neighbor_offsets
 from ...ops.lcm import lcm_refine, replicate_shift
+from ...registry import LOSSES
 
 
 def region_levelset(mask_score: torch.Tensor, lst_target: torch.Tensor
@@ -66,6 +69,16 @@ def length_regularization(mask_score: torch.Tensor) -> torch.Tensor:
     gh = (mask_score[:, :, 1:, :] - mask_score[:, :, :-1, :]).abs()
     gw = (mask_score[:, :, :, 1:] - mask_score[:, :, :, :-1]).abs()
     return gh.sum(dim=(1, 2, 3)) + gw.sum(dim=(1, 2, 3))
+
+
+@LOSSES.register_module()
+class LevelsetLoss:
+    def __init__(self, loss_weight: float = 1.0):
+        self.loss_weight = loss_weight
+
+    def __call__(self, mask_logits, targets, pixel_num):
+        return self.loss_weight * region_levelset(
+            mask_logits, targets) / pixel_num
 
 
 class LocalConsistencyModule:

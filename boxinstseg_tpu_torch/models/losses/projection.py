@@ -1,10 +1,14 @@
-"""BoxInst projection loss (reference: condinst_head.py:134-143),
-counterpart of ``boxinstseg_tpu/models/losses/projection.py``: dice
-between the x/y max projections of the mask scores and of the GT box
-bitmask."""
+"""Box projection losses, counterpart of
+``boxinstseg_tpu/models/losses/projection.py``: dice between the x/y max
+projections of the mask scores and of the GT box bitmask. BoxInst's term
+(reference: condinst_head.py:134-143) and ``BoxProjectionLoss``, the
+module form of BoxLevelset (reference:
+mmdet/models/losses/box_projection_loss.py:6-43)."""
 from __future__ import annotations
 
 import torch
+
+from ...registry import LOSSES
 
 
 def dice_coefficient(x, target, eps: float = 1e-5):
@@ -14,32 +18,37 @@ def dice_coefficient(x, target, eps: float = 1e-5):
     return 1.0 - 2.0 * inter / union
 
 
-def _masked_dice(x, t, valid, eps=1e-5):
-    """Dice over (N, L) with per-instance validity; invalid rows give 0."""
-    loss = dice_coefficient(x, t, eps)
-    return torch.where(valid, loss, torch.zeros_like(loss))
+def _project_dice(scores, boxes, valid, eps: float = 1e-5):
+    """Per-instance projection dice over (N, H, W): the dice of the x and
+    of the y max projections, summed; invalid rows give 0. ``amax`` splits
+    the gradient evenly between tied maxima, as JAX's ``max`` does."""
+    zero = torch.zeros((), dtype=scores.dtype, device=scores.device)
+    return torch.where(
+        valid, dice_coefficient(scores.amax(dim=1), boxes.amax(dim=1), eps)
+        + dice_coefficient(scores.amax(dim=2), boxes.amax(dim=2), eps), zero)
 
 
 def compute_project_term(mask_scores: torch.Tensor,
                          gt_bitmasks: torch.Tensor,
-                         valid=None) -> torch.Tensor:
-    """Projection dice term.
+                         valid: torch.Tensor) -> torch.Tensor:
+    """BoxInst's projection term: ``_project_dice`` of (N, H, W) mask
+    scores and box bitmasks summed over the valid instances ((N,) bool)
+    and divided by their count."""
+    return _project_dice(mask_scores, gt_bitmasks, valid).sum() \
+        / valid.to(mask_scores.dtype).sum().clamp(min=1.0)
 
-    Args:
-      mask_scores: (N, H, W) sigmoid mask scores.
-      gt_bitmasks: (N, H, W) box bitmasks.
-      valid: optional (N,) bool; padded instances contribute 0 and the
-        mean divides by the valid count.
 
-    ``amax`` splits the gradient evenly between tied maxima, as JAX's
-    ``max`` does."""
-    px = mask_scores.amax(dim=1)   # (N, W) projection along y
-    tx = gt_bitmasks.amax(dim=1)
-    py = mask_scores.amax(dim=2)   # (N, H) projection along x
-    ty = gt_bitmasks.amax(dim=2)
-    if valid is None:
-        return (dice_coefficient(px, tx) + dice_coefficient(py, ty)).mean()
-    v = valid.to(mask_scores.dtype)
-    lx = _masked_dice(px, tx, valid)
-    ly = _masked_dice(py, ty, valid)
-    return (lx + ly).sum() / v.sum().clamp(min=1.0)
+@LOSSES.register_module()
+class BoxProjectionLoss:
+    """``_project_dice`` of mask scores and box masks, (N, H, W) each, at
+    ``eps``: the per-instance (N,) vector times ``loss_weight``, as the
+    reference module; the SOLO-style heads reduce it themselves
+    (box_projection_loss.py:14-20)."""
+
+    def __init__(self, loss_weight: float = 1.0, eps: float = 1e-5):
+        self.loss_weight = loss_weight
+        self.eps = eps
+
+    def __call__(self, mask_scores, box_bitmasks, valid):
+        return self.loss_weight * _project_dice(mask_scores, box_bitmasks,
+                                                valid, self.eps)

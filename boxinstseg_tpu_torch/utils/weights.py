@@ -1,9 +1,10 @@
-"""JAX CondInst, Box2Mask and DiscoBox variables (ResNet or Swin backbone)
--> port ``state_dict``.
+"""JAX CondInst, Box2Mask, DiscoBox and BoxLevelset variables (ResNet or
+Swin backbone) -> port ``state_dict``.
 
 The inverse of ``boxinstseg_tpu.utils.checkpoint_convert.
 convert_condinst_checkpoint``, ``convert_box2mask_head``,
-``convert_discobox_head`` and ``convert_discobox_mask_feat_head``: it takes the
+``convert_discobox_head``, ``convert_discobox_mask_feat_head`` and
+``convert_box_solov2_head``: it takes the
 JAX package's ``params`` and
 ``batch_stats`` as nested dicts of numpy arrays and returns the port's
 ``state_dict`` (mmdet reference key names, OIHW conv weights), so both
@@ -174,16 +175,23 @@ def _conv_module(sd, prefix, node, stats):
 
 
 def _bbox_head(sd, params):
-    """CondInst's box head, or DiscoBox's SOLOv2 head (``kernel_conv_i``,
-    ``cate_conv_i``, ``solo_*``)."""
+    """CondInst's box head, DiscoBox's SOLOv2 head (``kernel_conv_i``,
+    ``cate_conv_i``, ``solo_*``) or BoxLevelset's, which also holds the
+    unified feature (``feature_conv_i_j``, ``solo_mask``) and
+    ``levelset_bottom``."""
     for name, node in params.items():
         m = re.match(r'^(cls|reg)_tower_(\d+)$', name) or \
             re.match(r'^(kernel|cate)_conv_(\d+)$', name)
+        f = re.match(r'^feature_conv_(\d+)_(\d+)$', name)
         if m:
             _conv_module(sd, f'bbox_head.{m.group(1)}_convs.{m.group(2)}',
                          node, {})
+        elif f:
+            _conv_module(sd, f'bbox_head.feature_convs.{f.group(1)}.'
+                         f'conv{f.group(2)}', node, {})
         elif name in ('conv_cls', 'conv_reg', 'conv_centerness',
-                      'solo_cate', 'solo_kernel'):
+                      'solo_cate', 'solo_kernel', 'solo_mask',
+                      'levelset_bottom'):
             _emit_conv(sd, f'bbox_head.{name}', node)
         elif name == 'param_conv':
             _emit_conv(sd, 'mask_head.param_conv', node)
@@ -305,7 +313,8 @@ def _box2mask_head(sd, params):
 
 def params_from_jax(params: Mapping, batch_stats: Mapping
                     ) -> Dict[str, torch.Tensor]:
-    """JAX CondInst, Box2Mask or DiscoBox ``params`` / ``batch_stats`` ->
+    """JAX CondInst, Box2Mask, DiscoBox or BoxLevelset ``params`` /
+    ``batch_stats`` ->
     port ``state_dict``.
 
     Each submodule tree (backbone_m, neck_m, bbox_head_m, mask_branch_m,
@@ -328,3 +337,20 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
     if 'panoptic_head_m' in params:
         _box2mask_head(sd, params['panoptic_head_m'])
     return sd
+
+
+def load_pretrained_backbone(backbone: torch.nn.Module, path: str) -> None:
+    """A local torchvision-format ResNet ``.pth`` (a bare state_dict or one
+    under ``state_dict``) into the port's ResNet, whose key names are
+    torchvision's: the classifier ``fc.*`` is dropped, and so are the BN
+    counters ``num_batches_tracked``, which the port's frozen BN lacks.
+    Every backbone tensor must be in the file (the JAX package's
+    ``load_torchvision_resnet``)."""
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    sd = sd.get('state_dict', sd)
+    sd = {k: v for k, v in sd.items() if not k.startswith('fc.')
+          and not k.endswith('num_batches_tracked')}
+    missing, unexpected = backbone.load_state_dict(sd, strict=False)
+    if missing or unexpected:
+        raise KeyError(f'{path}: missing {missing[:5]}, unexpected '
+                       f'{unexpected[:5]}')

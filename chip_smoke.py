@@ -95,6 +95,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                ground truth as detections must read bbox and segm mAP 1.
 17. discobox predict - the trained DiscoBox's predict under its bf16 policy
                (score_thr and filter_thr 0: 100 detections), times as in 14.
+18. boxlevelset - BoxLevelset R-50 3x at full width (random init from a
+               seed) trained for 5 AdamW steps through tools/train_torch.py
+               on seeded synthetic 800x1333 images, batch 2, fp32, a
+               checkpoint every 2 steps with the newest 2 kept (steps 4 and
+               5 must be left); a resume from step 4 must run one step and
+               leave _iter 5. Then the checkpoint through init_detector and
+               predict on one 800x1333 image, format_detection and RLE,
+               times as in 14, the card's formatting against the CPU's.
+19. boxlevelset reference - a small BoxLevelSet's loss dict and predict on
+               the card against the CPU.
+
+Every training phase logs every step (log_config.interval=1), so that each
+step's logged time ends in a device sync, and runs without evaluation
+(--no-validate). The device phase also says which of PIL, imageio and
+libnvjpeg the machine has.
 
 Prints a JSON line with one entry per kernel, the card's nvidia-smi line,
 and as its last line {"ok": true, "device": {...}}.
@@ -119,7 +134,14 @@ SWIN_CONFIG = os.path.join(
     ROOT, 'configs/box2mask/box2mask_swin-l-p4-w12-384-lsj_8x1_50e_coco.py')
 DISCO_CONFIG = os.path.join(
     ROOT, 'configs/discobox/discobox_solov2_coco_r50_fpn_3x.py')
+BOXLS_CONFIG = os.path.join(
+    ROOT, 'configs/boxlevelset/box_levelset_coco_r50_fpn_3x.py')
 STEPS = 5
+# every training phase: an iteration runner of STEPS steps whose log reads
+# the losses after every step, so that each step ends in a device sync and
+# its logged time is the step's (PERF.md section 2)
+TRAIN_OPTS = ['runner.type=IterBasedRunner', f'runner.max_iters={STEPS}',
+              'log_config.interval=1']
 MAIN_SHAPE = (2, 64, 200, 336)     # B, K=topk_per_img, 800/4, 1344/4
 RAGGED_SHAPES = ((1, 3, 37, 53), (2, 5, 37, 53))
 VALUE_RTOL = 1e-5                  # fp32, summation order
@@ -1250,6 +1272,14 @@ def register_dataset():
             DATASETS.register_module(module=cls)
 
 
+def train_tool(tool, config, work_dir, seed, opts, *args):
+    """``tools/train_torch.py``'s ``main`` on the card, without evaluation
+    (no dataset on the card), ``args`` appended."""
+    return tool.main([config, '--work-dir', work_dir, '--seed', str(seed),
+                      '--device', 'cuda', '--no-validate', *args,
+                      '--cfg-options', *opts])
+
+
 def check_history(result, steps, required=()):
     if result.step != steps:
         fail(f'ran {result.step} steps, expected {steps}')
@@ -1351,7 +1381,7 @@ def phase_slice(tool, work_dir):
     register_dataset()
     seed = 0
     opts = ['model.mask_head.pairwise_warmup=1',
-            'runner.type=IterBasedRunner', f'runner.max_iters={STEPS}',
+            *TRAIN_OPTS,
             'data.samples_per_gpu=2', 'data.train.type=SyntheticBoxDataset']
     cfg = tool.load_config(CONFIG, opts, work_dir, seed)
     head = cfg.model.bbox_head
@@ -1365,9 +1395,7 @@ def phase_slice(tool, work_dir):
     pw.pairwise_forward_cuda.launches = 0
     pw.pairwise_grad_cuda.launches = 0
     with live_gt_counts() as gts, capture_pairwise_inputs() as kept:
-        result = tool.main([CONFIG, '--work-dir', work_dir, '--seed',
-                            str(seed), '--device', 'cuda',
-                            '--cfg-options', *opts])
+        result = train_tool(tool, CONFIG, work_dir, seed, opts)
     torch.cuda.synchronize()
     launches = {'pairwise_forward': pw.pairwise_forward_cuda.launches,
                 'pairwise_backward': pw.pairwise_grad_cuda.launches}
@@ -1406,7 +1434,7 @@ def phase_box2mask(tool, config, samples, parts):
     register_dataset()
     work_dir = tempfile.mkdtemp(prefix='chip_smoke_b2m_')
     seed = 0
-    opts = ['runner.type=IterBasedRunner', f'runner.max_iters={STEPS}',
+    opts = [*TRAIN_OPTS,
             f'data.samples_per_gpu={samples}',
             'data.train.type=SyntheticBoxDataset',
             'data.train.img_h=1024', 'data.train.img_w=1024']
@@ -1445,9 +1473,7 @@ def phase_box2mask(tool, config, samples, parts):
         for fn in counters.values():
             fn.launches = 0
         with live_gt_counts() as gts:
-            result = tool.main([config, '--work-dir', work_dir, '--seed',
-                                str(seed), '--device', 'cuda',
-                                '--cfg-options', *opts])
+            result = train_tool(tool, config, work_dir, seed, opts)
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
@@ -1860,7 +1886,7 @@ def phase_discobox(tool):
     work_dir = tempfile.mkdtemp(prefix='chip_smoke_disco_')
     seed = 0
     opts = [f'ts_cfg.start_iter={DISCO_START_ITER}',
-            'runner.type=IterBasedRunner', f'runner.max_iters={STEPS}',
+            *TRAIN_OPTS,
             'data.samples_per_gpu=2', 'data.train.type=SyntheticBoxDataset']
     try:
         cfg = tool.load_config(DISCO_CONFIG, opts, work_dir, seed)
@@ -1887,9 +1913,8 @@ def phase_discobox(tool):
         crf.crf_mean_field_cuda.launches = 0
         try:
             with live_gt_counts() as gts:
-                result = tool.main([DISCO_CONFIG, '--work-dir', work_dir,
-                                    '--seed', str(seed), '--device', 'cuda',
-                                    '--cfg-options', *opts])
+                result = train_tool(tool, DISCO_CONFIG, work_dir, seed,
+                                    opts)
         finally:
             TSTrainStep.__call__ = call
         torch.cuda.synchronize()
@@ -2373,6 +2398,207 @@ def phase_discobox_predict(cfg, model):
     check_format_on_cpu('DiscoBox', out, img_shape, ori_shape, test_cfg, det)
 
 
+def image_decoders():
+    """Which of PIL, imageio and cv2 import on this machine (each tried in
+    a child process, so that this one never imports cv2, and with its
+    version) and where NVIDIA's libnvjpeg is (``ctypes.util.find_library``,
+    else the CUDA toolkit's lib64): the candidates for reading JPEGs
+    without cv2."""
+    import ctypes.util
+    import glob
+    found = {}
+    for name in ('PIL', 'imageio', 'cv2'):
+        out = subprocess.run([sys.executable, '-c', f'import {name}; '
+                              f'print({name}.__version__)'],
+                             capture_output=True, text=True)
+        why = (out.stderr.strip().splitlines() or ['?'])[-1]
+        found[name] = (f'{name} {out.stdout.strip()}' if out.returncode == 0
+                       else f'{name} absent ({why})')
+    cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    nvjpeg = ctypes.util.find_library('nvjpeg') or next(iter(sorted(
+        glob.glob(os.path.join(cuda_home, 'lib64', 'libnvjpeg.so*')))), None)
+    found['libnvjpeg'] = f'libnvjpeg {nvjpeg or "absent"}'
+    return found
+
+
+def tiny_boxlevelset_cfg():
+    """ResNet-18, a 32-channel FPN, a 16-channel head, grids 12/10/8/6/4,
+    max_pos 8, the tree at 24x24 with a binding depth cap (the tiny config
+    of tests/test_boxlevelset_model.py)."""
+    return dict(
+        type='BoxLevelSet',
+        backbone=dict(type='ResNet', depth=18, frozen_stages=1),
+        neck=dict(type='FPN', in_channels=[64, 128, 256, 512],
+                  out_channels=32, start_level=0, num_outs=5),
+        bbox_head=dict(
+            type='BoxSOLOv2Head', num_classes=4, in_channels=32,
+            seg_feat_channels=16, stacked_convs=1,
+            scale_ranges=((1, 48), (24, 96), (48, 192), (96, 384),
+                          (192, 2048)),
+            num_grids=[12, 10, 8, 6, 4], max_pos=8, tf_size=(24, 24),
+            tf_max_depth=64),
+        test_cfg=dict(nms_pre=50, score_thr=0.005, mask_thr=0.5,
+                      filter_thr=0.002, kernel='gaussian', sigma=2.0,
+                      max_per_img=20))
+
+
+def phase_boxlevelset(tool, work_dir):
+    """5 AdamW steps of BoxLevelset R-50 3x through the train entry point,
+    a checkpoint every 2 steps, the newest 2 kept: the files left must be
+    those of steps 4 and 5; then a resume from step 4 must run one step and
+    leave _iter 5. Returns the config and the last checkpoint's path."""
+    import torch
+    register_dataset()
+    seed = 0
+    opts = [*TRAIN_OPTS, 'data.samples_per_gpu=2',
+            'data.train.type=SyntheticBoxDataset',
+            'checkpoint_config.interval=2', 'checkpoint_config.by_epoch=False',
+            'checkpoint_config.max_keep_ckpts=2']
+    cfg = tool.load_config(BOXLS_CONFIG, opts, work_dir, seed)
+    head = cfg.model.bbox_head
+    print(f'model: {describe_backbone(cfg.model.backbone)}, FPN '
+          f'{cfg.model.neck.out_channels} P2-P6, {head.stacked_convs}x '
+          f'{head.seg_feat_channels}-channel GN towers, grids '
+          f'{list(head.num_grids)}, {head.num_classes} classes, max_pos '
+          f'{head.max_pos}, tree at {tuple(head.tf_size)} (depth cap '
+          f'{head.tf_max_depth or "none"}), optimizer {cfg.optimizer.type}, '
+          f'grad clip {cfg.optimizer_config.grad_clip.max_norm}, canvas '
+          f'{cfg.canvases[0]}; precision fp32 (no fp16 / bf16 key), TF32 '
+          f'off')
+    torch.cuda.reset_peak_memory_stats()
+    with live_gt_counts() as gts:
+        result = train_tool(tool, BOXLS_CONFIG, work_dir, seed, opts)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check_history(result, STEPS, required=('loss_cate', 'loss_boxpro',
+                                           'loss_levelset'))
+    if len(result.history) != STEPS:
+        fail(f'{len(result.history)} logged steps at log interval 1')
+    from boxinstseg_tpu_torch.engine.hooks import checkpoint_steps
+    kept = checkpoint_steps(work_dir)
+    if kept != [4, 5]:
+        fail(f'checkpoints left {kept}, expected steps 4 and 5')
+    changed, _ = changed_tensors(tool, cfg, seed, result)
+    for part in ('backbone.layer2.', 'neck.', 'bbox_head.kernel_convs.',
+                 'bbox_head.feature_convs.', 'bbox_head.levelset_bottom.'):
+        if not any(k.startswith(part) for k in changed):
+            fail(f'no {part}* tensor changed in training')
+    print(f'{len(changed)} tensors changed; checkpoints left at steps '
+          f'{kept}')
+    print_steps(result, peak, gts)
+    resumed = train_tool(tool, BOXLS_CONFIG, work_dir, seed, opts,
+                         '--resume-from',
+                         os.path.join(work_dir, 'iter_4.pth'))
+    torch.cuda.synchronize()
+    ckpt = torch.load(resumed.checkpoint, map_location='cpu',
+                      weights_only=False)
+    if (resumed.step, len(resumed.history), ckpt['_iter']) != (5, 1, 5):
+        fail(f'the resume from step 4 ran to step {resumed.step} with '
+             f'{len(resumed.history)} logged steps, _iter {ckpt["_iter"]}')
+    h = resumed.history[0]
+    print(f'resumed from iter_4.pth: one step, _iter {ckpt["_iter"]}, '
+          f'{1e3 * (h["time"] - h["data_time"]):.3f} ms (compute + sync), '
+          f'loss {h["loss"]:.5f}')
+    return cfg, resumed.checkpoint
+
+
+def phase_boxlevelset_predict(cfg, checkpoint):
+    """The BoxLevelset checkpoint through ``init_detector``, then
+    ``predict`` on one 800x1333 image in its 800x1344 canvas with
+    ``score_thr`` and ``filter_thr`` 0, then ``format_detection`` (boxes
+    from the mask extents) and the RLE codec: shapes, finite values,
+    times, and the card's formatting against the CPU's. After 5 steps from
+    random weights the mask scores lie within a hair of 0.5, so no pixel
+    may pass ``mask_thr`` (0.55) and no candidate is kept: then the
+    threshold is 0.5, which is every mask logit shifted up by
+    logit(0.55)."""
+    from boxinstseg_tpu_torch.apis.inference import init_detector
+    model, cfg = init_detector(cfg, checkpoint, device='cuda')
+    test_cfg = dict(cfg.model.test_cfg, score_thr=0.0, filter_thr=0.0)
+    model.test_cfg = test_cfg
+    d = test_cfg['max_per_img']
+    inputs, img_shape, ori_shape = eval_inputs(
+        cfg, SyntheticEvalDataset(cfg.data.test.pipeline, length=1))
+    import torch
+    with torch.inference_mode():
+        kept = int(model.predict(inputs)['valid'].sum())
+    if not kept:
+        print(f'no candidate has a mask at mask_thr {test_cfg["mask_thr"]} '
+              f'after {STEPS} steps: mask_thr 0.5 (the logits shifted by '
+              f'logit({test_cfg["mask_thr"]}))')
+        test_cfg['mask_thr'] = 0.5
+    out, det, times = time_predict(model, test_cfg, inputs, img_shape,
+                                   ori_shape)
+    check_outputs(out, {'scores': (1, d), 'labels': (1, d), 'valid': (1, d),
+                        'masks': (1, d, 200, 336)})
+    print(f'fp32; test_cfg {test_cfg}')
+    print_predict_times('BoxLevelset R-50 predict, batch 1', det, times,
+                        ori_shape)
+    check_format_on_cpu('BoxLevelset', out, img_shape, ori_shape, test_cfg,
+                        det)
+
+
+def phase_boxlevelset_reference():
+    """A small BoxLevelSet on the card against the CPU, same weights, in
+    fp32: the loss dict (rtol REF_RTOL), then ``predict`` (the kernel
+    branch's last conv scaled by 1000, so that the mask scores spread over
+    0.3-0.7; the tolerances of tests/test_torch_boxlevelset.py): validity
+    and labels exactly, scores within rtol 1e-4 / atol 1e-5 and masks
+    within atol 1e-5 on valid slots, at least 10 detections an image."""
+    print('fp32: the precision policy is off (no fp16 / bf16 key), so the '
+          'card and the CPU compute the same function')
+    import numpy as np
+    import torch
+    from boxinstseg_tpu_torch.registry import build_detector
+    cfg = tiny_boxlevelset_cfg()
+    rng = np.random.RandomState(0)
+    b, h, w, g = 2, 128, 128, 4
+    boxes = np.zeros((b, g, 4), np.float32)
+    valid = np.zeros((b, g), bool)
+    masks = np.zeros((b, g, h // 4, w // 4), np.uint8)
+    for i in range(b):
+        for j in range(rng.randint(1, g + 1)):
+            x1, y1 = rng.randint(0, w - 48), rng.randint(0, h - 48)
+            x2, y2 = x1 + rng.randint(24, 48), y1 + rng.randint(24, 48)
+            boxes[i, j] = (x1, y1, x2, y2)
+            valid[i, j] = True
+            masks[i, j, y1 // 4:y2 // 4 + 1, x1 // 4:x2 // 4 + 1] = 1
+    batch = dict(image=rng.rand(b, 3, h, w).astype(np.float32) * 4 - 2,
+                 gt_bboxes=boxes, gt_labels=rng.randint(0, 4, (b, g)),
+                 gt_valid=valid, gt_masks=masks)
+    compare_loss_dicts(cfg, batch, 0)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_detector(cfg).eval()
+    with torch.no_grad():
+        model.bbox_head.solo_kernel.weight.mul_(1000)
+    image = torch.from_numpy(batch['image'])
+    outs = {}
+    for dev in ('cpu', 'cuda'):
+        model.to(dev)
+        outs[dev] = {k: v.cpu().numpy() for k, v in model.predict(
+            {'image': image.to(dev)}).items()}
+    got, want = outs['cuda'], outs['cpu']
+    m = want['valid']
+    if not (np.array_equal(got['valid'], m)
+            and np.array_equal(got['labels'][m], want['labels'][m])):
+        fail('BoxLevelset predict on the card keeps other detections than '
+             'on the CPU')
+    if not m.sum(1).min() >= 10:
+        fail(f'BoxLevelset predict kept {m.sum(1)} detections, fewer than '
+             f'10 an image')
+    errs = {}
+    for k, (atol, rtol) in {'scores': (1e-5, 1e-4),
+                            'masks': (1e-5, 0)}.items():
+        errs[k] = float(np.abs(got[k][m] - want[k][m]).max())
+        if not np.allclose(got[k][m], want[k][m], rtol=rtol, atol=atol):
+            fail(f'BoxLevelset predict {k} on the card vs CPU: max abs err '
+                 f'{errs[k]}')
+    print(f'BoxLevelset get_seg: {m.sum(1).tolist()} detections an image on '
+          f'both; max abs err card vs CPU {errs}')
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, 'boxinstseg_tpu_torch')):
         fail(f'the boxinstseg_tpu_torch package is not beside {__file__}')
@@ -2394,6 +2620,8 @@ def main():
           f'{torch.cuda.get_device_name(0)}; TF32 matmul '
           f'{torch.backends.cuda.matmul.allow_tf32}, cudnn '
           f'{torch.backends.cudnn.allow_tf32}')
+    print('image decoders on this machine (reading JPEGs without cv2): ' +
+          ', '.join(image_decoders().values()))
 
     phase('build')
     from boxinstseg_tpu_torch.ops import _native
@@ -2484,6 +2712,15 @@ def run_phases(tool, work_dir, report, smi, t_start):
     phase('discobox predict')
     phase_discobox_predict(disco_cfg, disco_model)
     del disco_model
+
+    phase('boxlevelset')
+    boxls_dir = os.path.join(work_dir, 'boxlevelset')
+    boxls_cfg, boxls_ckpt = phase_boxlevelset(tool, boxls_dir)
+    phase_boxlevelset_predict(boxls_cfg, boxls_ckpt)
+    shutil.rmtree(boxls_dir, ignore_errors=True)
+
+    phase('boxlevelset reference')
+    phase_boxlevelset_reference()
 
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

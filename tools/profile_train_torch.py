@@ -23,7 +23,8 @@ idle are of the traced steps only: the
 profiler adds host and device cost, so they are not compared with the
 untraced wall. The forward passes of the model's parts (backbone,
 neck, bbox_head, mask_branch, mask_feat_head; panoptic_head and its
-pixel_decoder) and the panoptic and DiscoBox heads' losses appear as ranges
+pixel_decoder) and the panoptic, DiscoBox and BoxLevelset heads' losses
+appear as ranges
 of their own. Writes the Chrome trace to ``--trace`` when given (for a
 DiscoBox config one a kind of step, its name before the extension).
 """
@@ -144,6 +145,8 @@ def main():
     from boxinstseg_tpu_torch.engine.optimizers import build_optimizer
     from boxinstseg_tpu_torch.engine.train_state import (TSTrainStep,
                                                          make_train_step)
+    from boxinstseg_tpu_torch.models.detectors.single_stage_boxseg import \
+        SingleStageBoxInsDetector
     from boxinstseg_tpu_torch.models.detectors.single_stage_ts import \
         SingleStageWSInsTSDetector
 
@@ -173,8 +176,10 @@ def main():
     opt = build_optimizer(cfg.optimizer, model.named_parameters())
     grad_clip = (cfg.get('optimizer_config') or {}).get('grad_clip')
     bf16 = apply_precision_policy(cfg)
-    if isinstance(model, SingleStageWSInsTSDetector):
+    if isinstance(model, (SingleStageWSInsTSDetector,
+                          SingleStageBoxInsDetector)):
         annotate_method(model.bbox_head, 'loss', 'loss:bbox_head')
+    if isinstance(model, SingleStageWSInsTSDetector):
         ts_cfg = dict(cfg.get('ts_cfg') or {})
         step = TSTrainStep(
             model, opt, lambda i: cfg.optimizer['lr'], grad_clip,

@@ -1,10 +1,13 @@
 #!/usr/bin/env python
 """Training entry point of the PyTorch / CUDA port (``boxinstseg_tpu_torch``).
 
-Mirrors ``tools/train.py``: CONFIG positional, --work-dir, --cfg-options,
---seed, plus --device (cuda by default, cpu for small runs on a host without
-a GPU). One process on one device; the weights are initialised from the
-seed (pretrained backbones are not loaded yet).
+Mirrors ``tools/train.py``: CONFIG positional, --work-dir, --resume-from,
+--auto-resume, --no-validate, --cfg-options, --seed, --pretrained-backbone
+(a local torchvision-format ResNet ``.pth``), plus --device (cuda by
+default, cpu for small runs on a host without a GPU). One process on one
+device; the other weights are initialised from the seed. Without
+--no-validate a config with ``data.val`` is evaluated by its
+``evaluation`` interval.
 
     python tools/train_torch.py configs/boxinst/boxinst_r50_fpn_1x_coco.py \
         --work-dir work_dirs/boxinst_torch --cfg-options runner.max_iters=5
@@ -21,9 +24,17 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description='Train a detector (PyTorch port)')
     p.add_argument('config', help='config file path')
     p.add_argument('--work-dir', help='dir to save logs and checkpoints')
+    p.add_argument('--resume-from', help='checkpoint (.pth) to resume from')
+    p.add_argument('--auto-resume', action='store_true',
+                   help='resume from the newest checkpoint of the work dir')
+    p.add_argument('--no-validate', action='store_true',
+                   help='do not evaluate during training')
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--cfg-options', nargs='+', default=[],
                    help='override config, format key=value')
+    p.add_argument('--pretrained-backbone',
+                   help='torchvision-format ResNet .pth to load into the '
+                        'backbone')
     p.add_argument('--device', default='cuda', choices=('cuda', 'cpu'))
     return p.parse_args(argv)
 
@@ -63,9 +74,20 @@ def main(argv=None):
 
     cfg = load_config(args.config, args.cfg_options, args.work_dir,
                       args.seed)
+    if args.auto_resume:
+        cfg.auto_resume = True
     model = build_model(cfg, args.seed)
+    if args.pretrained_backbone:
+        from boxinstseg_tpu_torch.utils.weights import \
+            load_pretrained_backbone
+        load_pretrained_backbone(model.backbone, args.pretrained_backbone)
     dataset = build_dataset(cfg.data['train'])
-    return train_detector(model, dataset, cfg, device=args.device)
+    val_dataset = None
+    if not args.no_validate and 'val' in cfg.get('data', {}):
+        val_dataset = build_dataset({**cfg.data['val'], 'test_mode': True})
+    return train_detector(model, dataset, cfg, device=args.device,
+                          val_dataset=val_dataset,
+                          resume_from=args.resume_from)
 
 
 if __name__ == '__main__':
