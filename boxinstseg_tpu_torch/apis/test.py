@@ -11,12 +11,20 @@ encode_mask_results, apis/test.py:64-66).
 
 The bilinear resizes are ``ops.upsample.interpolate_bilinear``: cv2
 ``INTER_LINEAR``'s arithmetic (source coordinate ``(dst + 0.5) * in / out
-- 0.5``, clamped to the edges), so no cv2 is needed. One process:
-gathering results across processes is not ported.
+- 0.5``, clamped to the edges), so no cv2 is needed.
+
+Under a process group (``parallel.dist``) rank r evaluates images r, r + W,
+... (padded with duplicates to one length on every rank); the ranks' parts
+are gathered on rank 0 through a directory all of them see
+(``collect_results_cpu``), and rank 0 alone computes the metrics.
 """
 from __future__ import annotations
 
 import json
+import os
+import pickle
+import shutil
+import tempfile
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -30,6 +38,7 @@ from ..engine.train_state import autocast_bf16
 from ..models.detectors.maskformer import panoptic_postprocess
 from ..native import rle_lib
 from ..ops.upsample import aligned_bilinear, interpolate_bilinear
+from ..parallel import dist as pdist
 from .train import apply_precision_policy, batch_to_device, get_logger
 
 
@@ -169,12 +178,68 @@ def predict_batch(model: torch.nn.Module, batch: Dict[str, np.ndarray],
         return model.predict(inputs)
 
 
+def shard_indices(n: int, rank: int, world: int) -> List[int]:
+    """Rank ``rank``'s images of ``n``: rank, rank + world, ..., padded with
+    its last index to ceil(n / world), so every rank runs as many batches
+    (the JAX package's shard; the duplicates overwrite their own result at
+    the gather)."""
+    mine = list(range(rank, n, world))
+    per = -(-n // world)
+    while len(mine) < per:
+        mine.append(mine[-1] if mine else rank % max(n, 1))
+    return mine
+
+
+def _shared_tmpdir(cfg) -> str:
+    """``cfg.eval_tmpdir``, or a new temporary directory of rank 0 whose
+    path is broadcast to the other ranks (mmdet's collect_results_cpu; the
+    ranks must share a file system)."""
+    if cfg.get('eval_tmpdir'):
+        os.makedirs(cfg.eval_tmpdir, exist_ok=True)
+        return cfg.eval_tmpdir
+    path = torch.zeros(512, dtype=torch.uint8)
+    if pdist.rank() == 0:
+        raw = tempfile.mkdtemp(prefix='eval_gather_').encode()
+        path[:len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
+    path = pdist.all_reduce_sum(path.to(pdist.collective_device()))
+    return bytes(path.cpu().tolist()).rstrip(b'\0').decode()
+
+
+def collect_results_cpu(part: List, part_indices: List[int], size: int,
+                        tmpdir: str) -> Optional[List]:
+    """The ranks' results merged by dataset index on rank 0 (None on the
+    other ranks), the counterpart of the JAX package's
+    ``collect_results_cpu``: each rank pickles (indices, results) into
+    ``tmpdir``, a barrier, rank 0 reads every part, a barrier, and rank 0
+    removes ``tmpdir``."""
+    with open(os.path.join(tmpdir, f'part_{pdist.rank()}.pkl'), 'wb') as f:
+        pickle.dump((part_indices, part), f)
+    pdist.barrier()
+    merged = None
+    if pdist.rank() == 0:
+        merged = [None] * size
+        for r in range(pdist.world_size()):
+            with open(os.path.join(tmpdir, f'part_{r}.pkl'), 'rb') as f:
+                inds, res = pickle.load(f)
+            for i, rec in zip(inds, res):
+                merged[i] = rec
+        missing = [i for i, rec in enumerate(merged) if rec is None]
+        if missing:
+            raise RuntimeError(f'eval gather: no result for images '
+                               f'{missing[:8]}')
+    pdist.barrier()
+    if pdist.rank() == 0:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return merged
+
+
 def run_evaluation(model: torch.nn.Module, dataset, cfg,
                    metrics=('bbox', 'segm'),
                    max_images: Optional[int] = None,
                    save_results: Optional[str] = None) -> Dict[str, float]:
     """Evaluate ``model`` (on its own device) over ``dataset`` in batches of
-    ``cfg.data.samples_per_gpu``; returns the metric dict. Predicts under
+    ``cfg.data.samples_per_gpu``; returns the metric dict (on rank 0 under a
+    process group, ``{}`` on the other ranks). Predicts under
     ``torch.inference_mode()`` and, when the config asks for mixed
     precision, bf16 autocast. On a GPU the native RLE codec must build:
     its failure raises."""
@@ -188,8 +253,9 @@ def run_evaluation(model: torch.nn.Module, dataset, cfg,
     b = cfg.get('data', {}).get('samples_per_gpu', 2)
     n_total = len(dataset) if max_images is None \
         else min(max_images, len(dataset))
-    loader = EvalLoader(dataset, b, eval_batcher(cfg),
-                        indices=range(n_total))
+    rank, world = pdist.rank(), pdist.world_size()
+    indices = shard_indices(n_total, rank, world)
+    loader = EvalLoader(dataset, b, eval_batcher(cfg), indices=indices)
     test_cfg = dict(cfg.model.get('test_cfg', {}) or {})
     if cfg.model.get('panoptic_fusion_head'):
         # the class split for the panoptic fusion (the reference builds
@@ -209,8 +275,14 @@ def run_evaluation(model: torch.nn.Module, dataset, cfg,
                 rec['pan_results'] = det.metainfo['pan_results']
             results.append(rec)
         if len(results) % (20 * b) < b:
-            logger.info(f'eval: {len(results)}/{n_total}')
+            logger.info(f'eval: {len(results)}/{len(indices)}'
+                        + (f' (rank {rank})' if world > 1 else ''))
 
+    if pdist.is_distributed():
+        results = collect_results_cpu(results, indices, n_total,
+                                      _shared_tmpdir(cfg))
+        if rank != 0:
+            return {}
     if save_results:
         with open(save_results, 'w') as f:
             json.dump([dict(bboxes=r['bboxes'].tolist(),

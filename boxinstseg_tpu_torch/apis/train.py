@@ -1,11 +1,12 @@
 """Training loop, counterpart of ``boxinstseg_tpu/apis/train.py``
 ``train_detector`` (reference: mmdet/apis/train.py:117-244).
 
-One process: ``StaticBatcher`` + ``TrainLoader`` (the numpy data layer
-shared with the JAX package; box bitmasks at stride 4 when the config asks
-for GT masks), the LR schedule, SGD or AdamW, the train step and the hooks
-of ``engine.hooks`` built from the config as the JAX package builds them:
-the text log every ``log_config.interval`` steps, checkpoints by
+``StaticBatcher`` + ``TrainLoader`` (the numpy data layer shared with the
+JAX package; box bitmasks at stride 4 when the config asks for GT masks),
+the LR schedule (scaled by global batch / ``auto_scale_lr.base_batch_size``
+when ``auto_scale_lr.enable`` is set), SGD or AdamW, the train step and the
+hooks of ``engine.hooks`` built from the config as the JAX package builds
+them: the text log every ``log_config.interval`` steps, checkpoints by
 ``checkpoint_config`` (``iter_{n}.pth`` in the work dir, ``torch.save`` of
 the model, the optimizer and ``_iter``), evaluation of a validation set by
 ``evaluation``. A run resumes from ``resume_from`` (or, with
@@ -14,7 +15,15 @@ DiscoBox (a ``SingleStageWSInsTSDetector``, such as ``DiscoBoxSOLOv2``)
 takes the teacher-student step, with the object bank built on the device
 from ``loss_corr.obj_bank`` and the schedule from ``ts_cfg``; its
 checkpoint also keeps the teacher, the bank and ``avg_loss_ins``.
-Distributed data parallelism is not ported yet.
+
+Data parallel across processes under a process group
+(``parallel.dist.init_distributed``): the global batch is
+``samples_per_gpu`` x world size, each rank loads its contiguous slice of
+it and pads it as the whole batch would, the weights are broadcast from
+rank 0 after init and after a resume, and the step averages the gradients
+(``engine.train_state``); the losses' normalisers and the BN statistics are
+the global batch's (``parallel.dist``). Rank 0 writes the log and the
+checkpoints; the logged losses are the mean over ranks.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ from ..engine.optimizers import build_optimizer
 from ..engine.schedules import build_lr_schedule
 from ..engine.train_state import TSTrainStep, make_train_step
 from ..models.detectors.single_stage_ts import SingleStageWSInsTSDetector
+from ..parallel import dist as pdist
 
 
 def _train_resize_cfg(cfg):
@@ -165,13 +175,17 @@ def build_object_bank(cfg, device):
 
 
 def get_logger(log_file: Optional[str] = None) -> logging.Logger:
+    """The package's logger at INFO (set on every call: a caller that
+    changed the level and restored an unset one, as pytest's ``caplog``
+    does, would leave INFO records dropped), writing to stderr and, when
+    given, to ``log_file``."""
     logger = logging.getLogger('boxinstseg_tpu_torch')
+    logger.setLevel(logging.INFO)
     if not logger.handlers:
         handler = logging.StreamHandler()
         handler.setFormatter(logging.Formatter(
             '%(asctime)s - %(levelname)s - %(message)s'))
         logger.addHandler(handler)
-        logger.setLevel(logging.INFO)
     if log_file and not any(getattr(h, 'baseFilename', None)
                             == os.path.abspath(log_file)
                             for h in logger.handlers):
@@ -250,27 +264,80 @@ class RunState:
         return int(ckpt['_iter'])
 
 
+def log_interval(cfg: Config) -> int:
+    """``log_config.interval``; every step for a config without
+    ``log_config``."""
+    return dict(cfg.get('log_config') or {}).get('interval', 1)
+
+
+def build_train_loader(cfg: Config, dataset) -> TrainLoader:
+    """The run's ``TrainLoader`` over ``dataset``: the global batch
+    (``samples_per_gpu`` x world size), this rank's slice of it padded as
+    the whole batch would be, the config's canvases, GT capacity and
+    multiscale choice, ``workers_per_gpu`` x 4 loading threads."""
+    data_cfg = cfg.get('data', {})
+    world = pdist.world_size()
+    mask_head_cfg = cfg.model.get('mask_head', {}) or {}
+    batcher = StaticBatcher(
+        canvases=cfg.get('canvases', default_canvases(cfg)),
+        max_gts=cfg.get('max_gts', 100),
+        bottom_pixels_removed=mask_head_cfg.get('bottom_pixels_removed', 10),
+        with_masks=bool(cfg.get('with_gt_masks',
+                                not mask_head_cfg.get('boxinst_enabled',
+                                                      True))),
+        mask_stride=4, gt_buckets=cfg.get('gt_buckets'))
+    return TrainLoader(dataset, data_cfg.get('samples_per_gpu', 2) * world,
+                       batcher,
+                       num_workers=data_cfg.get('workers_per_gpu', 2) * 4,
+                       seed=cfg.get('seed', 0), process_id=pdist.rank(),
+                       process_count=world,
+                       batch_scales=batch_scale_choices(cfg),
+                       extent_max=pdist.max_reducer())
+
+
+def train_schedule(cfg: Config, global_batch: int, n_images: int):
+    """(lr_fn, base LR, iters_per_epoch, resolved intervals) of a run over
+    ``n_images`` at ``global_batch``. The base LR is ``optimizer.lr``, times
+    global batch / ``auto_scale_lr.base_batch_size`` (16 by default) when
+    ``auto_scale_lr.enable`` is set (the JAX package's rule)."""
+    iters_per_epoch = max(n_images // global_batch, 1)
+    iv = resolve_intervals(cfg, iters_per_epoch)
+    base_lr = cfg.optimizer['lr']
+    auto = dict(cfg.get('auto_scale_lr') or {})
+    if auto.get('enable', False):
+        base_lr = base_lr * global_batch / auto.get('base_batch_size', 16)
+    lr_fn = build_lr_schedule(cfg.get('lr_config', {}), base_lr,
+                              iters_per_epoch, by_epoch=iv['lr_by_epoch'],
+                              max_iters=iv['max_iters'])
+    return lr_fn, base_lr, iters_per_epoch, iv
+
+
 def build_hooks(cfg: Config, iv: Dict[str, Any], work_dir: str, logger,
                 result: TrainResult, val_dataset=None, classes=None) -> list:
     """The hook list of the config, in the JAX package's order: the text
-    log and the loss check every ``log_config.interval`` steps, the
-    checkpoints (those of ``work_dir`` up to ``result.step``, where a
-    resumed run starts, count as the run's own), the evaluation of
-    ``val_dataset`` when there is one. A config without
-    ``log_config`` logs every step. Of ``custom_hooks`` only
-    ``NumClassCheckHook`` (run by ``train_detector`` up front) is ported;
-    another raises."""
-    log_interval = dict(cfg.get('log_config') or {}).get('interval', 1)
+    log (rank 0 only) and the loss check every ``log_config.interval``
+    steps, the checkpoints (written by rank 0; those of ``work_dir`` up to
+    ``result.step``, where a resumed run starts, count as the run's own),
+    the evaluation of ``val_dataset`` when there is one (every rank). A
+    config without ``log_config`` logs every step. Of ``log_config.hooks``
+    only ``TextLoggerHook`` is ported, and of ``custom_hooks`` only
+    ``NumClassCheckHook`` (run by ``train_detector`` up front); another
+    raises."""
+    for h in dict(cfg.get('log_config') or {}).get('hooks') or []:
+        if h.get('type') != 'TextLoggerHook':
+            raise NotImplementedError(f'log hook {h.get("type")} is not '
+                                      f'ported')
+    interval = log_interval(cfg)
     meta = dict(seed=cfg.get('seed'),
                 exp_name=os.path.basename(cfg.filename or ''),
                 CLASSES=list(classes or cfg.get('classes') or []))
-    hooks = [TextLoggerHook(log_interval, logger, iv['max_iters'],
-                            result.history),
-             CheckLossHook(log_interval),
-             CheckpointHook(work_dir, iv['ckpt_interval_iters'],
-                            iv['ckpt_max_keep'], iv['ckpt_save_last'],
-                            iv['max_iters'], logger, meta=meta,
-                            start=result.step)]
+    hooks = [TextLoggerHook(interval, logger, iv['max_iters'],
+                            result.history)] if pdist.rank() == 0 else []
+    hooks += [CheckLossHook(interval),
+              CheckpointHook(work_dir, iv['ckpt_interval_iters'],
+                             iv['ckpt_max_keep'], iv['ckpt_save_last'],
+                             iv['max_iters'], logger, meta=meta,
+                             start=result.step)]
     if val_dataset is not None:
         hooks.append(EvalHook(val_dataset, cfg, iv['eval_interval_iters'],
                               iv['eval_metrics'], logger,
@@ -286,47 +353,41 @@ def build_hooks(cfg: Config, iv: Dict[str, Any], work_dir: str, logger,
 def train_detector(model: torch.nn.Module, dataset, cfg: Config,
                    device='cuda', val_dataset=None,
                    resume_from: Optional[str] = None) -> TrainResult:
-    """Train ``model`` on ``dataset`` as ``cfg`` says, on ``device``;
-    evaluate on ``val_dataset``, when given, by ``cfg.evaluation``.
-    ``resume_from`` (or ``cfg.resume_from``; with ``cfg.auto_resume`` the
-    newest checkpoint of the work dir) restores the model, the optimizer,
-    the teacher-student state and ``_iter``, and the run goes on from
-    there, its loader from its first batch."""
+    """Train ``model`` on ``dataset`` as ``cfg`` says, on ``device`` (this
+    rank's card under a process group); evaluate on ``val_dataset``, when
+    given, by ``cfg.evaluation``. ``resume_from`` (or ``cfg.resume_from``;
+    with ``cfg.auto_resume`` the newest checkpoint of the work dir)
+    restores the model, the optimizer, the teacher-student state and
+    ``_iter`` on every rank, and the run goes on from there, its loader
+    from its first batch."""
     device = torch.device(device)
     work_dir = cfg.get('work_dir') or './work_dir'
     os.makedirs(work_dir, exist_ok=True)
-    logger = get_logger(os.path.join(work_dir, 'train.log'))
+    logger = get_logger(os.path.join(work_dir, 'train.log')
+                        if pdist.rank() == 0 else None)
     bf16 = apply_precision_policy(cfg)
     if bf16:
         logger.info('mixed precision: bf16 activations, f32 params/losses')
 
-    data_cfg = cfg.get('data', {})
-    batch_size = data_cfg.get('samples_per_gpu', 2)
-    mask_head_cfg = cfg.model.get('mask_head', {}) or {}
-    batcher = StaticBatcher(
-        canvases=cfg.get('canvases', default_canvases(cfg)),
-        max_gts=cfg.get('max_gts', 100),
-        bottom_pixels_removed=mask_head_cfg.get('bottom_pixels_removed', 10),
-        with_masks=bool(cfg.get('with_gt_masks',
-                                not mask_head_cfg.get('boxinst_enabled',
-                                                      True))),
-        mask_stride=4, gt_buckets=cfg.get('gt_buckets'))
-    loader = TrainLoader(dataset, batch_size, batcher,
-                         num_workers=data_cfg.get('workers_per_gpu', 2) * 4,
-                         seed=cfg.get('seed', 0),
-                         batch_scales=batch_scale_choices(cfg))
+    loader = build_train_loader(cfg, dataset)
+    global_batch = loader.batch_size
+    if pdist.is_distributed():
+        logger.info(f'data parallel: rank {pdist.rank()} of '
+                    f'{pdist.world_size()}, global batch {global_batch}, '
+                    f'device {device}')
 
-    iters_per_epoch = max(len(dataset) // batch_size, 1)
-    iv = resolve_intervals(cfg, iters_per_epoch)
+    lr_fn, base_lr, iters_per_epoch, iv = train_schedule(
+        cfg, global_batch, len(dataset))
     max_iters = iv['max_iters']
-    lr_fn = build_lr_schedule(cfg.get('lr_config', {}), cfg.optimizer['lr'],
-                              iters_per_epoch, by_epoch=iv['lr_by_epoch'],
-                              max_iters=max_iters)
+    if base_lr != cfg.optimizer['lr']:
+        logger.info(f'auto_scale_lr: base lr {cfg.optimizer["lr"]} -> '
+                    f'{base_lr} at global batch {global_batch}')
     num_classes = _model_num_classes(cfg.model)
     if num_classes is not None and hasattr(dataset, 'CLASSES'):
         num_class_check(dataset, num_classes)
 
     model.to(device)
+    pdist.broadcast_state(model)
     optimizer = build_optimizer(cfg.optimizer, model.named_parameters())
     grad_clip = (cfg.get('optimizer_config') or {}).get('grad_clip')
     if isinstance(model, SingleStageWSInsTSDetector):
@@ -350,9 +411,13 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
     if resume_from:
         start = state.restore(torch.load(resume_from, map_location='cpu',
                                          weights_only=False))
+        pdist.broadcast_state(model)
+        if state.teacher_student:
+            pdist.broadcast_state(step_fn.teacher)
         logger.info(f'resumed from {resume_from} at iter {start}')
 
     result = TrainResult(step=start)
+    interval = log_interval(cfg)
     hooks = build_hooks(cfg, iv, work_dir, logger, result,
                         val_dataset=val_dataset,
                         classes=getattr(dataset, 'CLASSES', None))
@@ -366,6 +431,8 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
             data_time = time.perf_counter() - t0
             logs = step_fn(batch, i)
             logs['data_time'] = data_time
+            if (i + 1) % interval == 0:
+                logs = pdist.mean_over_ranks(logs)
             result.step = i + 1
             for h in hooks:
                 h.after_step(i, state, logs)

@@ -50,24 +50,35 @@ class StaticBatcher:
                 f'image {h}x{w} does not fit any canvas {self.canvases}')
         return min(fits, key=lambda c: c[0] * c[1])
 
-    def __call__(self, samples: List[Dict]) -> Dict[str, np.ndarray]:
+    def _n_live(self, smp) -> int:
+        bx = smp.get('gt_bboxes')
+        return 0 if bx is None else min(len(bx), self.max_gts)
+
+    def extent(self, samples: List[Dict]) -> Tuple[int, int, int]:
+        """(largest height, largest width, most live GTs) of ``samples``:
+        what picks the canvas and the GT capacity of their batch."""
+        return (max(s['img'].shape[0] for s in samples),
+                max(s['img'].shape[1] for s in samples),
+                max((self._n_live(s) for s in samples), default=0))
+
+    def __call__(self, samples: List[Dict],
+                 extent: Optional[Sequence[int]] = None
+                 ) -> Dict[str, np.ndarray]:
         """samples: list of pipeline result dicts. All must share one
-        canvas (use the aspect-ratio group sampler)."""
+        canvas (use the aspect-ratio group sampler). ``extent`` (default
+        ``self.extent(samples)``) picks the canvas and the GT capacity: a
+        process that holds a slice of a global batch passes the global
+        batch's, so that it pads as the whole batch would."""
         b = len(samples)
-        hs = [s['img'].shape[0] for s in samples]
-        ws = [s['img'].shape[1] for s in samples]
-        ch, cw = self.pick_canvas(max(hs), max(ws))
+        max_h, max_w, live = (self.extent(samples) if extent is None
+                              else (int(v) for v in extent))
+        ch, cw = self.pick_canvas(max_h, max_w)
 
         images = np.zeros((b, ch, cw, 3), np.float32)
         img_shape = np.zeros((b, 2), np.int32)
         ori_shape = np.zeros((b, 2), np.int32)
         scale_factor = np.ones((b, 4), np.float32)
         pixels_removed = np.zeros((b,), np.int32)
-        def _n_live(smp):
-            bx = smp.get('gt_bboxes')
-            return 0 if bx is None else min(len(bx), self.max_gts)
-
-        live = max((_n_live(s) for s in samples), default=0)
         cap = next((g for g in self.gt_buckets if g >= live),
                    self.max_gts)
         gt_bboxes = np.zeros((b, cap, 4), np.float32)

@@ -32,13 +32,19 @@ class TrainLoader:
     process samples the same global index sequence (same seed) and loads
     only its contiguous slice — the analog of the reference's
     DistributedGroupSampler per-rank shards (mmdet/datasets/
-    builder.py:140-182)."""
+    builder.py:140-182). ``extent_max`` (``parallel.dist.max_reducer``)
+    takes the element-wise max over processes of each slice's
+    ``StaticBatcher.extent``, so that every process pads its slice to the
+    canvas and GT capacity of the global batch, as one process would."""
 
     def __init__(self, dataset, batch_size: int, batcher: StaticBatcher,
                  num_workers: int = 8, seed: int = 0, prefetch: int = 2,
                  process_id: int = 0, process_count: int = 1,
-                 batch_scales=None):
-        assert batch_size % process_count == 0, (batch_size, process_count)
+                 batch_scales=None,
+                 extent_max: Optional[Callable] = None):
+        if batch_size % process_count:
+            raise ValueError(f'global batch {batch_size} does not split '
+                             f'over {process_count} processes')
         self.dataset = dataset
         self.batch_size = batch_size
         self.local_slice = slice(
@@ -59,6 +65,7 @@ class TrainLoader:
         # process picks the same scale for the same global batch.
         self.batch_scales = [tuple(s) for s in batch_scales] \
             if batch_scales else None
+        self.extent_max = extent_max
 
     def _load_one(self, idx: int, epoch_seed: int, scale=None):
         rng = np.random.RandomState((epoch_seed * 1000003 + idx) % 2**31)
@@ -92,7 +99,11 @@ class TrainLoader:
                                          self.seed + step, scale)
                         for i in batch_idx]
                 samples = [f.result() for f in futs]
-                q.put(self.batcher(samples))
+                if self.extent_max is None:
+                    q.put(self.batcher(samples))
+                else:
+                    q.put(self.batcher(samples, self.extent_max(
+                        self.batcher.extent(samples))))
                 step += 1
 
         def producer():

@@ -14,14 +14,17 @@ arithmetic is the JAX package's: a hook fires after step ``i`` when
 - ``CheckLossHook``: aborts on a non-finite total loss, at the same steps;
 - ``CheckpointHook``: ``iter_{n}.pth`` every ``interval`` steps and at
   ``max_iters`` with ``save_last``, the newest ``max_keep_ckpts`` of the
-  run's own kept;
+  run's own kept; written by rank 0, every rank waits for it;
 - ``EvalHook``: ``apis.test.run_evaluation`` every ``interval`` steps,
   ``dynamic_intervals`` switching it once training passes their start, the
   metrics kept with their step;
 - ``num_class_check``: the dataset's classes against the head's.
 
-The JAX package's EMA, YOLOX, wandb, memory and profiler hooks are not
-ported.
+Under a process group (``parallel.dist``) ``apis.train.build_hooks`` gives
+the text log to rank 0 only, and the logs a logged step passes are already
+the mean over ranks, so every rank's loss check sees the same loss and all
+stop together. The JAX package's EMA, YOLOX, wandb, memory and profiler
+hooks are not ported.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from ..parallel import dist as pdist
 
 CKPT_NAME = re.compile(r'^iter_(\d+)\.pth$')
 
@@ -117,7 +122,8 @@ class CheckLossHook(Hook):
 
 class CheckpointHook(Hook):
     """``torch.save`` of ``state.checkpoint(n, meta)`` to
-    ``work_dir/iter_{n}.pth`` after step n when n is a multiple of
+    ``work_dir/iter_{n}.pth`` by rank 0, then a barrier of every rank, after
+    step n when n is a multiple of
     ``interval_iters``, or n is ``max_iters`` and ``save_last`` is set;
     then only the newest ``max_keep_ckpts`` of the run's files stay (all of
     them when it is 0 or less). The run's files are those it saves and,
@@ -149,15 +155,17 @@ class CheckpointHook(Hook):
                                       and n == self.max_iters):
             return
         path = os.path.join(self.work_dir, f'iter_{n}.pth')
-        torch.save(state.checkpoint(n, self.meta), path)
         self.last = path
         self.saved.append(n)
-        if self.max_keep > 0:
-            for old in self.saved[:-self.max_keep]:
+        drop = self.saved[:-self.max_keep] if self.max_keep > 0 else []
+        self.saved = self.saved[len(drop):]
+        if pdist.rank() == 0:
+            torch.save(state.checkpoint(n, self.meta), path)
+            for old in drop:
                 os.remove(os.path.join(self.work_dir, f'iter_{old}.pth'))
-            self.saved = self.saved[-self.max_keep:]
-        if self.logger is not None:
-            self.logger.info(f'checkpoint saved at iter {n}: {path}')
+            if self.logger is not None:
+                self.logger.info(f'checkpoint saved at iter {n}: {path}')
+        pdist.barrier()
 
 
 class EvalHook(Hook):

@@ -15,13 +15,18 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel import dist as pdist
+
 
 def _make_update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  lr_fn: Callable[[int], float],
                  grad_clip: Optional[dict] = None) -> Callable:
     """``update(total, step) -> (grad_norm, lr)``: backward of ``total``,
-    zero gradients for the parameters that got none, the global norm,
-    clipping, the scheduled LR and the optimizer step."""
+    zero gradients for the parameters that got none, the mean of the
+    gradients over ranks under a process group (one flat all-reduce a
+    bucket, ``parallel.dist.average_gradients``), the global norm,
+    clipping, the scheduled LR and the optimizer step. So the norm and the
+    clip see the global batch's gradient, as inside the JAX step."""
     params = [p for group in optimizer.param_groups for p in group['params']]
     max_norm = float(grad_clip['max_norm']) if grad_clip else None
 
@@ -32,6 +37,7 @@ def _make_update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        pdist.average_gradients(grads)
         grad_norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
         if max_norm is not None:
@@ -87,6 +93,22 @@ def make_train_step(model: torch.nn.Module,
     return train_step
 
 
+def gather_appends(append: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """The object bank's append entries of every rank: each rank's (K, ...)
+    tensors gathered in rank order (the global batch's order, as the shards
+    are contiguous), the valid ones first, the first K kept. Only the
+    global batch's first K queries are valid, so the bank takes on every
+    rank what one process would append. One process: ``append``."""
+    if not pdist.is_distributed():
+        return append
+    keep = append['valid'].shape[0]
+    every = {name: pdist.all_gather_fixed(t).flatten(0, 1)
+             for name, t in append.items()}
+    order = torch.argsort((~every['valid']).to(torch.uint8), stable=True)
+    return {name: t[order[:keep]] for name, t in every.items()}
+
+
 class TSTrainStep:
     """DiscoBox's teacher-student step, the counterpart of the JAX
     package's ``make_ts_train_step`` (reference single_stage_ts.py:
@@ -96,10 +118,13 @@ class TSTrainStep:
       buffers; an exact copy of the student after each step before
       ``start_iter`` (momentum 0) and lagging by ``momentum`` from it on;
     - ``avg_loss_ins``: a device scalar, 2.0 at first, 0.9 / 0.1 EMA of
-      loss_ins; the ``ts`` (< ts_thresh) and ``corr`` (< corr_thresh)
+      loss_ins (its mean over ranks under a process group, the global
+      batch's); the ``ts`` (< ts_thresh) and ``corr`` (< corr_thresh)
       gates are device tensors that multiply their terms, so nothing waits
       on the host;
-    - ``bank``: the object bank (``ops.correspondence``), appended in place;
+    - ``bank``: the object bank (``ops.correspondence``), appended in place
+      with every rank's entries (``gather_appends``), so it stays the same
+      on every rank;
     - ``bf16``: the teacher's and the student's forwards and the loss run
       under ``autocast_bf16``.
 
@@ -161,9 +186,13 @@ class TSTrainStep:
         total = sum(v for k, v in losses.items() if 'loss' in k)
         grad_norm, lr = self.update(total, step)
         self._ema(step)
-        self.avg_loss_ins = avg * 0.9 + 0.1 * losses['loss_ins'].detach()
+        loss_ins = losses['loss_ins'].detach()
+        if pdist.is_distributed():
+            loss_ins = pdist.all_reduce_sum(loss_ins) / pdist.world_size()
+        self.avg_loss_ins = avg * 0.9 + 0.1 * loss_ins
         if self.bank is not None and append is not None:
             from ..ops.correspondence import bank_append
+            append = gather_appends(append)
             bank_append(self.bank, append['labels'], append['feats'],
                         append['masks'], append['boxes'], append['valid'])
         logs = {k: v.detach() for k, v in losses.items()}

@@ -37,6 +37,7 @@ from ...core.targets.hungarian import (box_matching_cost,
                                        classification_cost, hungarian_match)
 from ...ops.tree_filter import grid_mst_pair, tree_filter2d
 from ...ops.upsample import interpolate_bilinear
+from ...parallel import dist as pdist
 from ...registry import HEADS
 
 
@@ -188,7 +189,7 @@ class Box2MaskHead(nn.Module):
         k_labels = torch.gather(gt_labels, 1, order)
         k_masks = gt_masks[torch.arange(B, device=dev)[:, None], order]
         mv = k_valid.float()
-        mdenom = torch.clamp(mv.sum(), min=1.0)
+        mdenom = pdist.reduce_mean_denominator(mv.sum(), 1.0)
 
         # per-image structures shared by the tree and LCM terms
         th, tw = self.tf_size
@@ -232,8 +233,8 @@ class Box2MaskHead(nn.Module):
             ce = -torch.gather(F.log_softmax(cls_pred, dim=-1), 2,
                                labels[..., None])[..., 0]
             wts = class_weight[labels]
-            loss_cls = cls_w * (ce * wts).sum() / torch.clamp(wts.sum(),
-                                                              min=1.0)
+            loss_cls = cls_w * (ce * wts).sum() \
+                / pdist.reduce_mean_denominator(wts.sum(), 1.0)
 
             mscore = torch.sigmoid(mask_pred[bidx, asg])     # (B, K, H, W)
 
@@ -271,7 +272,7 @@ class Box2MaskHead(nn.Module):
         ref_stack = refined.reshape(B, n_layers, K, th, tw).transpose(0, 1)
         pix96 = torch.clamp(box96.sum(dim=(2, 3)), min=1.0).reshape(-1)
         box_mv = box96 * mv[..., None, None]
-        lcm_den = torch.clamp(box_mv.sum(), min=1.0)
+        lcm_den = pdist.reduce_mean_denominator(box_mv.sum(), 1.0)
 
         losses: Dict[str, torch.Tensor] = {}
         for li in range(n_layers):

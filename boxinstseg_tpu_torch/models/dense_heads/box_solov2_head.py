@@ -32,6 +32,7 @@ from ...core.targets.solo import sample_positive_cells, solo_targets
 from ...ops.nms import points_nms_2x2
 from ...ops.tree_filter import grid_mst_pair, tree_filter2d
 from ...ops.upsample import interpolate_bilinear
+from ...parallel import dist as pdist
 from ...registry import HEADS, LOSSES
 
 
@@ -171,7 +172,8 @@ class BoxSOLOv2Head(nn.Module):
             batch['gt_masks'], (hh, ww), self.num_grids, self.scale_ranges,
             self.sigma, self.num_classes, mask_stride=4)
         loss_cate = loss_cate_fn(outs['cates'], targets.cate_labels,
-                                 avg_factor=targets.num_pos.float() + 1.0)
+                                 avg_factor=pdist.reduce_mean_denominator(
+                                     targets.num_pos.float(), offset=1.0))
 
         cell_idx, gt_idx, valid = sample_positive_cells(targets.cell_gt,
                                                         self.max_pos)
@@ -184,7 +186,7 @@ class BoxSOLOv2Head(nn.Module):
             batch['gt_masks'].float(), 1,
             gt_idx[:, :, None, None].expand(-1, -1, h4, w4))
         vmask = valid.float()
-        denom = torch.clamp(vmask.sum(), min=1.0)
+        denom = pdist.reduce_mean_denominator(vmask.sum(), 1.0)
 
         prj = loss_boxpro_fn(mask_scores.reshape(bsz * k, h4, w4),
                              box_mask.reshape(bsz * k, h4, w4),

@@ -30,6 +30,7 @@ from ...ops.color import image_color_similarity, srgb_uint8_to_lab
 from ...ops.pairwise import boxinst_pairwise_loss
 from ...ops.points import concat_points_and_meta
 from ...ops.upsample import aligned_bilinear, avg_pool_stride
+from ...parallel import dist as pdist
 from ...registry import HEADS, LOSSES
 
 DEFAULT_REGRESS_RANGES = ((-1, 64), (64, 128), (128, 256), (256, 512),
@@ -127,7 +128,8 @@ class CondInstBoxHead(nn.Module):
     def loss(self, outs: Dict[str, List[torch.Tensor]], gt_bboxes,
              gt_labels, gt_valid
              ) -> Tuple[Dict[str, torch.Tensor], FcosTargets, dict]:
-        """Box losses over the whole batch of the process."""
+        """Box losses over the batch; the normalisers are the global
+        batch's under a process group (``parallel.dist``)."""
         featmap_sizes = [tuple(x.shape[-2:]) for x in outs['cls']]
         pts = self.points_meta(featmap_sizes, gt_bboxes.device)
         targets = fcos_targets(
@@ -141,12 +143,13 @@ class CondInstBoxHead(nn.Module):
         ctr = flatten_levels(outs['ctr'])[..., 0]       # (B, P)
 
         is_pos = targets.labels < self.num_classes
-        num_pos = is_pos.sum().float().clamp(min=1.0)
+        num_pos = pdist.reduce_mean_denominator(is_pos.sum().float(), 1.0)
         loss_cls = self.loss_cls(cls, targets.labels, avg_factor=num_pos)
 
         pos_w = is_pos.float()
         ctr_targets = targets.centerness
-        ctr_denorm = (ctr_targets * pos_w).sum().clamp(min=1e-6)
+        ctr_denorm = pdist.reduce_mean_denominator(
+            (ctr_targets * pos_w).sum(), 1e-6)
         points = pts['points'][None]                    # (1, P, 2)
         loss_bbox = self.loss_bbox(
             distance2bbox(points, bbox),

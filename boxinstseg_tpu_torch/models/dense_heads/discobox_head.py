@@ -35,6 +35,7 @@ from ...ops.crf import crf_mean_field, kernel_sum, stencil_sum
 from ...ops.nms import points_nms_2x2
 from ...ops.roi_align import roi_align
 from ...ops.upsample import interpolate_bilinear
+from ...parallel import dist as pdist
 from ...registry import HEADS, LOSSES
 
 
@@ -346,11 +347,17 @@ class DiscoBoxSOLOv2Head(nn.Module):
         dev = s_scores.device
 
         boxes = self._mask_boxes(box_mask)
-        # the first Q valid instances across the batch
+        # the first Q valid instances across the batch; under a process
+        # group, across the global batch: this rank's valid ones come after
+        # ``before`` valid ones of the lower ranks, and only those within
+        # the first Q are queries (``q_take``; an invalid slot is inert)
         flat_valid = valid_k.reshape(-1)
         idx = torch.arange(b * k, device=dev)
         order = torch.argsort(torch.where(flat_valid, idx, b * k + idx))[:q]
-        q_valid = flat_valid[order]
+        counts = pdist.all_gather_fixed(flat_valid.sum())
+        before = counts[:pdist.rank()].sum()
+        q_take = before + torch.arange(order.shape[0], device=dev) < q
+        q_valid = flat_valid[order] & q_take
         q_boxes = boxes.reshape(-1, 4)[order]
         q_labels = labels_k.reshape(-1)[order]
 
@@ -390,7 +397,8 @@ class DiscoBoxSOLOv2Head(nn.Module):
         # as its logits (discobox_head.py:1083-1086)
         per_q = info_nce_loss(F.softmax(cu, dim=-1), t_assign, pair_valid)
         okf = q_ok.float()
-        loss_corr = (per_q * okf).sum() / torch.clamp(okf.sum(), min=1e-4)
+        loss_corr = (per_q * okf).sum() \
+            / pdist.reduce_mean_denominator(okf.sum(), 1e-4)
         loss_corr = loss_corr * cfg.get('loss_weight', 1.0) * corr_gate
 
         # inter-image priors of the Q queries, all queries at once
@@ -423,7 +431,7 @@ class DiscoBoxSOLOv2Head(nn.Module):
             # only the Q query slots carry priors; the consumer runs the
             # exp-form CRF on these rows alone
             iiu = dict(rows=canvases * okf[:, None, None, None] * corr_gate,
-                       order=order)
+                       order=order, take=q_take)
 
         wide = (q_boxes[:, 2] - q_boxes[:, 0]) > min_size
         tall = (q_boxes[:, 3] - q_boxes[:, 1]) > min_size
@@ -457,12 +465,13 @@ class DiscoBoxSOLOv2Head(nn.Module):
             batch['gt_masks'], (hh, ww), self.num_grids, self.scale_ranges,
             self.sigma, self.num_classes, mask_stride=4, min_mask_area=1.0)
         loss_cate = loss_cate_fn(outs['cates'], targets.cate_labels,
-                                 avg_factor=targets.num_pos.float() + 1.0)
+                                 avg_factor=pdist.reduce_mean_denominator(
+                                     targets.num_pos.float(), offset=1.0))
 
         cell_idx, gt_idx, valid = sample_positive_cells(targets.cell_gt,
                                                         self.max_pos)
         vmask = valid.float().reshape(-1)
-        denom = torch.clamp(vmask.sum(), min=1.0)
+        denom = pdist.reduce_mean_denominator(vmask.sum(), 1.0)
 
         e = outs['kernels'].shape[-1]
         s_kernels = torch.gather(outs['kernels'], 1,
@@ -524,7 +533,8 @@ class DiscoBoxSOLOv2Head(nn.Module):
             pq = crf(kernel[order_q // k], xq, tq,
                      iiu=iiu['rows'][:, None])[:, 0]
             pseudo_iiu = pseudo.reshape(bsz * k, h4, w4).clone()
-            pseudo_iiu[order_q] = pq
+            pseudo_iiu[order_q] = torch.where(iiu['take'][:, None, None], pq,
+                                              pseudo_iiu[order_q])
             ts2 = dice_loss_eps(s_flat, pseudo_iiu.reshape(bsz * k, -1))
             loss_ts = loss_ts + cg * (ts2 * vmask).sum() / denom
         gate = use_ts_gate if use_ts_gate is not None else 1.0

@@ -15,6 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import dist as pdist
+
 IntPair = Union[int, Tuple[int, int]]
 
 
@@ -88,14 +90,18 @@ class FrozenBatchNorm(nn.Module):
 
 
 class SyncBatchNorm(nn.BatchNorm2d):
-    """Train-mode BatchNorm over the whole batch of the process.
+    """Train-mode BatchNorm over the global batch, as the JAX package's
+    over its whole ``jit`` batch.
 
-    The output is ``F.batch_norm`` on the batch statistics. The running
-    variance is updated with the BIASED batch variance, as flax does (torch
-    stores the unbiased one), so the port's statistics track the JAX
-    package's; torch momentum 0.1 is flax momentum 0.9. Under the bf16
-    policy the statistics and the normalisation are computed in fp32 and
-    the output comes back in the input's dtype, as flax computes them."""
+    One process: ``F.batch_norm`` on the batch statistics. Under a process
+    group: the global batch's mean and biased variance, each the sum over
+    ranks through the differentiable all-reduce (so the backward is the
+    global batch's too), in two passes. The running variance is updated
+    with the BIASED batch variance, as flax does (torch stores the unbiased
+    one), so the port's statistics track the JAX package's; torch momentum
+    0.1 is flax momentum 0.9. Under the bf16 policy the statistics and the
+    normalisation are computed in fp32 and the output comes back in the
+    input's dtype, as flax computes them."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -105,14 +111,33 @@ class SyncBatchNorm(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         xf = x.float()
+        if pdist.is_distributed():
+            return self._global_forward(xf).to(x.dtype)
         with torch.no_grad():
             mean = xf.mean(dim=(0, 2, 3))
             var = xf.var(dim=(0, 2, 3), unbiased=False)
+            self._track(mean, var)
+        return F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps).to(x.dtype)
+
+    def _track(self, mean, var):
+        with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps).to(x.dtype)
+
+    def _global_forward(self, xf):
+        count = xf.new_tensor([xf.numel() // xf.shape[1]])
+        s1 = pdist.all_reduce_sum_autograd(
+            torch.cat([xf.sum(dim=(0, 2, 3)), count]))
+        mean = s1[:-1] / s1[-1]
+        centred = xf - mean[None, :, None, None]
+        var = pdist.all_reduce_sum_autograd(
+            (centred * centred).sum(dim=(0, 2, 3))) / s1[-1]
+        self._track(mean.detach(), var.detach())
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return centred * inv[None, :, None, None] \
+            + self.bias[None, :, None, None]
 
 
 def GroupNorm(num_channels: int, num_groups: int = 32) -> nn.GroupNorm:

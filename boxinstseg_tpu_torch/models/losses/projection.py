@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ...parallel import dist as pdist
 from ...registry import LOSSES
 
 
@@ -33,9 +34,11 @@ def compute_project_term(mask_scores: torch.Tensor,
                          valid: torch.Tensor) -> torch.Tensor:
     """BoxInst's projection term: ``_project_dice`` of (N, H, W) mask
     scores and box bitmasks summed over the valid instances ((N,) bool)
-    and divided by their count."""
+    and divided by their count (over the global batch under a process
+    group: ``parallel.dist.reduce_mean_denominator``)."""
     return _project_dice(mask_scores, gt_bitmasks, valid).sum() \
-        / valid.to(mask_scores.dtype).sum().clamp(min=1.0)
+        / pdist.reduce_mean_denominator(valid.to(mask_scores.dtype).sum(),
+                                        1.0)
 
 
 @LOSSES.register_module()

@@ -5,7 +5,8 @@ Math (reference condinst_head.py:86-114, 1316-1325): with
 p = sigmoid(logit), P(same) = p_i p_j + (1-p_i)(1-p_j); the term is
 -log P(same) in log space, over the dilated neighbour offsets of
 ``neighbor_offsets``, weighted by [colour similarity >= thresh] * box
-bitmask * valid, and normalised by max(sum of weights, 1). Out-of-image
+bitmask * valid, and normalised by max(sum of weights, 1), the sum over
+the global batch under a process group (``parallel.dist``). Out-of-image
 neighbours see zero log-probs, so their term vanishes.
 
 ``boxinst_pairwise_loss`` dispatches on the device of the logits: a CUDA
@@ -23,6 +24,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import dist as pdist
 from ._native import as_fp32, check, load_library
 from .color import neighbor_offsets, shift2d
 
@@ -101,16 +103,17 @@ class PlainPairwiseLossFunction(torch.autograd.Function):
         num, den = pairwise_num_den_plain(mask_logits, color_sim, bitmasks,
                                           valid, color_thresh, kernel_size,
                                           dilation)
+        den = pdist.reduce_mean_denominator(den, 1.0)
         ctx.save_for_backward(mask_logits, color_sim, bitmasks, valid, den)
         ctx.cfg = (color_thresh, kernel_size, dilation)
-        return num / torch.clamp(den, min=1.0)
+        return num / den
 
     @staticmethod
     def backward(ctx, g):
         mask_logits, color_sim, bitmasks, valid, den = ctx.saved_tensors
         grad = pairwise_grad_plain(mask_logits, color_sim, bitmasks, valid,
                                    *ctx.cfg)
-        return grad * (g / torch.clamp(den, min=1.0)), None, None, None, \
+        return grad * (g / den), None, None, None, \
             None, None, None
 
 
@@ -294,16 +297,17 @@ class PairwiseLossFunction(torch.autograd.Function):
         num, den, live = pairwise_forward_cuda(
             mask_logits, color_sim, bitmasks, valid, color_thresh,
             kernel_size, dilation, keep_live=True)
+        den = pdist.reduce_mean_denominator(den, 1.0)
         ctx.save_for_backward(mask_logits, color_sim, bitmasks, valid, den,
                               live)
         ctx.cfg = (color_thresh, kernel_size, dilation)
-        return (num / torch.clamp(den, min=1.0)).to(ctx.dtype)
+        return (num / den).to(ctx.dtype)
 
     @staticmethod
     def backward(ctx, g):
         mask_logits, color_sim, bitmasks, valid, den, live = \
             ctx.saved_tensors
-        scale = (as_fp32(g) / torch.clamp(den, min=1.0)).to(torch.float32)
+        scale = (as_fp32(g) / den).to(torch.float32)
         grad = pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid,
                                   scale.reshape(1), *ctx.cfg, live=live)
         return grad.to(ctx.dtype), None, None, None, None, None, None

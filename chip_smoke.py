@@ -105,14 +105,49 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                times as in 14, the card's formatting against the CPU's.
 19. boxlevelset reference - a small BoxLevelSet's loss dict and predict on
                the card against the CPU.
+20. files    - 8 JPEGs (cv2.imwrite, synthetic_image scenes at 800x1333
+               and 1333x800) and a COCO json with polygon ground truth:
+               BoxInst R-50 1x and BoxLevelset R-50 3x at full width, each
+               through its shipped train pipeline unchanged (file reading,
+               Resize, GenerateBoxMask's BitmapMasks.resize for
+               BoxLevelset) via CocoDataset and TrainLoader: the loader's
+               images/s alone over 8 batches, 2 steps each with data_time
+               beside the step time (the pairwise kernels launched in
+               BoxInst's); then BoxInst's checkpoint through
+               tools/test_torch.py (bbox segm, batch 1; the polygons
+               decoded for the segm ground truth).
+21. ddp      - data parallelism (boxinstseg_tpu_torch.parallel), in child
+               processes: tools/train_torch.py --launcher pytorch with
+               RANK=0 WORLD_SIZE=1 over NCCL, BoxInst at full width, batch
+               2, 4 steps from the JPEGs, in turns with the same run
+               without a launcher, each in a fresh process (none, pytorch,
+               pytorch, none; medians of steps 2-4); two gloo ranks on the
+               one card at batch 1 against one process at batch 2 on two
+               JPEGs with 1 and 6 boxes, from the same weights: each step's
+               losses (rtol 1e-4), the averaged gradient's norm (1e-3) and
+               the BN running statistics (1e-4); run_evaluation of the
+               files phase's checkpoint at batch 1 (score_thr 0: 100
+               detections an image) in two gloo ranks and in one fresh
+               process: rank 0's gathered per-image results and metrics
+               equal the one process's, rank 1 returns {}.
 
 Every training phase logs every step (log_config.interval=1), so that each
 step's logged time ends in a device sync, and runs without evaluation
 (--no-validate). The device phase also says which of PIL, imageio and
-libnvjpeg the machine has.
+libnvjpeg the machine has. Phases 1-19 never import cv2; 20 and 21 read
+the JPEGs with it.
 
 Prints a JSON line with one entry per kernel, the card's nvidia-smi line,
 and as its last line {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --cards 4
+
+runs only the device and build phases and then data parallelism over 4
+cards (nccl, one process a card): tools/train_torch.py --launcher pytorch
+over 1 and 4 ranks in turns (step time, images/s), 4 ranks at batch 1
+against one process at batch 4 (losses, gradient norm, BN statistics), and
+a 4-rank evaluation against one process; then each card's nvidia-smi line
+and the ok line.
 """
 import contextlib
 import importlib.util
@@ -212,6 +247,19 @@ DISCO_START_ITER = 2
 EVAL_OPTS = ['model.test_cfg.score_thr=0',
              'data.test.type=SyntheticEvalDataset']
 EVAL_IMAGES = 8
+# the files phase: JPEGs in both orientations, in pairs (a batch of 2 is
+# one orientation), read through the shipped train and test pipelines
+FILE_SHAPES = ((800, 1333), (800, 1333), (1333, 800), (1333, 800)) * 2
+FILES_STEPS = 2
+LOADER_BATCHES = 8
+# the ddp phase: two 800x1333 JPEGs with 1 and 6 boxes; a rank takes one
+PAIR_BOXES = (1, 6)
+DDP_STEPS = 4                      # the NCCL world of one (median of 2-4)
+DDP_LOSS_RTOL = 1e-4               # 2 gloo ranks vs one process, the card
+DDP_GRAD_RTOL = 1e-3
+DDP_BN_RTOL, DDP_BN_ATOL = 1e-4, 1e-6
+DDP_LIMIT = 900                    # seconds for one set of child processes
+CARD_BOXES = (1, 6, 3, 8, 2, 5, 4, 7)  # the cards phase's images, a rank each
 ADJOINT_RTOL = 1e-5                # <A x, y> vs <x, A^T y>, float64 sums
 
 # the least time of a kernel: bytes over the memory rate or operations over
@@ -298,14 +346,14 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def synthetic_image(rng, h, w):
-    """A uint8 BGR image of flat 32x32 colour blocks with 1-8 solid-colour
-    boxes on top, and the boxes (n, 4) xyxy."""
+def synthetic_image(rng, h, w, n=None):
+    """A uint8 BGR image of flat 32x32 colour blocks with ``n`` (by default
+    1-8) solid-colour boxes on top, and the boxes (n, 4) xyxy."""
     import numpy as np
     blocks = rng.randint(0, 256, (h // 32 + 1, w // 32 + 1, 3))
     img = np.repeat(np.repeat(blocks, 32, 0), 32, 1)[:h, :w]
     img = np.ascontiguousarray(img, dtype=np.uint8)
-    n = rng.randint(1, 9)
+    n = rng.randint(1, 9) if n is None else n
     boxes = np.zeros((n, 4), np.float32)
     for i in range(n):
         bw = rng.randint(32, min(400, w))
@@ -1369,13 +1417,14 @@ def print_steps(result, peak, gts, teacher_after=None):
                    f'{k + 1}-{result.step} (teacher) '
                    f'{statistics.median(step_ms[k:]):.3f} ms')
     print(f'{medians}; peak memory {peak / 2**30:.3f} GiB')
+    return statistics.median(step_ms[1:])
 
 
 def phase_slice(tool, work_dir):
     """5 SGD steps of BoxInst R-50-FPN 1x through the train entry point,
     the checkpoint written under ``work_dir``. Returns the pairwise
     kernels' launches, the inputs (and config) of the last step's pairwise
-    call and the checkpoint's path."""
+    call, the checkpoint's path and the median step ms."""
     import torch
     from boxinstseg_tpu_torch.ops import pairwise as pw
     register_dataset()
@@ -1408,11 +1457,11 @@ def phase_slice(tool, work_dir):
     if not changed:
         fail('no parameter changed in training')
     print(f'{len(changed)} tensors changed; launches {launches}')
-    print_steps(result, peak, gts)
+    median_ms = print_steps(result, peak, gts)
     if tuple(kept['inputs'][0].shape) != MAIN_SHAPE:
         fail(f'the last pairwise call took {kept["inputs"][0].shape}, '
              f'not {MAIN_SHAPE}')
-    return launches, kept, result.checkpoint
+    return launches, kept, result.checkpoint, median_ms
 
 
 def describe_backbone(bb):
@@ -2599,13 +2648,469 @@ def phase_boxlevelset_reference():
           f'both; max abs err card vs CPU {errs}')
 
 
-def main():
+def write_coco_files(root, shapes, boxes=None, seed=0):
+    """JPEGs (``cv2.imwrite``) of ``synthetic_image`` scenes at ``shapes``
+    (``boxes[i]`` boxes on image i, by default 1-8) and a COCO json whose
+    ground truth is each painted box as a polygon, with the 80 COCO
+    classes. Returns (ann_file, img_prefix)."""
+    import cv2
+    import numpy as np
+    from boxinstseg_tpu_torch.data.coco import COCO_CLASSES
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, 'images')
+    os.makedirs(img_dir, exist_ok=True)
+    images, anns = [], []
+    for i, (h, w) in enumerate(shapes):
+        img, painted = synthetic_image(rng, h, w,
+                                       None if boxes is None else boxes[i])
+        name = f'{i:03d}.jpg'
+        if not cv2.imwrite(os.path.join(img_dir, name), img):
+            fail(f'cv2.imwrite could not write {name}')
+        images.append(dict(id=i + 1, file_name=name, height=h, width=w))
+        for x1, y1, x2, y2 in painted.tolist():
+            anns.append(dict(
+                id=len(anns) + 1, image_id=i + 1, iscrowd=0,
+                category_id=int(rng.randint(1, len(COCO_CLASSES) + 1)),
+                area=(x2 - x1) * (y2 - y1), bbox=[x1, y1, x2 - x1, y2 - y1],
+                segmentation=[[x1, y1, x2, y1, x2, y2, x1, y2]]))
+    ann_file = os.path.join(root, 'ann.json')
+    with open(ann_file, 'w') as f:
+        json.dump(dict(images=images, annotations=anns, categories=[
+            dict(id=c + 1, name=n) for c, n in enumerate(COCO_CLASSES)]), f)
+    return ann_file, img_dir + '/'
+
+
+def file_opts(files, split):
+    ann_file, prefix = files
+    return [f'data.{split}.ann_file={ann_file}',
+            f'data.{split}.img_prefix={prefix}']
+
+
+def loader_rate(cfg):
+    """Images/s of the run's ``TrainLoader`` alone (file reading, the
+    train pipeline, batching) over LOADER_BATCHES batches, its threads
+    started before the clock."""
+    from boxinstseg_tpu_torch.apis.train import build_train_loader
+    from boxinstseg_tpu_torch.registry import build_dataset
+    loader = build_train_loader(cfg, build_dataset(cfg.data['train']))
+    batches = iter(loader)
+    try:
+        next(batches)
+        t0 = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            next(batches)
+        seconds = time.perf_counter() - t0
+    finally:
+        batches.close()
+    return LOADER_BATCHES * loader.batch_size / seconds
+
+
+@contextlib.contextmanager
+def pairwise_launches():
+    """The pairwise kernels' launches within: set to 0 on entry; the dict
+    is filled on exit."""
+    from boxinstseg_tpu_torch.ops import pairwise as pw
+    counts = {}
+    pw.pairwise_forward_cuda.launches = 0
+    pw.pairwise_grad_cuda.launches = 0
+    yield counts
+    counts.update(pairwise_forward=pw.pairwise_forward_cuda.launches,
+                  pairwise_backward=pw.pairwise_grad_cuda.launches)
+
+
+def print_data_times(result):
+    print('step ms (compute + sync) beside data_time ms: ' + ', '.join(
+        f'{1e3 * (h["time"] - h["data_time"]):.3f} / '
+        f'{1e3 * h["data_time"]:.3f}' for h in result.history))
+
+
+def phase_files(tool, work_dir, files, device='cuda', narrow=None):
+    """BoxInst R-50 1x and BoxLevelset R-50 3x at full width, each from
+    its shipped train pipeline unchanged, through CocoDataset on JPEGs with
+    polygon ground truth: the loader's images/s alone, 2 steps each with
+    data_time beside the step time; then BoxInst's checkpoint through
+    tools/test_torch.py (bbox segm, batch 1) against the polygons. Returns
+    the BoxInst checkpoint.
+    ``device`` and ``narrow`` (extra options by config) let the phase be
+    rehearsed on the CPU with a narrow model."""
+    seed = 0
+    narrow = narrow or {}
+    common = ['runner.type=IterBasedRunner', f'runner.max_iters={FILES_STEPS}',
+              'log_config.interval=1', 'data.samples_per_gpu=2',
+              *file_opts(files, 'train')]
+    checkpoint = None
+    for name, config, extra in (
+            ('boxinst', CONFIG, ['model.mask_head.pairwise_warmup=1']),
+            ('boxlevelset', BOXLS_CONFIG, [])):
+        opts = [*common, *extra, *narrow.get(config, ())]
+        wd = os.path.join(work_dir, f'files_{name}')
+        cfg = tool.load_config(config, opts, wd, seed)
+        rate = loader_rate(cfg)
+        print(f'{name}: TrainLoader alone {rate:.3f} images/s over '
+              f'{LOADER_BATCHES} batches of {cfg.data.samples_per_gpu} '
+              f'({cfg.data.workers_per_gpu * 4} threads; JPEG read, '
+              f'{", ".join(t["type"] for t in cfg.data.train.pipeline)})')
+        with pairwise_launches() as launches:
+            result = tool.main([config, '--work-dir', wd, '--seed',
+                                str(seed), '--device', device,
+                                '--no-validate', '--cfg-options', *opts])
+        check_history(result, FILES_STEPS)
+        print_data_times(result)
+        if name == 'boxinst':
+            if device == 'cuda' and min(launches.values()) < FILES_STEPS:
+                fail(f'pairwise launches {launches} in {FILES_STEPS} steps')
+            print(f'losses at step {result.step}: ' + ', '.join(
+                f'{k} {v:.5f}' for k, v in result.history[-1].items()
+                if k.startswith('loss')) + f'; launches {launches}')
+            checkpoint = result.checkpoint
+    t0 = time.perf_counter()
+    metrics = load_tool('test_torch').main([
+        CONFIG, checkpoint, '--device', device, '--eval', 'bbox', 'segm',
+        '--cfg-options', 'model.test_cfg.score_thr=0',
+        'data.samples_per_gpu=1', *narrow.get(CONFIG, ()),
+        *file_opts(files, 'test')])
+    seconds = time.perf_counter() - t0
+    if not {'bbox_mAP', 'segm_mAP'} <= set(metrics) or not all(
+            math.isfinite(v) for v in metrics.values()):
+        fail(f'metrics {metrics}')
+    print(f'tools/test_torch.py on {len(FILE_SHAPES)} JPEGs (polygon ground '
+          f'truth) in {seconds:.3f} s: bbox mAP {metrics["bbox_mAP"]}, segm '
+          f'mAP {metrics["segm_mAP"]}')
+    return checkpoint
+
+
+def _child_main(target, rank, world, port, mode, results, args):
+    """A child process of ``run_children``: one rank that joins a gloo
+    group itself (``mode`` 'gloo'), joins an nccl group on card ``rank``
+    ('cards'; gloo on a host without cards), is given a launcher's
+    environment ('env', card ``rank``), or runs alone (None)."""
+    import traceback
+    from datetime import timedelta
+    try:
+        sys.path.insert(0, ROOT)
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from boxinstseg_tpu_torch.parallel import dist as pdist
+        os.environ['LOCAL_RANK'] = str(rank)
+        if mode == 'env':
+            os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                              MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
+        elif mode in ('gloo', 'cards'):
+            backend = 'nccl' if mode == 'cards' and \
+                torch.cuda.is_available() else 'gloo'
+            pdist.init_distributed(backend=backend,
+                                   init_method=f'tcp://127.0.0.1:{port}',
+                                   world_size=world, rank=rank,
+                                   timeout=timedelta(seconds=300))
+        results.put((rank, None, target(*args)))
+    except BaseException:
+        results.put((rank, traceback.format_exc(), None))
+    finally:
+        from boxinstseg_tpu_torch.parallel import dist as pdist
+        pdist.destroy()
+
+
+def run_children(target, args, world=1, mode='gloo', meanwhile=None):
+    """``target(*args)`` in ``world`` spawned processes on this machine's
+    card (ranks of a gloo group; with ``mode`` 'env' a torchrun-style
+    environment that the target's entry point reads; with None one process
+    alone), and ``meanwhile()`` here while they run; returns (their
+    results in rank order, meanwhile's). A rank that fails, dies or
+    outlasts DDP_LIMIT fails the run; no child outlives it."""
+    import multiprocessing
+    import queue
+    import socket
+    ctx = multiprocessing.get_context('spawn')
+    results = ctx.Queue()
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    procs = [ctx.Process(target=_child_main, daemon=True, args=(
+        target, r, world, port, mode, results, args)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DDP_LIMIT
+    out, errors, extra = {}, [], None
+    try:
+        extra = meanwhile() if meanwhile is not None else None
+        while len(out) + len(errors) < world:
+            if time.monotonic() > deadline:
+                errors.append(f'no result within {DDP_LIMIT} s')
+                break
+            try:
+                rank, err, res = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    errors.append(f'a rank exited with {dead}')
+                    break
+                continue
+            if err is None:
+                out[rank] = res
+            else:
+                errors.append(f'rank {rank}: {err}')
+    finally:
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 10.0))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        fail('; '.join(errors))
+    return [out[r] for r in range(world)], extra
+
+
+def ddp_train_tool(argv):
+    """``tools/train_torch.py``'s ``main`` in a fresh process (with
+    ``--launcher pytorch``, one rank it launches itself): its logs, each
+    step's live GT count and the pairwise kernels' launches."""
+    with pairwise_launches() as launches, live_gt_counts() as gts:
+        result = load_tool('train_torch').main(argv)
+    return dict(history=result.history, launches=launches, gts=gts,
+                step=result.step, checkpoint=result.checkpoint)
+
+
+def ddp_pair_run(opts, work_dir, device=None):
+    """``train_detector`` of BoxInst at full width on the JPEGs of
+    ``opts``, from the seed's weights, on ``device`` (this rank's card when
+    None): the logs (the mean over ranks), the BN running statistics and
+    the pairwise launches."""
+    from boxinstseg_tpu_torch.apis.train import train_detector
+    from boxinstseg_tpu_torch.models.layers import SyncBatchNorm
+    from boxinstseg_tpu_torch.parallel import dist as pdist
+    from boxinstseg_tpu_torch.registry import build_dataset
+    device = device or pdist.local_device()
+    tool = load_tool('train_torch')
+    cfg = tool.load_config(CONFIG, opts, work_dir, 0)
+    model = tool.build_model(cfg, 0)
+    with pairwise_launches() as launches:
+        result = train_detector(model, build_dataset(cfg.data['train']),
+                                cfg, device=device)
+    bn = {f'{name}.{b}': getattr(m, b).cpu().numpy()
+          for name, m in model.named_modules()
+          if isinstance(m, SyncBatchNorm)
+          for b in ('running_mean', 'running_var')}
+    return dict(history=result.history, bn=bn, launches=launches)
+
+
+def ddp_evaluate(opts, checkpoint, out, device=None):
+    """``run_evaluation`` of BoxInst's checkpoint on this rank's share of
+    the JPEGs, on ``device`` (this rank's card when None); rank 0 writes
+    the gathered results to ``out``."""
+    from boxinstseg_tpu_torch.apis.inference import init_detector
+    from boxinstseg_tpu_torch.apis.test import run_evaluation
+    from boxinstseg_tpu_torch.parallel import dist as pdist
+    from boxinstseg_tpu_torch.registry import build_dataset
+    device = device or pdist.local_device()
+    cfg = load_tool('train_torch').load_config(CONFIG, opts)
+    model, cfg = init_detector(cfg, checkpoint, device=device)
+    dataset = build_dataset({**cfg.data['test'], 'test_mode': True})
+    return run_evaluation(model, dataset, cfg, metrics=['bbox', 'segm'],
+                          save_results=out if pdist.rank() == 0 else None)
+
+
+def time_launches(work_dir, files, opts, device, plan):
+    """tools/train_torch.py's BoxInst runs at batch 2 a card, DDP_STEPS
+    steps from the JPEGs, each in fresh processes, in the order of
+    ``plan`` ((launcher, world) pairs; 'pytorch' gets a torchrun-style
+    environment, card r for rank r). Prints each run's steps and returns
+    the medians of steps 2-DDP_STEPS by (launcher, world) and the last
+    run's checkpoint."""
+    medians, checkpoint = {}, None
+    for launcher, world in plan:
+        wd = os.path.join(work_dir, f'time_{launcher}_{world}')
+        runs, _ = run_children(ddp_train_tool, ([
+            CONFIG, '--launcher', launcher, '--device', device, '--seed',
+            '0', '--no-validate', '--work-dir', wd, '--cfg-options', *opts,
+            f'runner.max_iters={DDP_STEPS}', 'data.samples_per_gpu=2',
+            *file_opts(files, 'train')],), world,
+            mode='env' if launcher == 'pytorch' else None)
+        run = runs[0]
+        if run['step'] != DDP_STEPS or len(run['history']) != DDP_STEPS:
+            fail(f'--launcher {launcher} ran {run["step"]} steps')
+        if device == 'cuda' and min(min(r['launches'].values())
+                                    for r in runs) < DDP_STEPS:
+            fail(f'pairwise launches {[r["launches"] for r in runs]} with '
+                 f'--launcher {launcher} over {world}')
+        step_ms = [1e3 * (h['time'] - h['data_time'])
+                   for h in run['history']]
+        median = statistics.median(step_ms[1:])
+        medians.setdefault((launcher, world), []).append(median)
+        print(f'--launcher {launcher}, world {world} (fresh processes, '
+              f'batch 2 a card, JPEGs): rank 0 step ms with its live GTs '
+              + ', '.join(f'{t:.3f} ({n})'
+                          for t, n in zip(step_ms, run['gts']))
+              + f'; median of steps 2-{DDP_STEPS} {median:.3f} ms, '
+              f'{2 * world * 1e3 / median:.3f} images/s; launches a rank '
+              f'{run["launches"]}')
+        checkpoint = run['checkpoint']
+    return medians, checkpoint
+
+
+def check_ranks_against_one(ranks, one, what):
+    """Each step's losses (DDP_LOSS_RTOL) and averaged gradient norm
+    (DDP_GRAD_RTOL) of ``ranks`` (rank 0's logs, the mean over ranks)
+    against ``one`` process's, and the BN running statistics
+    (DDP_BN_RTOL / DDP_BN_ATOL) of every rank."""
+    import numpy as np
+    worst = dict(loss=0.0, grad_norm=0.0, bn=0.0)
+    for i, (g, w) in enumerate(zip(ranks[0]['history'], one['history'])):
+        for k, v in w.items():
+            if k.startswith('loss') or k == 'grad_norm':
+                rtol = DDP_GRAD_RTOL if k == 'grad_norm' else DDP_LOSS_RTOL
+                key = 'grad_norm' if k == 'grad_norm' else 'loss'
+                worst[key] = max(worst[key],
+                                 abs(g[k] - v) / max(abs(v), 1e-12))
+                if abs(g[k] - v) > rtol * abs(v) + 1e-7:
+                    fail(f'{what}, step {i + 1} {k}: {g[k]} vs {v}')
+    for rank in ranks:
+        for k, v in one['bn'].items():
+            # the share of its tolerance that the largest gap takes (<= 1)
+            share = float(np.max(np.abs(rank['bn'][k] - v)
+                                 / (DDP_BN_ATOL + DDP_BN_RTOL * np.abs(v))))
+            worst['bn'] = max(worst['bn'], share)
+            if share > 1:
+                fail(f'{what}: BN statistics {k} differ')
+    print(f'{what}: losses at step 1 ' + ', '.join(
+        f'{k} {v:.5f}' for k, v in ranks[0]['history'][0].items()
+        if k.startswith('loss'))
+        + f'; largest relative gap: losses {worst["loss"]:.3e}, grad_norm '
+        f'{worst["grad_norm"]:.3e}; BN statistics ({len(one["bn"])} '
+        f'buffers) take {worst["bn"]:.3f} of their tolerance; launches a '
+        f'rank {ranks[-1]["launches"]}')
+
+
+def check_eval_gather(work_dir, files, checkpoint, narrow, device, world,
+                      mode):
+    """run_evaluation of ``checkpoint`` at batch 1 (score_thr 0) over the
+    JPEGs in ``world`` ranks and in one fresh process: rank 0's gathered
+    per-image results and metrics must equal the one process's, the other
+    ranks must return {}."""
+    eval_opts = ['model.test_cfg.score_thr=0', 'data.samples_per_gpu=1',
+                 *narrow, *file_opts(files, 'test')]
+    outs = [os.path.join(work_dir, f'eval_{world}_{w}.json')
+            for w in (1, world)]
+    (one,), _ = run_children(ddp_evaluate, (eval_opts, checkpoint, outs[0],
+                                            device), mode=None)
+    ranks, _ = run_children(ddp_evaluate, (eval_opts, checkpoint, outs[1],
+                                           device), world, mode=mode)
+    if any(r != {} for r in ranks[1:]):
+        fail(f'ranks 1-{world - 1} returned {ranks[1:]}')
+    if ranks[0] != one:
+        fail(f'{world}-rank evaluation {ranks[0]} differs from one process '
+             f'{one}')
+    with open(outs[0]) as f, open(outs[1]) as g:
+        results = [json.load(f), json.load(g)]
+    if results[0] != results[1]:
+        fail(f'the {world} ranks\' gathered per-image results differ from '
+             f'one process\'s')
+    n_det = sum(len(r['bboxes']) for r in results[0])
+    print(f'run_evaluation in {world} ranks ({mode}; {len(results[0])} JPEGs, '
+          f'batch 1, rank 0 gathers) against one fresh process: the same '
+          f'{n_det} detections image by image, the same metrics (bbox mAP '
+          f'{one["bbox_mAP"]}, segm mAP {one["segm_mAP"]}); the other ranks '
+          f'{{}}')
+
+
+def phase_ddp(work_dir, files, pair, slice_ms, checkpoint, device='cuda',
+              narrow=None):
+    """1. tools/train_torch.py --launcher pytorch in a child process with
+    RANK=0 WORLD_SIZE=1 (nccl): BoxInst at full width, batch 2, DDP_STEPS
+    steps from the JPEGs, in turns with the same run without a launcher,
+    each in a fresh process (a process's history moves BoxInst's step
+    time); the medians beside the slice phase's. 2. Two gloo ranks on the
+    one card at batch 1 against one process at batch 2 on the same two
+    JPEGs (1 and 6 boxes) from the same weights: each step's losses, the
+    averaged gradient's norm and the BN running statistics. 3.
+    run_evaluation of the files phase's checkpoint at batch 1 in two gloo
+    ranks and in one fresh process: rank 0's gathered per-image results
+    and metrics must equal the one process's, rank 1's must be {}."""
+    narrow = (narrow or {}).get(CONFIG, [])
+    opts = ['runner.type=IterBasedRunner', 'log_config.interval=1',
+            'model.mask_head.pairwise_warmup=1', *narrow]
+    medians, _ = time_launches(work_dir, files, opts, device, (
+        ('none', 1), ('pytorch', 1), ('pytorch', 1), ('none', 1)))
+    print('in turns (none, pytorch, pytorch, none): medians one process '
+          + ', '.join(f'{v:.3f}' for v in medians[('none', 1)])
+          + '; NCCL world of 1 '
+          + ', '.join(f'{v:.3f}' for v in medians[('pytorch', 1)])
+          + f' ms; the slice phase (this process, synthetic images) '
+          f'{slice_ms:.3f} ms')
+
+    pair_opts = [*opts, f'runner.max_iters={DDP_STEPS // 2}',
+                 *file_opts(pair, 'train')]
+    ranks, one = run_children(
+        ddp_pair_run, ([*pair_opts, 'data.samples_per_gpu=1'],
+                       os.path.join(work_dir, 'ddp_pair'), device), 2,
+        meanwhile=lambda: ddp_pair_run(
+            [*pair_opts, 'data.samples_per_gpu=2'],
+            os.path.join(work_dir, 'ddp_one'), device))
+    check_ranks_against_one(
+        ranks, one, f'2 gloo ranks at batch 1 vs one process at batch 2 '
+        f'({PAIR_BOXES} boxes, {DDP_STEPS // 2} steps)')
+    check_eval_gather(work_dir, files, checkpoint, narrow, device, 2, 'gloo')
+
+
+def phase_cards(work_dir, files, cards, device='cuda', narrow=None):
+    """Data parallelism over ``cards`` cards (nccl, one process a card):
+    tools/train_torch.py --launcher pytorch over 1 and ``cards`` ranks in
+    turns (1, n, n, 1), batch 2 a card; ``cards`` ranks at batch 1 against
+    one process at batch ``cards`` on as many JPEGs with CARD_BOXES boxes
+    (losses, gradient norm, BN statistics); run_evaluation in ``cards``
+    ranks against one process."""
+    narrow = (narrow or {}).get(CONFIG, [])
+    opts = ['runner.type=IterBasedRunner', 'log_config.interval=1',
+            'model.mask_head.pairwise_warmup=1', *narrow]
+    medians, checkpoint = time_launches(work_dir, files, opts, device, (
+        ('pytorch', 1), ('pytorch', cards), ('pytorch', cards),
+        ('pytorch', 1)))
+    one_ms = statistics.median(medians[('pytorch', 1)])
+    many_ms = statistics.median(medians[('pytorch', cards)])
+    print(f'in turns (1, {cards}, {cards}, 1 cards): step ms at one card '
+          + ', '.join(f'{v:.3f}' for v in medians[('pytorch', 1)])
+          + f', at {cards} ' + ', '.join(
+              f'{v:.3f}' for v in medians[('pytorch', cards)])
+          + f'; images/s {2e3 / one_ms:.3f} and {2e3 * cards / many_ms:.3f}'
+          f' ({one_ms / many_ms:.3f} of linear)')
+
+    shapes = FILE_SHAPES[:1] * cards
+    boxes = CARD_BOXES[:cards]
+    quad = write_coco_files(os.path.join(work_dir, 'quad'), shapes,
+                            boxes=boxes, seed=2)
+    quad_opts = [*opts, f'runner.max_iters={DDP_STEPS // 2}',
+                 *file_opts(quad, 'train')]
+    ranks, one = run_children(
+        ddp_pair_run, ([*quad_opts, 'data.samples_per_gpu=1'],
+                       os.path.join(work_dir, 'cards_ranks')), cards,
+        mode='cards', meanwhile=lambda: ddp_pair_run(
+            [*quad_opts, f'data.samples_per_gpu={cards}'],
+            os.path.join(work_dir, 'cards_one'), device))
+    check_ranks_against_one(
+        ranks, one, f'{cards} ranks (nccl, one card each) at batch 1 vs one '
+        f'process at batch {cards} ({boxes} boxes, {DDP_STEPS // 2} steps)')
+    check_eval_gather(work_dir, files, checkpoint, narrow, None, cards,
+                      'cards')
+
+
+def main(argv=None):
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--cards', type=int, default=1,
+                        help='more than 1: only the data-parallel check '
+                             'across this many cards (nccl), after the '
+                             'build; 1 (the default): every phase')
+    args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, 'boxinstseg_tpu_torch')):
         fail(f'the boxinstseg_tpu_torch package is not beside {__file__}')
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this smoke needs a GPU')
+    if torch.cuda.device_count() < args.cards:
+        fail(f'--cards {args.cards}: {torch.cuda.device_count()} cards')
     t_start = time.perf_counter()
 
     phase('device')
@@ -2634,15 +3139,24 @@ def main():
               f'{os.path.basename(k)} {v:.2f} s'
               for k, v in _native.BUILD_SECONDS.items()) + ')')
 
-    phase('kernels')
-    report = phase_kernels()
-    report.update(phase_msda_kernels())
-    report.update(phase_lcm_kernels())
-
-    tool = load_tool('train_torch')
     work_dir = tempfile.mkdtemp(prefix='chip_smoke_')
     try:
-        run_phases(tool, work_dir, report, smi, t_start)
+        if args.cards > 1:
+            phase('cards')
+            files = write_coco_files(os.path.join(work_dir, 'files'),
+                                     FILE_SHAPES)
+            phase_cards(work_dir, files, args.cards)
+            print(f'smoke wall time {time.perf_counter() - t_start:.1f} s')
+            print('\n'.join(smi))
+            print(json.dumps({'ok': True, 'device': {
+                'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+                'count': torch.cuda.device_count()}}))
+            return
+        phase('kernels')
+        report = phase_kernels()
+        report.update(phase_msda_kernels())
+        report.update(phase_lcm_kernels())
+        run_phases(load_tool('train_torch'), work_dir, report, smi, t_start)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -2651,7 +3165,7 @@ def run_phases(tool, work_dir, report, smi, t_start):
     """Every phase from the slice on, then the result lines."""
     import torch
     phase('slice')
-    launches, kept, checkpoint = phase_slice(tool, work_dir)
+    launches, kept, checkpoint, slice_ms = phase_slice(tool, work_dir)
 
     phase('pairwise main path')
     phase_pairwise_main_path(kept, report)
@@ -2721,6 +3235,15 @@ def run_phases(tool, work_dir, report, smi, t_start):
 
     phase('boxlevelset reference')
     phase_boxlevelset_reference()
+
+    phase('files')
+    files = write_coco_files(os.path.join(work_dir, 'files'), FILE_SHAPES)
+    pair = write_coco_files(os.path.join(work_dir, 'pair'),
+                            FILE_SHAPES[:1] * 2, boxes=PAIR_BOXES, seed=1)
+    checkpoint = phase_files(tool, work_dir, files)
+
+    phase('ddp')
+    phase_ddp(work_dir, files, pair, slice_ms, checkpoint)
 
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

@@ -2,15 +2,22 @@
 """Training entry point of the PyTorch / CUDA port (``boxinstseg_tpu_torch``).
 
 Mirrors ``tools/train.py``: CONFIG positional, --work-dir, --resume-from,
---auto-resume, --no-validate, --cfg-options, --seed, --pretrained-backbone
-(a local torchvision-format ResNet ``.pth``), plus --device (cuda by
-default, cpu for small runs on a host without a GPU). One process on one
-device; the other weights are initialised from the seed. Without
+--auto-resume, --no-validate, --auto-scale-lr, --cfg-options, --seed,
+--launcher, --local_rank, --pretrained-backbone (a local torchvision-format
+ResNet ``.pth``), plus --device (cuda by default, cpu for small runs on a
+host without a GPU). The weights are initialised from the seed. Without
 --no-validate a config with ``data.val`` is evaluated by its
 ``evaluation`` interval.
 
+One process on one device, or, with ``--launcher pytorch``, one rank of a
+data-parallel run that ``torchrun`` launched: nccl and the card
+``cuda:{LOCAL_RANK}`` with ``--device cuda``, gloo on the CPU with
+``--device cpu``.
+
     python tools/train_torch.py configs/boxinst/boxinst_r50_fpn_1x_coco.py \
         --work-dir work_dirs/boxinst_torch --cfg-options runner.max_iters=5
+    torchrun --nproc_per_node 8 tools/train_torch.py \
+        configs/boxinst/boxinst_r50_fpn_1x_coco.py --launcher pytorch
 """
 import argparse
 import os
@@ -29,6 +36,10 @@ def parse_args(argv=None):
                    help='resume from the newest checkpoint of the work dir')
     p.add_argument('--no-validate', action='store_true',
                    help='do not evaluate during training')
+    p.add_argument('--auto-scale-lr', action='store_true',
+                   help='enable cfg.auto_scale_lr (linear batch-size LR '
+                        'scaling; base_batch_size 16 when the config has '
+                        'no auto_scale_lr)')
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--cfg-options', nargs='+', default=[],
                    help='override config, format key=value')
@@ -36,11 +47,44 @@ def parse_args(argv=None):
                    help='torchvision-format ResNet .pth to load into the '
                         'backbone')
     p.add_argument('--device', default='cuda', choices=('cuda', 'cpu'))
+    add_launcher_args(p)
     return p.parse_args(argv)
 
 
-def load_config(path, cfg_options=(), work_dir=None, seed=0):
-    """Config with --cfg-options merged, work_dir and seed set."""
+def add_launcher_args(p):
+    p.add_argument('--launcher', default='none', choices=('none', 'pytorch'),
+                   help='pytorch: one rank of a torchrun launch (RANK, '
+                        'WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT)')
+    p.add_argument('--local_rank', '--local-rank', type=int, default=None,
+                   help='this rank\'s card, when the launcher passes it '
+                        'instead of LOCAL_RANK')
+
+
+def launch(args):
+    """Join the process group for ``--launcher pytorch`` (nccl for
+    ``--device cuda``, gloo for ``--device cpu``); returns the device this
+    process runs on."""
+    import torch
+    if args.device == 'cuda' and not torch.cuda.is_available():
+        raise SystemExit('--device cuda: no CUDA device is available')
+    if args.launcher == 'none':
+        return torch.device(args.device)
+    from boxinstseg_tpu_torch.parallel import dist as pdist
+    if args.local_rank is not None:
+        os.environ['LOCAL_RANK'] = str(args.local_rank)
+    if 'WORLD_SIZE' not in os.environ:
+        raise SystemExit('--launcher pytorch: WORLD_SIZE is not set')
+    pdist.init_distributed(backend='nccl' if args.device == 'cuda'
+                           else 'gloo')
+    return pdist.local_device() if args.device == 'cuda' \
+        else torch.device('cpu')
+
+
+def load_config(path, cfg_options=(), work_dir=None, seed=0,
+                auto_scale_lr=False):
+    """Config with --cfg-options merged, work_dir and seed set, and
+    ``auto_scale_lr`` enabled for --auto-scale-lr (``base_batch_size`` 16
+    when the config has no ``auto_scale_lr``), as ``tools/train.py``."""
     from boxinstseg_tpu_torch.config import (Config, compat_cfg,
                                              replace_cfg_vals)
     cfg = compat_cfg(replace_cfg_vals(Config.fromfile(path)))
@@ -51,6 +95,11 @@ def load_config(path, cfg_options=(), work_dir=None, seed=0):
         cfg.work_dir = os.path.join(
             './work_dirs', os.path.splitext(os.path.basename(path))[0])
     cfg.seed = seed
+    if auto_scale_lr:
+        if 'auto_scale_lr' in cfg:
+            cfg.auto_scale_lr['enable'] = True
+        else:
+            cfg.auto_scale_lr = dict(enable=True, base_batch_size=16)
     return cfg
 
 
@@ -66,14 +115,12 @@ def build_model(cfg, seed):
 def main(argv=None):
     """Run the training; returns ``apis.train.TrainResult``."""
     args = parse_args(argv)
-    import torch
-    if args.device == 'cuda' and not torch.cuda.is_available():
-        raise SystemExit('--device cuda: no CUDA device is available')
+    device = launch(args)
     from boxinstseg_tpu_torch.registry import build_dataset
     from boxinstseg_tpu_torch.apis.train import train_detector
 
     cfg = load_config(args.config, args.cfg_options, args.work_dir,
-                      args.seed)
+                      args.seed, args.auto_scale_lr)
     if args.auto_resume:
         cfg.auto_resume = True
     model = build_model(cfg, args.seed)
@@ -85,9 +132,13 @@ def main(argv=None):
     val_dataset = None
     if not args.no_validate and 'val' in cfg.get('data', {}):
         val_dataset = build_dataset({**cfg.data['val'], 'test_mode': True})
-    return train_detector(model, dataset, cfg, device=args.device,
-                          val_dataset=val_dataset,
-                          resume_from=args.resume_from)
+    try:
+        return train_detector(model, dataset, cfg, device=device,
+                              val_dataset=val_dataset,
+                              resume_from=args.resume_from)
+    finally:
+        from boxinstseg_tpu_torch.parallel import dist as pdist
+        pdist.destroy()
 
 
 if __name__ == '__main__':
