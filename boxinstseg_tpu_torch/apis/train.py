@@ -2,15 +2,19 @@
 ``train_detector`` (reference: mmdet/apis/train.py:117-244).
 
 ``StaticBatcher`` + ``TrainLoader`` (the numpy data layer shared with the
-JAX package; box bitmasks at stride 4 when the config asks for GT masks),
-the LR schedule (scaled by global batch / ``auto_scale_lr.base_batch_size``
-when ``auto_scale_lr.enable`` is set), SGD or AdamW, the train step and the
-hooks of ``engine.hooks`` built from the config as the JAX package builds
-them: the text log every ``log_config.interval`` steps, checkpoints by
+JAX package; GT masks when the config asks for them, at stride 4, or 1 for
+a fully supervised CondInst: ``mask_stride``), the LR schedule (scaled by
+global batch / ``auto_scale_lr.base_batch_size`` when
+``auto_scale_lr.enable`` is set), SGD or AdamW (with the LayerDecay
+constructor where the config names it), the train step and the hooks of
+``engine.hooks`` built from the config as the JAX package builds them: the
+text log every ``log_config.interval`` steps, wandb, checkpoints by
 ``checkpoint_config`` (``iter_{n}.pth`` in the work dir, ``torch.save`` of
 the model, the optimizer and ``_iter``), evaluation of a validation set by
-``evaluation``. A run resumes from ``resume_from`` (or, with
-``auto_resume``, the newest checkpoint of the work dir) at its ``_iter``.
+``evaluation``, and ``custom_hooks`` (EMA, epoch info, YOLOX mode switch,
+memory and profiler, the sync no-ops). A run resumes from
+``resume_from`` (or, with ``auto_resume``, the newest checkpoint of the
+work dir) at its ``_iter``.
 DiscoBox (a ``SingleStageWSInsTSDetector``, such as ``DiscoBoxSOLOv2``)
 takes the teacher-student step, with the object bank built on the device
 from ``loss_corr.obj_bank`` and the schedule from ``ts_cfg``; its
@@ -22,8 +26,9 @@ Data parallel across processes under a process group
 it and pads it as the whole batch would, the weights are broadcast from
 rank 0 after init and after a resume, and the step averages the gradients
 (``engine.train_state``); the losses' normalisers and the BN statistics are
-the global batch's (``parallel.dist``). Rank 0 writes the log and the
-checkpoints; the logged losses are the mean over ranks.
+the global batch's (``parallel.dist``). Rank 0 writes the log, the
+checkpoints, the memory log and the profiler trace; the logged losses are
+the mean over ranks.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import torch
 from ..config import Config
 from ..data.batcher import StaticBatcher
 from ..data.loader import TrainLoader
+from ..engine import hooks as H
 from ..engine.hooks import (CheckLossHook, CheckpointHook, EvalHook,
                             TextLoggerHook, latest_checkpoint,
                             num_class_check)
@@ -270,11 +276,24 @@ def log_interval(cfg: Config) -> int:
     return dict(cfg.get('log_config') or {}).get('interval', 1)
 
 
+def mask_stride(cfg: Config) -> int:
+    """The stride of the batch's GT masks: 1 for a fully supervised
+    CondInst (``mask_head.boxinst_enabled`` False), whose dice and semantic
+    targets sample the full-resolution masks; 4 for every other model. The
+    JAX package feeds stride 4 to both, on which its CondInst loss does not
+    run (ROADMAP F8)."""
+    mask_head_cfg = cfg.model.get('mask_head', {}) or {}
+    supervised = cfg.model.get('type') == 'CondInst' and \
+        not mask_head_cfg.get('boxinst_enabled', True)
+    return 1 if supervised else 4
+
+
 def build_train_loader(cfg: Config, dataset) -> TrainLoader:
     """The run's ``TrainLoader`` over ``dataset``: the global batch
     (``samples_per_gpu`` x world size), this rank's slice of it padded as
     the whole batch would be, the config's canvases, GT capacity and
-    multiscale choice, ``workers_per_gpu`` x 4 loading threads."""
+    multiscale choice, GT masks at ``mask_stride(cfg)``,
+    ``workers_per_gpu`` x 4 loading threads."""
     data_cfg = cfg.get('data', {})
     world = pdist.world_size()
     mask_head_cfg = cfg.model.get('mask_head', {}) or {}
@@ -285,7 +304,7 @@ def build_train_loader(cfg: Config, dataset) -> TrainLoader:
         with_masks=bool(cfg.get('with_gt_masks',
                                 not mask_head_cfg.get('boxinst_enabled',
                                                       True))),
-        mask_stride=4, gt_buckets=cfg.get('gt_buckets'))
+        mask_stride=mask_stride(cfg), gt_buckets=cfg.get('gt_buckets'))
     return TrainLoader(dataset, data_cfg.get('samples_per_gpu', 2) * world,
                        batcher,
                        num_workers=data_cfg.get('workers_per_gpu', 2) * 4,
@@ -312,19 +331,62 @@ def train_schedule(cfg: Config, global_batch: int, n_images: int):
     return lr_fn, base_lr, iters_per_epoch, iv
 
 
+LOG_HOOKS = ('TextLoggerHook', 'WandbLoggerHook', 'MMDetWandbHook')
+RANK0_HOOKS = (TextLoggerHook, H.WandbLoggerHook, H.MemoryProfilerHook,
+               H.ProfilerHook)
+
+
+def custom_hook(h: dict, model, iv: Dict[str, Any], logger) -> H.Hook:
+    """One ``custom_hooks`` entry with the JAX package's arguments and
+    defaults (its ``apis/train.py`` ``build_hooks``); a type the JAX
+    package does not build raises."""
+    t = h.get('type')
+    if t == 'MemoryProfilerHook':
+        return H.MemoryProfilerHook(h.get('interval', 500), logger)
+    if t == 'EMAHook':
+        return H.EMAHook(h.get('momentum', 0.999), h.get('interval', 1))
+    if t == 'ProfilerHook':
+        return H.ProfilerHook(h.get('start', 50), h.get('stop', 55),
+                              h.get('log_dir', './profile'), logger)
+    if t == 'ExpMomentumEMAHook':
+        return H.ExpMomentumEMAHook(h.get('momentum', 0.0002),
+                                    h.get('total_iter', 2000),
+                                    h.get('interval', 1))
+    if t == 'LinearMomentumEMAHook':
+        return H.LinearMomentumEMAHook(h.get('momentum', 0.0002),
+                                       h.get('warm_up', 100),
+                                       h.get('interval', 1))
+    if t == 'SetEpochInfoHook':
+        return H.SetEpochInfoHook(model)
+    if t == 'YOLOXModeSwitchHook':
+        return H.YOLOXModeSwitchHook(
+            h.get('num_last_epochs', 15),
+            h.get('skip_type_keys', ('Mosaic', 'RandomAffine', 'MixUp')),
+            model, iv.get('train_dataset'), iv.get('max_epochs', 0), logger)
+    if t in ('SyncNormHook', 'SyncRandomSizeHook'):
+        return getattr(H, t)()
+    raise NotImplementedError(f'custom hook {t} is not ported')
+
+
 def build_hooks(cfg: Config, iv: Dict[str, Any], work_dir: str, logger,
-                result: TrainResult, val_dataset=None, classes=None) -> list:
+                result: TrainResult, val_dataset=None, classes=None,
+                model=None) -> list:
     """The hook list of the config, in the JAX package's order: the text
-    log (rank 0 only) and the loss check every ``log_config.interval``
-    steps, the checkpoints (written by rank 0; those of ``work_dir`` up to
-    ``result.step``, where a resumed run starts, count as the run's own),
-    the evaluation of ``val_dataset`` when there is one (every rank). A
-    config without ``log_config`` logs every step. Of ``log_config.hooks``
-    only ``TextLoggerHook`` is ported, and of ``custom_hooks`` only
-    ``NumClassCheckHook`` (run by ``train_detector`` up front); another
-    raises."""
-    for h in dict(cfg.get('log_config') or {}).get('hooks') or []:
-        if h.get('type') != 'TextLoggerHook':
+    log and the loss check every ``log_config.interval`` steps, wandb from
+    ``log_config.hooks``, the checkpoints (written by rank 0; those of
+    ``work_dir`` up to ``result.step``, where a resumed run starts, count
+    as the run's own), the evaluation of ``val_dataset`` when there is one,
+    then ``custom_hooks`` in their order (``custom_hook``; ``model`` for
+    SetEpochInfoHook and YOLOXModeSwitchHook, which also reads
+    ``iv['train_dataset']`` and ``iv['max_epochs']``). A config without
+    ``log_config`` logs every step. A ``log_config.hooks`` entry other than
+    ``TextLoggerHook``, ``WandbLoggerHook`` and ``MMDetWandbHook`` raises,
+    as does a custom hook the JAX package does not build;
+    ``NumClassCheckHook`` is run by ``train_detector`` up front. Ranks
+    other than 0 drop the hooks that write or log (``RANK0_HOOKS``)."""
+    log_cfg = dict(cfg.get('log_config') or {})
+    for h in log_cfg.get('hooks') or []:
+        if h.get('type') not in LOG_HOOKS:
             raise NotImplementedError(f'log hook {h.get("type")} is not '
                                       f'ported')
     interval = log_interval(cfg)
@@ -332,21 +394,26 @@ def build_hooks(cfg: Config, iv: Dict[str, Any], work_dir: str, logger,
                 exp_name=os.path.basename(cfg.filename or ''),
                 CLASSES=list(classes or cfg.get('classes') or []))
     hooks = [TextLoggerHook(interval, logger, iv['max_iters'],
-                            result.history)] if pdist.rank() == 0 else []
-    hooks += [CheckLossHook(interval),
-              CheckpointHook(work_dir, iv['ckpt_interval_iters'],
-                             iv['ckpt_max_keep'], iv['ckpt_save_last'],
-                             iv['max_iters'], logger, meta=meta,
-                             start=result.step)]
+                            result.history), CheckLossHook(interval)]
+    hooks += [H.WandbLoggerHook(h.get('interval', interval),
+                                h.get('init_kwargs'), logger)
+              for h in log_cfg.get('hooks') or []
+              if h.get('type') != 'TextLoggerHook'
+              and pdist.rank() == 0]
+    hooks.append(CheckpointHook(work_dir, iv['ckpt_interval_iters'],
+                                iv['ckpt_max_keep'], iv['ckpt_save_last'],
+                                iv['max_iters'], logger, meta=meta,
+                                start=result.step))
     if val_dataset is not None:
         hooks.append(EvalHook(val_dataset, cfg, iv['eval_interval_iters'],
                               iv['eval_metrics'], logger,
                               iv['eval_dynamic_intervals'],
                               result.evaluations))
-    for h in cfg.get('custom_hooks') or []:
-        if h.get('type') != 'NumClassCheckHook':
-            raise NotImplementedError(f'custom hook {h.get("type")} is not '
-                                      f'ported')
+    hooks += [custom_hook(h, model, iv, logger)
+              for h in cfg.get('custom_hooks') or []
+              if h.get('type') != 'NumClassCheckHook']
+    if pdist.rank() != 0:
+        hooks = [h for h in hooks if not isinstance(h, RANK0_HOOKS)]
     return hooks
 
 
@@ -418,9 +485,12 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
 
     result = TrainResult(step=start)
     interval = log_interval(cfg)
+    iv['train_dataset'] = dataset
+    iv['max_epochs'] = max(max_iters // iters_per_epoch, 1)
     hooks = build_hooks(cfg, iv, work_dir, logger, result,
                         val_dataset=val_dataset,
-                        classes=getattr(dataset, 'CLASSES', None))
+                        classes=getattr(dataset, 'CLASSES', None),
+                        model=model)
     batches = iter(loader)
     try:
         for i in range(start, max_iters):

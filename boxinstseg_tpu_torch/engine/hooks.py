@@ -18,25 +18,37 @@ arithmetic is the JAX package's: a hook fires after step ``i`` when
 - ``EvalHook``: ``apis.test.run_evaluation`` every ``interval`` steps,
   ``dynamic_intervals`` switching it once training passes their start, the
   metrics kept with their step;
+- ``EMAHook`` and its momentum-scheduled subclasses: an EMA of the
+  parameters on their device;
+- ``SetEpochInfoHook``, ``YOLOXModeSwitchHook``: the epoch into the model,
+  the YOLOX mode switch into the dataset and the head;
+- ``SyncNormHook``, ``SyncRandomSizeHook``: no-ops, kept so that configs
+  naming them build;
+- ``MemoryProfilerHook``, ``ProfilerHook``: each card's memory in use, a
+  ``torch.profiler`` trace over a window of steps;
+- ``WandbLoggerHook``: the logs to wandb, a no-op without it;
 - ``num_class_check``: the dataset's classes against the head's.
 
 Under a process group (``parallel.dist``) ``apis.train.build_hooks`` gives
-the text log to rank 0 only, and the logs a logged step passes are already
-the mean over ranks, so every rank's loss check sees the same loss and all
-stop together. The JAX package's EMA, YOLOX, wandb, memory and profiler
-hooks are not ported.
+the text log, wandb, the memory log and the profiler to rank 0 only, and
+the logs a logged step passes are already the mean over ranks, so every
+rank's loss check sees the same loss and all stop together. Every rank
+keeps its EMA; the weights are the same on every rank, and so is the EMA.
 """
 from __future__ import annotations
 
+import contextlib
+import logging
 import math
 import os
 import re
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..parallel import dist as pdist
+from ..utils.profiling import device_memory_stats, trace
 
 CKPT_NAME = re.compile(r'^iter_(\d+)\.pth$')
 
@@ -204,6 +216,200 @@ class EvalHook(Hook):
         self.evaluations.append((i + 1, metrics))
         if self.logger is not None:
             self.logger.info(f'eval @ iter {i + 1}: {metrics}')
+
+
+class EMAHook(Hook):
+    """An exponential moving average of the model's parameters
+    (``named_parameters()``; buffers are not averaged, as the JAX hook
+    averages ``state.params`` only), every ``interval`` steps: a copy of
+    the parameters at the first update, then ``ema = m * ema + (1 - m) *
+    p``, in place on the parameters' device with ``torch._foreach_*``.
+
+    ``momentum`` is the JAX package's KEEP-rate ``m`` (close to 1), not the
+    reference's update rate: an mmdet config's ``momentum=0.0002`` means
+    keep 0.9998 there and keep 0.0002 here. ``momentum_fun(i)``, set by the
+    momentum-scheduled subclasses, gives the reference's update rate, applied
+    as the keep-rate ``1 - momentum_fun(i)``. The average is neither used
+    for evaluation nor written into checkpoints, as in the JAX package;
+    ``ema_params`` holds it by parameter name (the reference's
+    core/hook/ema.py BaseEMAHook)."""
+
+    def __init__(self, momentum: float = 0.999, interval: int = 1,
+                 momentum_fun: Optional[Callable[[int], float]] = None):
+        self.momentum = momentum
+        self.interval = max(int(interval), 1)
+        self.momentum_fun = momentum_fun
+        self.ema_params: Optional[Dict[str, torch.Tensor]] = None
+
+    def keep_rate(self, i: int) -> float:
+        if self.momentum_fun is not None:
+            return 1.0 - float(self.momentum_fun(i))
+        return self.momentum
+
+    @torch.no_grad()
+    def after_step(self, i, state, logs):
+        if (i + 1) % self.interval:
+            return
+        named = dict(state.model.named_parameters())
+        if self.ema_params is None:
+            self.ema_params = {k: p.detach().clone()
+                               for k, p in named.items()}
+            return
+        m = self.keep_rate(i)
+        ema = list(self.ema_params.values())
+        torch._foreach_mul_(ema, m)
+        torch._foreach_add_(ema, [named[k].detach()
+                                  for k in self.ema_params], alpha=1.0 - m)
+
+
+class ExpMomentumEMAHook(EMAHook):
+    """EMA with an exponentially decaying update rate (reference ema.py:
+    45-56): m_ref(t) = (1 - m0) * exp(-(1 + t) / total_iter) + m0."""
+
+    def __init__(self, momentum: float = 0.0002, total_iter: int = 2000,
+                 interval: int = 1):
+        super().__init__(interval=interval, momentum_fun=lambda t: (
+            1 - momentum) * math.exp(-(1 + t) / total_iter) + momentum)
+
+
+class LinearMomentumEMAHook(EMAHook):
+    """EMA with a linearly warming update rate (reference ema.py:59-71):
+    m_ref(t) = min(m0 ** interval, (1 + t) / (warm_up + t))."""
+
+    def __init__(self, momentum: float = 0.0002, warm_up: int = 100,
+                 interval: int = 1):
+        super().__init__(interval=interval, momentum_fun=lambda t: min(
+            momentum ** interval, (1 + t) / (warm_up + t)))
+
+
+class SetEpochInfoHook(Hook):
+    """After an epoch, ``model.set_epoch(epoch + 1)`` where the model has
+    one (reference core/hook/set_epoch_info_hook.py)."""
+
+    def __init__(self, model=None):
+        self.model = model
+
+    def after_epoch(self, epoch, state):
+        if self.model is not None and hasattr(self.model, 'set_epoch'):
+            self.model.set_epoch(epoch + 1)
+
+
+class SyncNormHook(Hook):
+    """A no-op (reference core/hook/sync_norm_hook.py all-reduces the BN
+    statistics over ranks before evaluation). The port's BN over the
+    global batch (``models.layers.SyncBatchNorm``, whose moments are summed
+    over ranks) leaves the same running statistics on every rank already,
+    as the JAX package's global-batch program does."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+
+class SyncRandomSizeHook(Hook):
+    """A no-op (reference core/hook/sync_random_size_hook.py broadcasts a
+    random train size over ranks). The loader picks each batch's canvas
+    over the global batch (``data.loader.TrainLoader``'s ``extent_max``),
+    the same on every rank."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+
+class YOLOXModeSwitchHook(Hook):
+    """For the last ``num_last_epochs``: the dataset's pipeline without
+    ``skip_type_keys`` (``update_skip_type_keys``, as
+    ``data.coco.MultiImageMixDataset``) and the head's ``use_l1`` set,
+    where each exists (reference core/hook/yolox_mode_switch_hook.py)."""
+
+    def __init__(self, num_last_epochs: int = 15,
+                 skip_type_keys=('Mosaic', 'RandomAffine', 'MixUp'),
+                 model=None, dataset=None, max_epochs: int = 0,
+                 logger=None):
+        self.num_last_epochs = num_last_epochs
+        self.skip_type_keys = tuple(skip_type_keys)
+        self.model = model
+        self.dataset = dataset
+        self.max_epochs = max_epochs
+        self.logger = logger or logging.getLogger('boxinstseg_tpu_torch')
+
+    def after_epoch(self, epoch, state):
+        if (epoch + 2) != self.max_epochs - self.num_last_epochs + 1:
+            return
+        if hasattr(self.dataset, 'update_skip_type_keys'):
+            self.dataset.update_skip_type_keys(self.skip_type_keys)
+            self.logger.info('No mosaic and mixup aug now!')
+        head = getattr(self.model, 'bbox_head', None)
+        if hasattr(head, 'use_l1'):
+            head.use_l1 = True
+            self.logger.info('Add additional L1 loss now!')
+
+
+class MemoryProfilerHook(Hook):
+    """Every ``interval`` steps, each card's memory in use
+    (``utils.profiling.device_memory_stats``) to the log; nothing without
+    a card."""
+
+    def __init__(self, interval: int = 500, logger=None):
+        self.interval = max(int(interval), 1)
+        self.logger = logger or logging.getLogger('boxinstseg_tpu_torch')
+
+    def after_step(self, i, state, logs):
+        if (i + 1) % self.interval:
+            return
+        for dev, stats in device_memory_stats().items():
+            self.logger.info(f'{dev}: {stats["bytes_in_use"] / 2**30:.2f} '
+                             f'GiB in use')
+
+
+class ProfilerHook(Hook):
+    """A ``torch.profiler`` trace (``utils.profiling.trace``) of the steps
+    after step ``start`` up to step ``stop`` (1-based, the JAX hook's
+    window), written to ``log_dir/trace.json`` after a sync of the card, so
+    that the last step's kernels are in it; ``path`` names the file."""
+
+    def __init__(self, start: int = 50, stop: int = 55,
+                 log_dir: str = './profile', logger=None):
+        self.start = start
+        self.stop = stop
+        self.log_dir = log_dir
+        self.logger = logger or logging.getLogger('boxinstseg_tpu_torch')
+        self.path: Optional[str] = None
+        self._trace: Optional[contextlib.ExitStack] = None
+
+    def after_step(self, i, state, logs):
+        if (i + 1) == self.start and self._trace is None:
+            self._trace = contextlib.ExitStack()
+            self.path = self._trace.enter_context(trace(self.log_dir))
+            self.logger.info(f'profiler trace started -> {self.log_dir}')
+        elif (i + 1) == self.stop and self._trace is not None:
+            self._trace.close()
+            self._trace = None
+            self.logger.info(f'profiler trace stopped: {self.path}')
+
+
+class WandbLoggerHook(Hook):
+    """Every ``interval`` steps, the step's logs to wandb (reference
+    MMDetWandbHook); a no-op, with one warning, where ``wandb`` does not
+    import."""
+
+    def __init__(self, interval: int = 50,
+                 init_kwargs: Optional[dict] = None, logger=None):
+        self.interval = max(int(interval), 1)
+        try:
+            import wandb
+        except ImportError:
+            wandb = None
+            (logger or logging.getLogger('boxinstseg_tpu_torch')).warning(
+                'WandbLoggerHook: wandb does not import; nothing is logged '
+                'to it')
+        self.wandb = wandb
+        if wandb is not None:
+            wandb.init(**(init_kwargs or {}))
+
+    def after_step(self, i, state, logs):
+        if self.wandb is None or (i + 1) % self.interval:
+            return
+        self.wandb.log({k: float(v) for k, v in logs.items()}, step=i + 1)
 
 
 def num_class_check(dataset, model_num_classes: int) -> None:

@@ -15,10 +15,15 @@ matching ``custom_keys`` entry sets ``lr_mult`` (and ``decay_mult``), and
 calls norms. The rules read the port's mmdet-style parameter names and give
 every parameter the multipliers of its JAX leaf. Each group keeps its
 ``lr_mult``, which the train step multiplies into the scheduled LR.
+
+``constructor='LayerDecayOptimizerConstructor'`` multiplies a backbone
+parameter's ``lr_mult`` by ``layer_decay_rate ** (num_layers + 1 -
+layer_id)``, with the JAX package's layer ids (``layer_id``).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+import re
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -34,23 +39,68 @@ def is_norm_param(name: str, param: torch.Tensor) -> bool:
             and param.dim() <= 1)
 
 
+def layer_id(name: str, num_layers: int) -> Optional[int]:
+    """The depth index of a backbone parameter, the JAX package's
+    ``_layer_id`` re-expressed over the port's names (None outside the
+    backbone):
+
+    - 0 for the stem and for every name holding ``patch_embed``, ``conv1``
+      or ``bn1``. As in the JAX rule, whose pattern is tried first and
+      matches anywhere in the path, that includes a ResNet block's own
+      ``conv1`` / ``bn1``; but not Swin's patch-embedding norm, which is
+      ``patch_norm`` there (below);
+    - ``min(s * 2 + b + 1, num_layers)`` for Swin's
+      ``stages.{s}.blocks.{b}``;
+    - ``min((n - 1) * 2 + b + 1, num_layers)`` for ResNet's
+      ``layer{n}.{b}``;
+    - ``num_layers`` for the rest (Swin's patch-embedding norm, patch
+      merging and output norms).
+    """
+    if not name.startswith('backbone.'):
+        return None
+    if name.startswith('backbone.patch_embed.norm.'):
+        return num_layers
+    if re.search(r'patch_embed|conv1|bn1', name):
+        return 0
+    m = re.search(r'stages\.(\d+)\.blocks\.(\d+)\.', name)
+    if m:
+        return min(int(m.group(1)) * 2 + int(m.group(2)) + 1, num_layers)
+    m = re.search(r'layer(\d)\.(\d+)\.', name)
+    if m:
+        return min((int(m.group(1)) - 1) * 2 + int(m.group(2)) + 1,
+                   num_layers)
+    return num_layers
+
+
 def paramwise_multipliers(optimizer_cfg: dict):
-    """(lr_mult(name), decay_mult(name, param)) of ``paramwise_cfg``."""
-    if optimizer_cfg.get('constructor'):
+    """(lr_mult(name), decay_mult(name, param)) of ``paramwise_cfg`` and
+    the ``constructor``: none or 'LayerDecayOptimizerConstructor'
+    (``num_layers``, 12 by default, and ``layer_decay_rate`` or
+    ``decay_rate``, 0.9, in ``paramwise_cfg``); another raises."""
+    constructor = optimizer_cfg.get('constructor')
+    if constructor not in (None, 'LayerDecayOptimizerConstructor'):
         raise NotImplementedError(
-            f'optimizer constructor {optimizer_cfg["constructor"]!r} is '
-            f'not ported yet')
+            f'optimizer constructor {constructor!r} is not ported')
     pw = dict(optimizer_cfg.get('paramwise_cfg') or {})
     keys = sorted((pw.get('custom_keys') or {}).items(),
                   key=lambda kv: -len(kv[0]))
     norm_decay = pw.get('norm_decay_mult')
+    layer_decay = constructor == 'LayerDecayOptimizerConstructor'
+    num_layers = pw.get('num_layers', 12)
+    decay_rate = float(pw.get('layer_decay_rate', pw.get('decay_rate', 0.9)))
 
     def lr_mult(name: str) -> float:
         lowered = name.lower()
+        mult = 1.0
         for key, spec in keys:
             if key.lower() in lowered:
-                return float(spec.get('lr_mult', 1.0))
-        return 1.0
+                mult = float(spec.get('lr_mult', 1.0))
+                break
+        if layer_decay:
+            lid = layer_id(lowered, num_layers)
+            if lid is not None:
+                mult *= decay_rate ** (num_layers + 1 - lid)
+        return mult
 
     def decay_mult(name: str, param: torch.Tensor) -> float:
         lowered = name.lower()

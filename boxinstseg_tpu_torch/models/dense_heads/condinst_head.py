@@ -6,6 +6,8 @@ mmdet/models/dense_heads/condinst_head.py).
   outputs plus the regression-tower features that feed the dynamic-param
   conv, which lives in ``CondInstMaskHead.param_conv`` as in the reference
   checkpoints (``mask_head.param_conv``).
+- ``CondInstSegmHead``: the optional semantic head of fully supervised
+  CondInst on P3, and its min-area focal loss.
 - ``CondInstMaskBranch``: fuses P3-P5 into a stride-8 mask feature map.
 - ``CondInstMaskHead``: dynamic-conv mask decoder (batched einsums over the
   sampled instances) and the BoxInst losses; the pairwise term goes
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 
 from ..layers import (Conv2d, ConvModule, Scale, bias_init_with_prob,
                       normal_init_)
+from ..losses.focal_loss import sigmoid_focal_loss
 from ..losses.projection import compute_project_term
 from ...core.targets.fcos import INF, FcosTargets, fcos_targets
 from ...ops.boxes import distance2bbox
@@ -160,6 +163,66 @@ class CondInstBoxHead(nn.Module):
         losses = dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
                       loss_centerness=loss_ctr)
         return losses, targets, pts
+
+
+@HEADS.register_module()
+class CondInstSegmHead(nn.Module):
+    """Auxiliary semantic head (reference: CondInstSegmHead,
+    condinst_head.py:878-968): ``stacked_convs`` 3x3 ``ConvModule``s with
+    BN over the global batch (``segm_branch.{i}``), then a 1x1 conv to the
+    class logits with the focal prior's bias (``segm_conv``)."""
+
+    def __init__(self, num_classes: int, in_channels: int = 256,
+                 in_stride: int = 8, stacked_convs: int = 2,
+                 feat_channels: int = 128, loss_segm: Optional[dict] = None,
+                 norm_cfg: Optional[dict] = None,
+                 init_cfg: Optional[dict] = None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.in_stride = in_stride
+        norm = norm_cfg or dict(type='BN')
+        self.segm_branch = nn.Sequential(*(
+            ConvModule(in_channels if i == 0 else feat_channels,
+                       feat_channels, 3, 1, 1, norm_cfg=norm)
+            for i in range(stacked_convs)))
+        self.segm_conv = Conv2d(feat_channels, num_classes, 1, 1, 0)
+        nn.init.constant_(self.segm_conv.bias, bias_init_with_prob(0.01))
+
+    def forward(self, x):
+        """(B, C, H, W) P3 features -> (B, num_classes, H, W) logits."""
+        return self.segm_conv(self.segm_branch(x))
+
+    def loss(self, segm_pred: torch.Tensor, gt_masks: torch.Tensor,
+             gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+             mask_stride: int) -> Dict[str, torch.Tensor]:
+        """Sigmoid focal loss against min-area semantic targets (reference
+        get_targets, condinst_head.py:940-968): each pixel takes the label
+        of the smallest valid GT mask that covers it, or the background.
+
+        segm_pred: (B, C, Hs, Ws) at ``in_stride``; gt_masks: (B, G, H, W)
+        binary at ``mask_stride``, sampled at ``start::step`` with ``step =
+        in_stride // mask_stride`` and ``start = step // 2``. The loss is
+        over the positive pixels of the global batch
+        (``parallel.dist.reduce_mean_denominator``)."""
+        b, c, hs, ws = segm_pred.shape
+        step = self.in_stride // mask_stride
+        start = step // 2
+        areas = gt_masks.sum(dim=(2, 3)).float()[..., None, None]
+        grid = gt_masks[:, :, start::step, start::step][:, :, :hs, :ws]
+        areas = torch.where((grid > 0) & gt_valid[..., None, None], areas,
+                            torch.full_like(areas, float('inf')))
+        min_idx = torch.argmin(areas, dim=1)                    # (B, hs, ws)
+        covered = torch.isfinite(torch.gather(areas, 1, min_idx[:, None]))
+        labels = torch.gather(
+            gt_labels.long()[..., None, None].expand(-1, -1, *grid.shape[2:]),
+            1, min_idx[:, None])
+        labels = torch.where(covered, labels, torch.full_like(
+            labels, self.num_classes))[:, 0]
+        num_pos = pdist.reduce_mean_denominator(
+            (labels != self.num_classes).sum().float(), 1.0)
+        loss = sigmoid_focal_loss(segm_pred.permute(0, 2, 3, 1), labels,
+                                  self.num_classes, avg_factor=num_pos)
+        return dict(loss_segm=loss)
 
 
 @HEADS.register_module()

@@ -1,8 +1,11 @@
 """CondInst / BoxInst detector, counterpart of
 ``boxinstseg_tpu/models/detectors/condinst.py`` (reference:
 mmdet/models/detectors/condinst.py): backbone -> FPN -> box head -> mask
-branch -> dynamic mask head. ``loss`` is the full BoxInst training
-objective on a static-shape batch; ``predict`` emits fixed-capacity
+branch -> dynamic mask head, and, for fully supervised CondInst, the
+semantic head. ``loss`` is the full BoxInst training objective on a
+static-shape batch, or with ``mask_head.boxinst_enabled`` False the dice
+loss against GT masks (and the semantic loss with a ``segm_head``);
+``predict`` emits fixed-capacity
 detections and stride-4 mask scores, which ``apis.test.format_detection``
 resizes to each image's original resolution.
 """
@@ -15,9 +18,11 @@ import torch.nn as nn
 
 from ..dense_heads.condinst_head import flatten_levels
 from ..layers import f32_tree, fp32_region
+from ..losses.dice_loss import dice_coefficient
 from ...core.targets.fcos import sample_positives_per_gt
 from ...ops.boxes import distance2bbox
 from ...ops.nms import greedy_nms, top_k
+from ...parallel import dist as pdist
 from ...registry import BACKBONES, DETECTORS, HEADS, NECKS
 
 DEFAULT_MEAN = (123.675, 116.28, 103.53)
@@ -38,8 +43,6 @@ class CondInst(nn.Module):
                  img_norm_mean: Sequence[float] = DEFAULT_MEAN,
                  img_norm_std: Sequence[float] = DEFAULT_STD):
         super().__init__()
-        if segm_head is not None:
-            raise NotImplementedError('CondInstSegmHead is not ported yet')
         self.backbone = BACKBONES.build(backbone)
         self.neck = NECKS.build(neck) if neck else None
         self.bbox_head = HEADS.build(bbox_head)
@@ -49,6 +52,7 @@ class CondInst(nn.Module):
         mask_cfg = dict(mask_head)
         mask_cfg['bbox_head_channels'] = bbox_head.get('feat_channels', 256)
         self.mask_head = HEADS.build(mask_cfg)
+        self.segm_head = HEADS.build(segm_head) if segm_head else None
         self.test_cfg = test_cfg
         self.img_norm_mean = tuple(img_norm_mean)
         self.img_norm_std = tuple(img_norm_std)
@@ -62,7 +66,9 @@ class CondInst(nn.Module):
     def forward(self, images):
         """Plain forward: box-head outputs (with the dynamic params under
         'param') and the mask-branch features."""
-        feats = self.extract_feat(images)
+        return self._forward(self.extract_feat(images))
+
+    def _forward(self, feats):
         outs = self.bbox_head(feats)
         outs['param'] = [self.mask_head.param_conv(f)
                          for f in outs.pop('reg_feat')]
@@ -71,14 +77,27 @@ class CondInst(nn.Module):
     # ------------------------------------------------------------------ train
     def loss(self, batch: Dict[str, torch.Tensor], iteration
              ) -> Dict[str, torch.Tensor]:
-        """Full BoxInst training losses on one batch.
+        """The training losses on one batch: BoxInst's, or with
+        ``boxinst_enabled`` False CondInst's (dice against ``gt_masks``, and
+        the semantic loss with a ``segm_head``).
 
         batch keys: image (B, 3, H, W) normalised RGB; img_shape (B, 2);
         pixels_removed (B,); gt_bboxes (B, G, 4); gt_labels (B, G);
-        gt_valid (B, G). ``iteration`` drives the pairwise warmup."""
-        outs, mask_feat = f32_tree(self(batch['image']))
+        gt_valid (B, G); for CondInst gt_masks (B, G, H, W) binary at
+        stride 1. ``iteration`` drives the pairwise warmup."""
+        feats = self.extract_feat(batch['image'])
+        outs, mask_feat = f32_tree(self._forward(feats))
+        segm_pred = None
+        if self.segm_head is not None and 'gt_masks' in batch:
+            segm_pred = self.segm_head(feats[0]).float()
         with fp32_region(mask_feat.device):
-            return self._loss(outs, mask_feat, batch, iteration)
+            losses = self._loss(outs, mask_feat, batch, iteration)
+            if segm_pred is not None:
+                # the masks are at stride 1 (apis.train.mask_stride)
+                losses.update(self.segm_head.loss(
+                    segm_pred, batch['gt_masks'], batch['gt_labels'],
+                    batch['gt_valid'], mask_stride=1))
+            return losses
 
     def _loss(self, outs, mask_feat, batch, iteration):
         """The loss math on the heads' fp32 outputs."""
@@ -100,19 +119,36 @@ class CondInst(nn.Module):
             point_idx[..., None].expand(-1, -1, params_flat.shape[-1]))
         coors = pts['points'][point_idx]                        # (B, K, 2)
         levels = pts['level_inds'][point_idx]                   # (B, K)
-        boxes = torch.gather(batch['gt_bboxes'], 1,
-                             sample_gt[..., None].expand(-1, -1, 4))
-
         mask_logits = self.mask_head.decode(mask_feat, params, coors, levels)
         if not self.mask_head.boxinst_enabled:
-            raise NotImplementedError('fully-supervised CondInst is not '
-                                      'ported yet')
+            losses.update(self.dice_loss(mask_logits, batch['gt_masks'],
+                                         sample_gt, sample_valid))
+            return losses
+        boxes = torch.gather(batch['gt_bboxes'], 1,
+                             sample_gt[..., None].expand(-1, -1, 4))
         sim, _ = self.mask_head.color_similarity_targets(
             batch['image'], self.img_norm_mean, self.img_norm_std,
             batch['img_shape'], batch['pixels_removed'])
         losses.update(self.mask_head.loss(mask_logits, boxes, sample_valid,
                                           sim.detach(), iteration))
         return losses
+
+    def dice_loss(self, mask_logits, gt_masks, sample_gt, sample_valid):
+        """Fully supervised CondInst's mask loss: the dice coefficient of
+        each sample's sigmoid mask against its GT mask, sampled at
+        ``s//2::s`` for the mask head's ``out_stride`` s from the stride-1
+        ``gt_masks``, averaged over the valid samples of the global batch
+        (``parallel.dist.reduce_mean_denominator``)."""
+        s = self.mask_head.out_stride
+        tgt = gt_masks[:, :, s // 2::s, s // 2::s]
+        b, k, h, w = mask_logits.shape
+        tgt = torch.gather(tgt, 1, sample_gt[..., None, None].expand(
+            -1, -1, h, w)).float()
+        d = dice_coefficient(torch.sigmoid(mask_logits).reshape(b * k, -1),
+                             tgt.reshape(b * k, -1))
+        v = sample_valid.reshape(-1).float()
+        return dict(loss_mask=(d * v).sum()
+                    / pdist.reduce_mean_denominator(v.sum(), 1.0))
 
     # -------------------------------------------------------------- inference
     @torch.no_grad()

@@ -1,5 +1,5 @@
-"""JAX CondInst, Box2Mask, DiscoBox and BoxLevelset variables (ResNet or
-Swin backbone) -> port ``state_dict``.
+"""JAX CondInst (with its semantic head), Box2Mask, DiscoBox and
+BoxLevelset variables (ResNet or Swin backbone) -> port ``state_dict``.
 
 The inverse of ``boxinstseg_tpu.utils.checkpoint_convert.
 convert_condinst_checkpoint``, ``convert_box2mask_head``,
@@ -215,6 +215,20 @@ def _mask_branch(sd, params, stats):
         _conv_module(sd, f'{prefix}.{i}', node, stats.get(name, {}))
 
 
+def _segm_head(sd, params, stats):
+    """CondInst's semantic head: ``segm_{i}`` -> ``segm_head.segm_branch.
+    {i}`` (conv and BN with its statistics), ``segm_conv``."""
+    for name, node in params.items():
+        m = re.match(r'^segm_(\d+)$', name)
+        if m:
+            _conv_module(sd, f'segm_head.segm_branch.{m.group(1)}', node,
+                         stats.get(name, {}))
+        elif name == 'segm_conv':
+            _emit_conv(sd, 'segm_head.segm_conv', node)
+        else:
+            raise KeyError(f'unknown semantic head entry {name}')
+
+
 def _mask_feat_head(sd, params):
     """DiscoBox's unified mask feature head: ``level_i_conv_j`` ->
     ``convs_all_levels.i.convj``, ``conv_pred`` -> ``conv_pred.0``."""
@@ -318,8 +332,8 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
     port ``state_dict``.
 
     Each submodule tree (backbone_m, neck_m, bbox_head_m, mask_branch_m,
-    mask_feat_head_m, panoptic_head_m) is converted when present, so a lone
-    backbone or head converts too."""
+    segm_head_m, mask_feat_head_m, panoptic_head_m) is converted when
+    present, so a lone backbone or head converts too."""
     batch_stats = batch_stats or {}
     sd: Dict[str, torch.Tensor] = {}
     if 'backbone_m' in params:
@@ -332,6 +346,9 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
     if 'mask_branch_m' in params:
         _mask_branch(sd, params['mask_branch_m'],
                      batch_stats.get('mask_branch_m', {}))
+    if 'segm_head_m' in params:
+        _segm_head(sd, params['segm_head_m'],
+                   batch_stats.get('segm_head_m', {}))
     if 'mask_feat_head_m' in params:
         _mask_feat_head(sd, params['mask_feat_head_m'])
     if 'panoptic_head_m' in params:

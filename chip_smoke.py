@@ -63,6 +63,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 10. swin reference - a small Box2Mask on a tiny Swin (window 4, odd maps,
                shifted blocks): loss dict and backbone gradients on the card
                against the CPU.
+10b. swin-l recipe - Box2Mask Swin-L LSJ at full width and depth, batch 1,
+               4 AdamW steps through tools/train_torch.py with the train
+               loop's other pieces: LayerDecayOptimizerConstructor over the
+               shipped custom keys (num_layers 12, rate 0.9), a cosine LR
+               with a linear warmup of 2 steps, EMAHook, MemoryProfilerHook
+               and ProfilerHook (steps 2-3): each param group's LR at each
+               step equals the schedule times its lr_mult, the EMA equals
+               the parameters after step 1 only (its update's ms printed),
+               the trace of step 3 names K5 and K6, a memory line a step.
 11. crf kernel - the DiscoBox CRF fixed point K7 against its plain version,
                bit for bit, at the main path's shape (2, 128, 200, 336), its
                transpose and ragged shapes (odd maps in 8 bands, K = 1, 5
@@ -116,6 +125,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                BoxInst's); then BoxInst's checkpoint through
                tools/test_torch.py (bbox segm, batch 1; the polygons
                decoded for the segm ground truth).
+20b. condinst - fully supervised CondInst R-50-FPN 1x at full width: the
+               BoxInst config with boxinst_enabled False, a CondInstSegmHead
+               on P3 and the masks loaded (CONDINST_OPTS), 5 SGD steps at
+               batch 2 through tools/train_torch.py on the JPEGs (polygon
+               masks at stride 1): K1/K2 launched 0 times, the median step
+               and its spread, peak memory, data_time beside the batch's
+               copy to the card; predict on one JPEG; a small supervised
+               CondInst's loss dict on the card against the CPU.
 21. ddp      - data parallelism (boxinstseg_tpu_torch.parallel), in child
                processes: tools/train_torch.py --launcher pytorch with
                RANK=0 WORLD_SIZE=1 over NCCL, BoxInst at full width, batch
@@ -130,11 +147,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                detections an image) in two gloo ranks and in one fresh
                process: rank 0's gathered per-image results and metrics
                equal the one process's, rank 1 returns {}.
+21b. ddp swin-l - Box2Mask Swin-L at full width, two gloo ranks on the one
+               card at batch 1 against one process at batch 2 on the two
+               JPEGs, 2 SGD steps: losses (rtol 1e-4) and grad norm (1e-3),
+               K5/K6 launched in every process.
 
 Every training phase logs every step (log_config.interval=1), so that each
 step's logged time ends in a device sync, and runs without evaluation
 (--no-validate). The device phase also says which of PIL, imageio and
-libnvjpeg the machine has. Phases 1-19 never import cv2; 20 and 21 read
+libnvjpeg the machine has. Phases 1-19 never import cv2; 20-21b read
 the JPEGs with it.
 
 Prints a JSON line with one entry per kernel, the card's nvidia-smi line,
@@ -1798,6 +1819,202 @@ def phase_swin_reference():
              f'{fwd.launches} and K6 {bwd.launches} times, expected 8 each')
 
 
+SWIN_RECIPE_STEPS = 4
+
+
+def swin_recipe_opts(log_dir):
+    """The Swin-L recipe's options: LayerDecay over the shipped custom keys,
+    a cosine schedule with a linear warmup of 2 steps, the EMA, memory and
+    profiler hooks (the trace of step 3), batch 1 on 1024x1024 synthetic
+    images, SWIN_RECIPE_STEPS steps."""
+    return ['runner.type=IterBasedRunner',
+            f'runner.max_iters={SWIN_RECIPE_STEPS}', 'log_config.interval=1',
+            'data.samples_per_gpu=1', 'data.train.type=SyntheticBoxDataset',
+            'data.train.img_h=1024', 'data.train.img_w=1024',
+            'optimizer.constructor=LayerDecayOptimizerConstructor',
+            'optimizer.paramwise_cfg.num_layers=12',
+            'optimizer.paramwise_cfg.layer_decay_rate=0.9',
+            "lr_config={'policy': 'CosineAnnealing', 'min_lr_ratio': 0.01, "
+            "'warmup': 'linear', 'warmup_iters': 2, 'warmup_ratio': 0.1, "
+            "'by_epoch': False}",
+            "custom_hooks=[{'type': 'EMAHook', 'momentum': 0.999}, "
+            "{'type': 'MemoryProfilerHook', 'interval': 1}, "
+            "{'type': 'ProfilerHook', 'start': 2, 'stop': 3, "
+            f"'log_dir': {log_dir!r}}}]"]
+
+
+@contextlib.contextmanager
+def recorded_optimizer(train):
+    """Wrap ``train.build_optimizer`` (the name ``apis.train`` calls) so
+    that the run's parameter names, each group's params and each step's
+    group LRs (a step pre-hook) are kept in the yielded dict."""
+    build = train.build_optimizer
+    seen = {'lrs': []}
+
+    def recording(cfg, named_params):
+        named = list(named_params)
+        opt = build(cfg, named)
+        seen['names'] = {id(p): n for n, p in named}
+        seen['optimizer'] = opt
+        opt.register_step_pre_hook(lambda o, args, kwargs: seen['lrs'].append(
+            [g['lr'] for g in o.param_groups]))
+        return opt
+    train.build_optimizer = recording
+    try:
+        yield seen
+    finally:
+        train.build_optimizer = build
+
+
+@contextlib.contextmanager
+def recorded_ema(hooks, device):
+    """Wrap ``EMAHook.after_step``: after each update, whether the average
+    equals the parameters (exactly), and the update's ms (on a card with
+    device syncs around it)."""
+    import torch
+    step = hooks.EMAHook.after_step
+    seen = {'equal': [], 'ms': [], 'count': 0}
+    sync = torch.cuda.synchronize if torch.device(device).type == 'cuda' \
+        else (lambda: None)
+
+    def recording(self, i, state, logs):
+        sync()
+        t0 = time.perf_counter()
+        step(self, i, state, logs)
+        sync()
+        seen['ms'].append(1e3 * (time.perf_counter() - t0))
+        params = dict(state.model.named_parameters())
+        seen['equal'].append(all(torch.equal(v, params[k])
+                                 for k, v in self.ema_params.items()))
+        seen['count'] = sum(v.numel() for v in self.ema_params.values())
+    hooks.EMAHook.after_step = recording
+    try:
+        yield seen
+    finally:
+        hooks.EMAHook.after_step = step
+
+
+@contextlib.contextmanager
+def logged_lines(pattern):
+    """The package logger's messages holding ``pattern``, kept within."""
+    import logging
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            if pattern in record.getMessage():
+                lines.append(record.getMessage())
+    handler = Keep()
+    logger = logging.getLogger('boxinstseg_tpu_torch')
+    logger.addHandler(handler)
+    try:
+        yield lines
+    finally:
+        logger.removeHandler(handler)
+
+
+def check_group_lrs(seen, cfg, lr_fn, steps):
+    """Each step's LR of each param group equals the schedule's times the
+    group's ``lr_mult``, and each group's ``lr_mult`` is the LayerDecay
+    rule's for every parameter in it; returns the groups' multipliers."""
+    from boxinstseg_tpu_torch.engine.optimizers import paramwise_multipliers
+    lr_mult, _ = paramwise_multipliers(cfg.optimizer)
+    groups = seen['optimizer'].param_groups
+    for g in groups:
+        names = [seen['names'][id(p)] for p in g['params']]
+        bad = [n for n in names if lr_mult(n) != g['lr_mult']]
+        if bad:
+            fail(f'group lr_mult {g["lr_mult"]} holds {bad[:3]}')
+    if len(seen['lrs']) != steps:
+        fail(f'{len(seen["lrs"])} optimizer steps recorded, not {steps}')
+    for i, lrs in enumerate(seen['lrs']):
+        for g, lr in zip(groups, lrs):
+            want = lr_fn(i) * g['lr_mult']
+            if abs(lr - want) > 1e-12 * abs(want):
+                fail(f'step {i + 1}: group LR {lr}, schedule x lr_mult '
+                     f'{want}')
+    return sorted({g['lr_mult'] for g in groups})
+
+
+def phase_swin_recipe(tool, device='cuda', narrow=None):
+    """Box2Mask Swin-L LSJ at full width and depth, batch 1,
+    SWIN_RECIPE_STEPS AdamW steps through the train entry point with the
+    LayerDecay constructor, a cosine schedule and the EMA, memory and
+    profiler hooks: each group's LR at each step, the EMA against the
+    parameters after steps 1 and 4, the trace of step 3 naming K5 and K6,
+    one memory line a step, K5 / K6 launches. ``device`` and ``narrow``
+    rehearse it on the CPU (no kernel, no card: no memory line)."""
+    import torch
+    from boxinstseg_tpu_torch.apis import train
+    from boxinstseg_tpu_torch.engine import hooks
+    from boxinstseg_tpu_torch.ops import swin_attention as swa
+    register_dataset()
+    work_dir = tempfile.mkdtemp(prefix='chip_smoke_recipe_')
+    seed, steps = 0, SWIN_RECIPE_STEPS
+    card = device == 'cuda'
+    opts = [*swin_recipe_opts(os.path.join(work_dir, 'profile')),
+            *(narrow or ())]
+    try:
+        cfg = tool.load_config(SWIN_CONFIG, opts, work_dir, seed)
+        lr_fn, base_lr, _, _ = train.train_schedule(cfg, 1, 16)
+        print(f'optimizer {cfg.optimizer.type}, constructor '
+              f'{cfg.optimizer.constructor}, paramwise_cfg '
+              f'{dict(cfg.optimizer.paramwise_cfg)}; lr_config '
+              f'{dict(cfg.lr_config)}; custom_hooks '
+              f'{[dict(h) for h in cfg.custom_hooks]}')
+        fwd, bwd = (swa.window_attention_forward_cuda,
+                    swa.window_attention_backward_cuda)
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        fwd.launches = bwd.launches = 0
+        with recorded_optimizer(train) as seen, \
+                recorded_ema(hooks, device) as ema, \
+                logged_lines('GiB in use') as memory, live_gt_counts() as gts:
+            result = tool.main([SWIN_CONFIG, '--work-dir', work_dir,
+                                '--seed', str(seed), '--device', device,
+                                '--no-validate', '--cfg-options', *opts])
+        launches = (fwd.launches, bwd.launches)
+        check_history(result, steps, required=('loss_cls', 'loss_project'))
+        per_step = sum(cfg.model.backbone.depths)
+        if card and launches != (per_step * steps,) * 2:
+            fail(f'K5 / K6 launched {launches} times in {steps} steps')
+        mults = check_group_lrs(seen, cfg, lr_fn, steps)
+        if len(mults) < 13:
+            fail(f'{len(mults)} distinct lr_mult values: {mults}')
+        print(f'{len(seen["optimizer"].param_groups)} param groups, lr_mult '
+              f'{min(mults):.6g} to {max(mults):.6g} ({len(mults)} values); '
+              f'each group\'s LR = schedule x lr_mult at every step; the '
+              f'schedule: ' + ', '.join(f'{lr_fn(i):.6g}'
+                                        for i in range(steps)))
+        if ema['equal'] != [True] + [False] * (steps - 1):
+            fail(f'the EMA equals the parameters after steps '
+                 f'{[i + 1 for i, e in enumerate(ema["equal"]) if e]}, '
+                 f'expected after step 1 only')
+        print(f'EMA of {ema["count"]} parameters: equal to them after step '
+              f'1, apart after steps 2-{steps}; the update ms (device syncs '
+              f'around it) ' + ', '.join(f'{t:.3f}' for t in ema['ms'][1:]))
+        with open(os.path.join(work_dir, 'profile', 'trace.json')) as f:
+            text = f.read()
+        names = ('swin_attention_forward_kernel',
+                 'swin_attention_backward_kernel') if card \
+            else ('aten::linear',)
+        missing = [n for n in names if n not in text]
+        if missing:
+            fail(f'the trace of step 3 lacks {missing}')
+        print(f'trace of step 3: {len(text) / 2**20:.1f} MiB; ' + ', '.join(
+            f'{n} {text.count(n)} times' for n in names))
+        if len(memory) != (steps if card else 0):
+            fail(f'{len(memory)} memory lines in {steps} steps: {memory}')
+        print(f'memory log: {memory}')
+        print(f'launches K5 / K6 {launches} ({per_step} a step each)')
+        if card:
+            print_steps(result, torch.cuda.max_memory_allocated(), gts)
+            del result, seen
+            release_cache()
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
 def crf_inputs(shape, gen, rng, full=False):
     """K7's inputs as DiscoBox makes them on the card: the CRF kernel of a
     blocky image (flat 8x8 blocks at stride 4, the synthetic data's 32x32,
@@ -2706,16 +2923,29 @@ def loader_rate(cfg):
 
 
 @contextlib.contextmanager
-def pairwise_launches():
-    """The pairwise kernels' launches within: set to 0 on entry; the dict
-    is filled on exit."""
-    from boxinstseg_tpu_torch.ops import pairwise as pw
+def launches_of(counters):
+    """The launches of ``counters`` (name: the wrapper whose ``launches``
+    counts them) within: set to 0 on entry; the dict is filled on exit."""
     counts = {}
-    pw.pairwise_forward_cuda.launches = 0
-    pw.pairwise_grad_cuda.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     yield counts
-    counts.update(pairwise_forward=pw.pairwise_forward_cuda.launches,
-                  pairwise_backward=pw.pairwise_grad_cuda.launches)
+    counts.update({name: fn.launches for name, fn in counters.items()})
+
+
+def pairwise_launches():
+    """The pairwise kernels' launches within (``launches_of``)."""
+    from boxinstseg_tpu_torch.ops import pairwise as pw
+    return launches_of({'pairwise_forward': pw.pairwise_forward_cuda,
+                        'pairwise_backward': pw.pairwise_grad_cuda})
+
+
+def swin_launches():
+    """The window-attention kernels' launches within (``launches_of``)."""
+    from boxinstseg_tpu_torch.ops import swin_attention as swa
+    return launches_of(
+        {'swin_attention_forward': swa.window_attention_forward_cuda,
+         'swin_attention_backward': swa.window_attention_backward_cuda})
 
 
 def print_data_times(result):
@@ -2777,6 +3007,203 @@ def phase_files(tool, work_dir, files, device='cuda', narrow=None):
           f'truth) in {seconds:.3f} s: bbox mAP {metrics["bbox_mAP"]}, segm '
           f'mAP {metrics["segm_mAP"]}')
     return checkpoint
+
+
+# fully supervised CondInst from the BoxInst config: the mask loss against
+# the GT masks (polygons of the JPEGs), the semantic head on P3, and the
+# train pipeline loading the masks (LoadAnnotations is step 1 and Collect
+# step 7 of the shipped pipeline)
+CONDINST_OPTS = [
+    'model.mask_head.boxinst_enabled=False',
+    "model.segm_head={'type': 'CondInstSegmHead', 'num_classes': 80, "
+    "'in_channels': 256, 'in_stride': 8}",
+    'data.train.pipeline.1.with_mask=True',
+    "data.train.pipeline.7.keys=['img', 'gt_bboxes', 'gt_labels', "
+    "'gt_masks']"]
+
+
+@contextlib.contextmanager
+def timed_copies(device):
+    """Wrap ``apis.train.batch_to_device``: each call's ms (with a device
+    sync after it on a card, so the copy is done) and the MB of its GT
+    masks and of its image."""
+    import torch
+    from boxinstseg_tpu_torch.apis import train
+    to_device = train.batch_to_device
+    copies = []
+
+    def timed(batch, dev):
+        t0 = time.perf_counter()
+        out = to_device(batch, dev)
+        if torch.device(device).type == 'cuda':
+            torch.cuda.synchronize()
+        copies.append((1e3 * (time.perf_counter() - t0),
+                       batch['gt_masks'].nbytes / 2**20,
+                       batch['image'].nbytes / 2**20))
+        return out
+    train.batch_to_device = timed
+    try:
+        yield copies
+    finally:
+        train.batch_to_device = to_device
+
+
+def phase_condinst(tool, work_dir, files, device='cuda', narrow=None):
+    """Fully supervised CondInst R-50-FPN 1x at full width (the BoxInst
+    config with ``boxinst_enabled`` False, a CondInstSegmHead and the masks
+    loaded), STEPS SGD steps at batch 2 through tools/train_torch.py on the
+    JPEGs with polygon ground truth, stride-1 masks: no pairwise launch,
+    the step times (median of steps 2-5 and their spread), data_time beside
+    the masks' host-to-device copy, peak memory; then predict on one JPEG
+    and the small supervised CondInst's loss dict on the card against the
+    CPU. ``device`` and ``narrow`` rehearse it on the CPU."""
+    import numpy as np
+    import torch
+    from boxinstseg_tpu_torch.apis.inference import (inference_detector,
+                                                     init_detector)
+    from boxinstseg_tpu_torch.apis.train import mask_stride
+    seed = 0
+    narrow = (narrow or {}).get(CONFIG, [])
+    opts = [*CONDINST_OPTS, *TRAIN_OPTS, 'data.samples_per_gpu=2',
+            *file_opts(files, 'train'), *narrow]
+    wd = os.path.join(work_dir, 'condinst')
+    cfg = tool.load_config(CONFIG, opts, wd, seed)
+    pipeline = cfg.data.train.pipeline
+    if (pipeline[1]['type'], pipeline[7]['type']) != ('LoadAnnotations',
+                                                      'Collect') \
+            or not pipeline[1]['with_mask'] or mask_stride(cfg) != 1:
+        fail(f'the supervised CondInst pipeline {pipeline}')
+    print(f'model: CondInst, {cfg.model.backbone.type}-'
+          f'{cfg.model.backbone.depth}, boxinst_enabled '
+          f'{cfg.model.mask_head.boxinst_enabled}, segm_head '
+          f'{dict(cfg.model.segm_head)}; masks at stride '
+          f'{mask_stride(cfg)} from the polygons')
+    if device == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    with pairwise_launches() as launches, timed_copies(device) as copies, \
+            live_gt_counts() as gts:
+        result = tool.main([CONFIG, '--work-dir', wd, '--seed', str(seed),
+                            '--device', device, '--no-validate',
+                            '--cfg-options', *opts])
+    check_history(result, STEPS, required=('loss_mask', 'loss_segm'))
+    if any(launches.values()):
+        fail(f'the pairwise kernels launched {launches} with boxinst '
+             f'off')
+    step_ms = [1e3 * (h['time'] - h['data_time']) for h in result.history]
+    later = step_ms[1:]
+    print(f'losses at step {result.step}: ' + ', '.join(
+        f'{k} {v:.5f}' for k, v in result.history[-1].items()
+        if k.startswith('loss')) + f'; pairwise launches {launches}')
+    print('step ms (compute + sync) with live GTs, data_time ms, the '
+          'batch\'s copy to the device ms (masks MB, image MB): ' + '; '.join(
+              f'{t:.3f} ({n}), {1e3 * h["data_time"]:.3f}, {c:.3f} '
+              f'({m:.1f}, {im:.1f})' for t, n, h, (c, m, im) in zip(
+                  step_ms, gts, result.history, copies)))
+    peak = torch.cuda.max_memory_allocated() / 2**30 \
+        if device == 'cuda' else float('nan')
+    print(f'median of steps 2-{result.step} {statistics.median(later):.3f} '
+          f'ms, spread {min(later):.3f}-{max(later):.3f}; peak memory '
+          f'{peak:.3f} GiB')
+    pcfg = tool.load_config(CONFIG, [*CONDINST_OPTS,
+                                     'model.test_cfg.score_thr=0', *narrow])
+    model, pcfg = init_detector(pcfg, result.checkpoint, device=device)
+    img = os.path.join(files[1], '000.jpg')
+    times = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        det = inference_detector(model, pcfg, img)
+        if i:
+            times.append(1e3 * (time.perf_counter() - t0))
+    d = pcfg.model.test_cfg.max_per_img
+    if len(det['bboxes']) != d or len(det['masks']) != d \
+            or det['masks'][0].shape != FILE_SHAPES[0] \
+            or not np.isfinite(det['bboxes']).all():
+        fail(f'predict on {img}: {len(det["bboxes"])} boxes, masks '
+             f'{det["masks"][0].shape if det["masks"] else None}')
+    print(f'inference_detector on one JPEG {FILE_SHAPES[0]}: {d} '
+          f'detections, masks at the image\'s size; ms (loading, predict, '
+          f'format) {[round(t, 3) for t in times]}')
+    if device == 'cuda':
+        time_p3_heads(model)
+        del model
+        release_cache()
+        phase_condinst_reference()
+
+
+def time_p3_heads(model):
+    """Forward + backward ms (CUDA events, 10 calls after 3) of the
+    semantic head and of the mask branch alone at the step's shapes (batch
+    2, 800x1344: P3 100x168, P4, P5), in train mode, fp32; then of their
+    layers at P3 one by one: the semantic head's two ConvModules and 1x1
+    conv, and the mask branch's ConvModules of the same shapes (its P3
+    refine, 256 -> 128, and its first tower conv, 128 -> 128)."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(0)
+
+    def feat(c, s=1):
+        return torch.randn(2, c, 100 // s, 168 // s, device='cuda',
+                           generator=gen, requires_grad=True)
+    feats = [feat(256, s) for s in (1, 2, 4)]
+    segm, branch = model.segm_head.train(), model.mask_branch.train()
+    parts = {'semantic head': (segm, feats[0]),
+             'mask branch': (branch, feats),
+             'semantic segm_branch.0 (256->128)': (segm.segm_branch[0],
+                                                    feats[0]),
+             'semantic segm_branch.1 (128->128)': (segm.segm_branch[1],
+                                                    feat(128)),
+             'semantic segm_conv (1x1, 128->80)': (segm.segm_conv,
+                                                   feat(128)),
+             'mask branch refines.0 (256->128)': (branch.refines[0],
+                                                  feats[0]),
+             'mask branch mask_branch.0 (128->128)': (branch.mask_branch[0],
+                                                      feat(128))}
+    out = [f'{name} {cuda_ms(lambda: m(x).sum().backward(), 10):.3f}'
+           for name, (m, x) in parts.items()]
+    print('forward + backward ms at the step\'s shapes (P3 100x168, batch '
+          '2): ' + ', '.join(out))
+
+
+def release_cache():
+    """Return this process's cached, unused device memory to the card
+    (the child processes of the data-parallel phases need it) and print
+    what stays reserved."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f'this process keeps {torch.cuda.memory_reserved() / 2**30:.3f} '
+          f'GiB reserved')
+
+
+def phase_condinst_reference():
+    """A small fully supervised CondInst with a semantic head: its loss
+    dict on the card against the CPU (fp32), on stride-1 masks."""
+    import numpy as np
+    rng = np.random.RandomState(2)
+    b, h, w, g = 2, 128, 160, 5
+    boxes = np.zeros((b, g, 4), np.float32)
+    valid = np.zeros((b, g), bool)
+    masks = np.zeros((b, g, h, w), np.uint8)
+    for i in range(b):
+        for j in range(rng.randint(2, g + 1)):
+            x1, y1 = rng.randint(0, w - 40), rng.randint(0, h - 40)
+            x2, y2 = x1 + rng.randint(16, 40), y1 + rng.randint(16, 40)
+            boxes[i, j] = (x1, y1, x2, y2)
+            masks[i, j, y1 + 2:y2 - 1, x1 + 1:x2 - 3] = 1
+            valid[i, j] = True
+    batch = dict(image=rng.rand(b, 3, h, w).astype(np.float32) * 4 - 2,
+                 img_shape=np.array([[h, w]] * b, np.int32),
+                 pixels_removed=np.array([5] * b, np.int32),
+                 gt_bboxes=boxes, gt_labels=rng.randint(0, 4, (b, g)),
+                 gt_valid=valid, gt_masks=masks)
+    cfg = tiny_cfg()
+    cfg['mask_head'] = dict(cfg['mask_head'], boxinst_enabled=False)
+    cfg['segm_head'] = dict(type='CondInstSegmHead', num_classes=4,
+                            in_channels=32, in_stride=8, stacked_convs=1,
+                            feat_channels=16)
+    losses = compare_loss_dicts(cfg, batch, 50)
+    if {'loss_mask', 'loss_segm'} - set(losses):
+        fail(f'the small supervised CondInst gave {sorted(losses)}')
 
 
 def _child_main(target, rank, world, port, mode, results, args):
@@ -2873,20 +3300,22 @@ def ddp_train_tool(argv):
                 step=result.step, checkpoint=result.checkpoint)
 
 
-def ddp_pair_run(opts, work_dir, device=None):
-    """``train_detector`` of BoxInst at full width on the JPEGs of
-    ``opts``, from the seed's weights, on ``device`` (this rank's card when
-    None): the logs (the mean over ranks), the BN running statistics and
-    the pairwise launches."""
+def ddp_pair_run(opts, work_dir, device=None, config=CONFIG):
+    """``train_detector`` of ``config`` (BoxInst by default) at full width
+    on the JPEGs of ``opts``, from the seed's weights, on ``device`` (this
+    rank's card when None): the logs (the mean over ranks), the BN running
+    statistics and the launches of the pairwise kernels (Swin-L: of K5 and
+    K6)."""
     from boxinstseg_tpu_torch.apis.train import train_detector
     from boxinstseg_tpu_torch.models.layers import SyncBatchNorm
     from boxinstseg_tpu_torch.parallel import dist as pdist
     from boxinstseg_tpu_torch.registry import build_dataset
     device = device or pdist.local_device()
     tool = load_tool('train_torch')
-    cfg = tool.load_config(CONFIG, opts, work_dir, 0)
+    cfg = tool.load_config(config, opts, work_dir, 0)
     model = tool.build_model(cfg, 0)
-    with pairwise_launches() as launches:
+    counted = swin_launches if config == SWIN_CONFIG else pairwise_launches
+    with counted() as launches:
         result = train_detector(model, build_dataset(cfg.data['train']),
                                 cfg, device=device)
     bn = {f'{name}.{b}': getattr(m, b).cpu().numpy()
@@ -3054,6 +3483,37 @@ def phase_ddp(work_dir, files, pair, slice_ms, checkpoint, device='cuda',
     check_eval_gather(work_dir, files, checkpoint, narrow, device, 2, 'gloo')
 
 
+def phase_ddp_swin(work_dir, pair, device='cuda', narrow=None):
+    """Box2Mask Swin-L LSJ at full width: two gloo ranks on the one card at
+    batch 1 against one process at batch 2 on the two JPEGs (1 and 6
+    boxes), DDP_STEPS // 2 steps from the same weights: each step's losses
+    and the averaged gradient's norm, with the K5 / K6 launches of every
+    rank. SGD in place of the recipe's AdamW, as in the CPU tests: AdamW
+    moves an element whose gradient is at the float noise of the sums over
+    ranks by up to the LR."""
+    narrow = (narrow or {}).get(SWIN_CONFIG, [])
+    steps = DDP_STEPS // 2
+    opts = ['runner.type=IterBasedRunner', 'log_config.interval=1',
+            f'runner.max_iters={steps}', 'optimizer.type=SGD',
+            'optimizer.momentum=0.9', *narrow, *file_opts(pair, 'train')]
+    if device == 'cuda':
+        release_cache()
+    ranks, one = run_children(
+        ddp_pair_run, ([*opts, 'data.samples_per_gpu=1'],
+                       os.path.join(work_dir, 'ddp_swin_pair'), device,
+                       SWIN_CONFIG), 2,
+        meanwhile=lambda: ddp_pair_run(
+            [*opts, 'data.samples_per_gpu=2'],
+            os.path.join(work_dir, 'ddp_swin_one'), device, SWIN_CONFIG))
+    if device == 'cuda':
+        for run in (*ranks, one):
+            if min(run['launches'].values()) < steps:
+                fail(f'K5 / K6 launches {run["launches"]} in {steps} steps')
+    check_ranks_against_one(
+        ranks, one, f'Swin-L: 2 gloo ranks at batch 1 vs one process at '
+        f'batch 2 ({PAIR_BOXES} boxes, {steps} steps)')
+
+
 def phase_cards(work_dir, files, cards, device='cuda', narrow=None):
     """Data parallelism over ``cards`` cards (nccl, one process a card):
     tools/train_torch.py --launcher pytorch over 1 and ``cards`` ranks in
@@ -3205,6 +3665,9 @@ def run_phases(tool, work_dir, report, smi, t_start):
     phase('swin reference')
     phase_swin_reference()
 
+    phase('swin-l recipe')
+    phase_swin_recipe(tool)
+
     phase('crf kernel')
     report.update(phase_crf_kernel())
 
@@ -3244,6 +3707,12 @@ def run_phases(tool, work_dir, report, smi, t_start):
 
     phase('ddp')
     phase_ddp(work_dir, files, pair, slice_ms, checkpoint)
+
+    phase('ddp swin-l')
+    phase_ddp_swin(work_dir, pair)
+
+    phase('condinst')
+    phase_condinst(tool, work_dir, files)
 
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
