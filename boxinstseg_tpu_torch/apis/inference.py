@@ -23,6 +23,38 @@ from .test import eval_batcher, format_detection, predict_batch
 from .train import apply_precision_policy, get_logger
 
 
+def load_config(path: str, cfg_options=()) -> Config:
+    """The config file at ``path`` as the entry points read it: ``${key}``
+    values replaced, legacy keys migrated, then the ``key=value`` strings
+    of ``cfg_options`` merged."""
+    from ..config import compat_cfg, replace_cfg_vals
+    cfg = compat_cfg(replace_cfg_vals(Config.fromfile(path)))
+    cfg.merge_from_dict(dict(kv.split('=', 1) for kv in cfg_options))
+    return cfg
+
+
+def select_device(name: str) -> torch.device:
+    """The device a script's ``--device`` names: ``cuda`` (the scripts'
+    default) needs a card and raises without one; ``cpu`` runs only when
+    asked for."""
+    if name == 'cuda' and not torch.cuda.is_available():
+        raise SystemExit('--device cuda: no CUDA device is available')
+    return torch.device(name)
+
+
+def class_names(cfg):
+    """The class names to draw: ``cfg.classes`` or the test dataset's
+    ``classes`` when set, else those of the test dataset's type (COCO when
+    the config names none)."""
+    from ..data.coco import COCO_CLASSES
+    from ..registry import DATASETS
+    test = (cfg.get('data') or {}).get('test') or {}
+    if cfg.get('classes') or test.get('classes'):
+        return tuple(cfg.get('classes') or test['classes'])
+    dataset = DATASETS.get(test.get('type', 'CocoDataset'))
+    return getattr(dataset, 'CLASSES', COCO_CLASSES)
+
+
 def init_detector(config: Union[str, Config],
                   checkpoint: Optional[str] = None, device='cuda'):
     """Build the detector of ``config`` on ``device``, in ``eval()``, with

@@ -155,9 +155,13 @@ def resolve_intervals(cfg: Config, iters_per_epoch: int) -> Dict[str, Any]:
 def batch_to_device(batch: Dict[str, np.ndarray], device
                     ) -> Dict[str, torch.Tensor]:
     """numpy batch from ``StaticBatcher`` -> tensors on ``device``; the
-    NHWC image canvas becomes NCHW."""
-    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-           for k, v in batch.items()}
+    NHWC image canvas becomes NCHW. A host tensor in pinned memory is
+    copied without blocking the host."""
+    out = {}
+    for k, v in batch.items():
+        t = v if torch.is_tensor(v) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        out[k] = t.to(device, non_blocking=t.is_pinned())
     out['image'] = out['image'].permute(0, 3, 1, 2).contiguous()
     return out
 
@@ -393,8 +397,11 @@ def build_hooks(cfg: Config, iv: Dict[str, Any], work_dir: str, logger,
     meta = dict(seed=cfg.get('seed'),
                 exp_name=os.path.basename(cfg.filename or ''),
                 CLASSES=list(classes or cfg.get('classes') or []))
+    global_batch = (cfg.get('data') or {}).get('samples_per_gpu', 2) \
+        * pdist.world_size()
     hooks = [TextLoggerHook(interval, logger, iv['max_iters'],
-                            result.history), CheckLossHook(interval)]
+                            result.history, global_batch),
+             CheckLossHook(interval)]
     hooks += [H.WandbLoggerHook(h.get('interval', interval),
                                 h.get('init_kwargs'), logger)
               for h in log_cfg.get('hooks') or []

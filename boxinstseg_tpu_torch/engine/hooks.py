@@ -82,14 +82,18 @@ class TextLoggerHook(Hook):
     """Every ``interval`` steps: the step's logs as floats (the one read of
     the losses, so the one device sync of those steps), with 'time' and
     'data_time' the window's mean seconds a step from the start of its
-    first step to this read, appended to ``history`` and logged."""
+    first step to this read, appended to ``history`` and logged. The line
+    is the JAX hook's layout, which ``tools/analysis_tools/analyze_logs.py``
+    reads: ``Iter [i/N] lr: ..., time: T s/iter (global_batch / T img/s)``
+    and then data_time and the logs."""
 
     def __init__(self, interval: int, logger, max_iters: int,
-                 history: List[Dict[str, float]]):
+                 history: List[Dict[str, float]], global_batch: int = 1):
         self.interval = max(int(interval), 1)
         self.logger = logger
         self.max_iters = max_iters
         self.history = history
+        self.global_batch = global_batch
         self._t0 = None
         self._steps = 0
         self._data_time = 0.0
@@ -110,10 +114,11 @@ class TextLoggerHook(Hook):
         self.history.append(vals)
         items = ', '.join(f'{k}: {v:.4f}' for k, v in vals.items()
                           if k not in ('lr', 'time', 'data_time'))
+        rate = self.global_batch / max(vals['time'], 1e-9)
         self.logger.info(f'Iter [{i + 1}/{self.max_iters}] lr: '
-                         f'{vals["lr"]:.3e}, {items}, time: '
-                         f'{vals["time"]:.3f}, data_time: '
-                         f'{vals["data_time"]:.3f}')
+                         f'{vals["lr"]:.3e}, time: {vals["time"]:.3f}s/iter '
+                         f'({rate:.1f} img/s) data_time: '
+                         f'{vals["data_time"]:.3f}, {items}')
 
 
 class CheckLossHook(Hook):

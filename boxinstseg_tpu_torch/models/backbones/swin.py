@@ -60,14 +60,31 @@ def _rel_pos_index(ws: int, table_ws: Optional[int] = None) -> np.ndarray:
     return rel[:, :, 0] + rel[:, :, 1]                       # n, n
 
 
+def _device_constant(make, *key):
+    """``make(*key)`` as a tensor on the key's last item, the device: kept
+    for the next call, except while ``torch.export`` traces (a tensor made
+    then is a fake one, which must not outlive the trace)."""
+    if torch.compiler.is_compiling():
+        return make.__wrapped__(*key)
+    return make(*key)
+
+
 @functools.lru_cache(maxsize=None)
-def _regions(hp, wp, ws, shift, device):
+def _regions_tensor(hp, wp, ws, shift, device):
     return torch.from_numpy(shift_regions(hp, wp, ws, shift)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
-def _shrunk_index(ws, table_ws, device):
+def _shrunk_index_tensor(ws, table_ws, device):
     return torch.from_numpy(_rel_pos_index(ws, table_ws)).to(device)
+
+
+def _regions(hp, wp, ws, shift, device):
+    return _device_constant(_regions_tensor, hp, wp, ws, shift, device)
+
+
+def _shrunk_index(ws, table_ws, device):
+    return _device_constant(_shrunk_index_tensor, ws, table_ws, device)
 
 
 def _linear(cin, cout, bias=True):

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -60,3 +61,20 @@ def aligned_iou(a: torch.Tensor, b: torch.Tensor, mode: str = 'iou',
         enclose = (wh_e[..., 0] * wh_e[..., 1]).clamp(min=eps)
         return iou - (enclose - union) / enclose
     raise ValueError(mode)
+
+
+def bbox_overlaps_np(a, b, eps: float = 1e-6) -> np.ndarray:
+    """Numpy pairwise IoU (N, 4) x (M, 4) -> (N, M) in float64 for the
+    host-side analysis tools, a copy of the JAX package's
+    ``bbox_overlaps_np`` (reference:
+    mmdet/core/evaluation/bbox_overlaps.py)."""
+    a = np.asarray(a, np.float64).reshape(-1, 4)
+    b = np.asarray(b, np.float64).reshape(-1, 4)
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    union = area_a[:, None] + area_b[None, :] - inter
+    return inter / np.maximum(union, eps)

@@ -30,19 +30,26 @@ It has plain versions only; the kernels take a whole layer. On the TPU the
 d(patch) kernel rounds its update rows to bf16; the port computes in fp32
 throughout.
 
-``ms_deform_attn`` dispatches on the device of ``value``: a CUDA tensor
-goes through the kernels (``MSDAFunction``), a CPU tensor through
+``ms_deform_attn`` calls the registered torch op ``boxinstseg::msda_forward``
+(``torch.library.custom_op``; the layer's level shapes as a flat
+``[h0, w0, h1, w1, ...]``), whose implementation the dispatcher picks by
+the device of the inputs: on a CUDA tensor the kernel, on a CPU tensor
 ``ms_deform_attn_plain``, the loop over the levels of the per-level plain
-versions.
+versions. Its gradient is the op ``boxinstseg::msda_backward`` (the
+backward kernel; ``ms_deform_attn_backward_plain`` on the CPU). A fake
+implementation gives each op's output shapes from its inputs' shapes, so
+that ``torch.export`` and ``FlopCounterMode`` trace through it; the flop
+formulas count 8 operations a channel a sample forward and 16 backward.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ._native import as_fp32, check, load_library
 
@@ -281,31 +288,153 @@ def msda_backward_cuda(value, spatial_shapes, reference_points, offsets,
 msda_backward_cuda.launches = 0
 
 
-class MSDAFunction(torch.autograd.Function):
-    """Forward kernel, backward kernel; no gradient for the reference
-    points. The kernels take fp32: bf16 or fp16 inputs, as autocast leaves
-    them, run in fp32; the output comes back in value's dtype, each
-    gradient in its input's."""
+# --------------------------------------------------- registered torch ops
 
-    @staticmethod
-    def forward(ctx, value, spatial_shapes, reference_points, offsets, attn):
-        ctx.dtypes = (value.dtype, offsets.dtype, attn.dtype)
-        value, reference_points, offsets, attn = (
-            as_fp32(t).contiguous() for t in (value, reference_points,
-                                              offsets, attn))
-        ctx.save_for_backward(value, reference_points, offsets, attn)
-        ctx.spatial_shapes = spatial_shapes
-        return msda_forward_cuda(value, spatial_shapes, reference_points,
-                                 offsets, attn).to(ctx.dtypes[0])
+def _pairs(flat: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    """The op schema's flat ``[h0, w0, h1, w1, ...]`` as (h, w) pairs."""
+    return tuple((int(flat[i]), int(flat[i + 1]))
+                 for i in range(0, len(flat), 2))
 
-    @staticmethod
-    def backward(ctx, g):
-        value, ref, offsets, attn = ctx.saved_tensors
-        d_value, d_offsets, d_attn = msda_backward_cuda(
-            value, ctx.spatial_shapes, ref, offsets, attn,
-            as_fp32(g).contiguous())
-        dv, do, da = ctx.dtypes
-        return d_value.to(dv), None, None, d_offsets.to(do), d_attn.to(da)
+
+def ms_deform_attn_backward_plain(value, spatial_shapes, reference_points,
+                                  offsets, attn, grad_out):
+    """(d_value, d_offsets, d_attn) of ``ms_deform_attn_plain``: the
+    per-level ``msda_backward_plain``, its location gradients taken back
+    through ``loc = ref + offset / size``."""
+    b, s, h, d = value.shape
+    l, npnt = reference_points.shape[1], attn.shape[-1]
+    ref_x = reference_points[:, None, None, :, 0]
+    ref_y = reference_points[:, None, None, :, 1]
+    g = grad_out.reshape(b, l, h, d).transpose(1, 2).reshape(b * h, l, d)
+    d_value, d_offsets = [], torch.empty_like(offsets)
+    d_attn = torch.empty_like(attn)
+
+    def back(t):
+        """(b*h, p*l) -> (b, l, h, p), the inverse of the P-major order."""
+        return t.reshape(b, h, npnt, l).permute(0, 3, 1, 2)
+
+    start = 0
+    for lvl, (hh, ww) in enumerate(spatial_shapes):
+        vl = value[:, start:start + hh * ww].reshape(b, hh, ww, h, d)
+        vl = vl.permute(0, 3, 1, 2, 4).reshape(b * h, hh, ww, d)
+        start += hh * ww
+        off = offsets[:, :, :, lvl].permute(0, 2, 3, 1, 4)
+        lx = (ref_x + off[..., 0] / ww).reshape(b * h, npnt * l)
+        ly = (ref_y + off[..., 1] / hh).reshape(b * h, npnt * l)
+        weight = attn[:, :, :, lvl].permute(0, 2, 3, 1).reshape(
+            b * h, npnt * l)
+        dv, dlx, dly, dw = msda_backward_plain(vl, lx, ly, weight, g, npnt)
+        d_value.append(dv.reshape(b, h, hh * ww, d).transpose(1, 2))
+        d_offsets[:, :, :, lvl, :, 0] = back(dlx) / ww
+        d_offsets[:, :, :, lvl, :, 1] = back(dly) / hh
+        d_attn[:, :, :, lvl] = back(dw)
+    return torch.cat(d_value, 1).contiguous(), d_offsets, d_attn
+
+
+def _check_op_inputs(value, spatial_shapes, reference_points, offsets, attn,
+                     grad_out=None):
+    """``check_layer_inputs`` on the op's flat shapes; shapes, strides and
+    types only, so it also runs on fake tensors."""
+    return check_layer_inputs(value, _pairs(spatial_shapes),
+                              reference_points, offsets, attn, grad_out)
+
+
+@torch.library.custom_op('boxinstseg::msda_forward', mutates_args=(),
+                         device_types='cuda')
+def msda_forward(value: torch.Tensor, spatial_shapes: List[int],
+                 reference_points: torch.Tensor, offsets: torch.Tensor,
+                 attn: torch.Tensor) -> torch.Tensor:
+    """MSDA forward of one layer as a torch op: the kernel on the card."""
+    return msda_forward_cuda(value, _pairs(spatial_shapes), reference_points,
+                             offsets, attn)
+
+
+@msda_forward.register_kernel('cpu')
+def _msda_forward_cpu(value, spatial_shapes, reference_points, offsets,
+                      attn):
+    shapes = _check_op_inputs(value, spatial_shapes, reference_points,
+                              offsets, attn)
+    return ms_deform_attn_plain(value, shapes, reference_points, offsets,
+                                attn, sample=msda_forward_plain)
+
+
+@msda_forward.register_fake
+def _msda_forward_fake(value, spatial_shapes, reference_points, offsets,
+                       attn):
+    _check_op_inputs(value, spatial_shapes, reference_points, offsets, attn)
+    b, _, h, d = value.shape
+    return value.new_empty((b, reference_points.shape[1], h * d))
+
+
+@torch.library.custom_op('boxinstseg::msda_backward', mutates_args=(),
+                         device_types='cuda')
+def msda_backward(value: torch.Tensor, spatial_shapes: List[int],
+                  reference_points: torch.Tensor, offsets: torch.Tensor,
+                  attn: torch.Tensor, grad_out: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """MSDA backward of one layer as a torch op: (d_value, d_offsets,
+    d_attn), the kernel on the card."""
+    return msda_backward_cuda(value, _pairs(spatial_shapes),
+                              reference_points, offsets, attn, grad_out)
+
+
+@msda_backward.register_kernel('cpu')
+def _msda_backward_cpu(value, spatial_shapes, reference_points, offsets,
+                       attn, grad_out):
+    shapes = _check_op_inputs(value, spatial_shapes, reference_points,
+                              offsets, attn, grad_out)
+    return ms_deform_attn_backward_plain(value, shapes, reference_points,
+                                         offsets, attn, grad_out)
+
+
+@msda_backward.register_fake
+def _msda_backward_fake(value, spatial_shapes, reference_points, offsets,
+                        attn, grad_out):
+    _check_op_inputs(value, spatial_shapes, reference_points, offsets, attn,
+                     grad_out)
+    return (torch.empty_like(value), torch.empty_like(offsets),
+            torch.empty_like(attn))
+
+
+def _msda_setup_context(ctx, inputs, output):
+    value, spatial_shapes, reference_points, offsets, attn = inputs
+    ctx.save_for_backward(value, reference_points, offsets, attn)
+    ctx.spatial_shapes = spatial_shapes
+
+
+def _msda_backward_formula(ctx, grad):
+    value, reference_points, offsets, attn = ctx.saved_tensors
+    d_value, d_offsets, d_attn = msda_backward(
+        value, ctx.spatial_shapes, reference_points, offsets, attn,
+        grad.contiguous())
+    return d_value, None, None, d_offsets, d_attn
+
+
+msda_forward.register_autograd(_msda_backward_formula,
+                               setup_context=_msda_setup_context)
+
+
+def _samples(attn_shape) -> int:
+    n = 1
+    for k in attn_shape:
+        n *= k
+    return n
+
+
+@register_flop_formula(torch.ops.boxinstseg.msda_forward)
+def _msda_forward_flops(value_shape, spatial_shapes, reference_points_shape,
+                        offsets_shape, attn_shape, out_shape=None,
+                        **kwargs) -> int:
+    """Four corners times a multiply-add a channel, a sample."""
+    return 8 * value_shape[3] * _samples(attn_shape)
+
+
+@register_flop_formula(torch.ops.boxinstseg.msda_backward)
+def _msda_backward_flops(value_shape, spatial_shapes, reference_points_shape,
+                         offsets_shape, attn_shape, grad_out_shape,
+                         out_shape=None, **kwargs) -> int:
+    """The corner row-dots and the d(value) updates: twice the forward."""
+    return 16 * value_shape[3] * _samples(attn_shape)
 
 
 def ms_deform_attn(value: torch.Tensor,
@@ -315,20 +444,20 @@ def ms_deform_attn(value: torch.Tensor,
     """Deformable-attention sampling of one layer, all levels: (B, L,
     heads * D). See the module docstring for the layouts.
 
-    A CUDA tensor launches the kernel pair (and raises on what it does not
-    take); a CPU tensor takes the plain version."""
+    Calls the op ``boxinstseg::msda_forward``: the kernel pair for CUDA
+    tensors (which raises on what it does not take), the plain versions for
+    CPU tensors. The kernels take fp32: bf16 or fp16 inputs, as autocast
+    leaves them, run in fp32 and the output comes back in value's dtype,
+    each gradient in its input's."""
     dtype = value.dtype
     value, reference_points, offsets, attn = (
         as_fp32(t) for t in (value, reference_points, offsets, attn))
     shapes = check_layer_inputs(value, spatial_shapes, reference_points,
                                 offsets, attn)
-    if value.is_cuda:
-        return MSDAFunction.apply(value, shapes, reference_points, offsets,
-                                  attn).to(dtype)
-    if value.device.type == 'cpu':
-        return ms_deform_attn_plain(value, shapes, reference_points,
-                                    offsets, attn).to(dtype)
-    raise ValueError(f'no MSDA sampler for device {value.device}')
+    if value.device.type not in ('cuda', 'cpu'):
+        raise ValueError(f'no MSDA sampler for device {value.device}')
+    return msda_forward(value, [n for sh in shapes for n in sh],
+                        reference_points, offsets, attn).to(dtype)
 
 
 def msda_sample_psum_pm(value: torch.Tensor, loc_x: torch.Tensor,

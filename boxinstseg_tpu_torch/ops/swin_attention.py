@@ -19,17 +19,26 @@ regions get no gradient.
 ``window_attention_qkv`` takes the fused (BW, N, 3C) output of the qkv
 Linear, which is what the backbone passes: the kernels read q, k and v as
 its column slices (no copies) and the backward writes one (BW, N, 3C)
-gradient. It dispatches on the device: a CUDA tensor goes through the
-kernels (``WindowAttentionFunction``), a CPU tensor through the plain
-versions (``PlainWindowAttentionFunction``).
+gradient. It calls the registered torch op ``boxinstseg::window_attention``
+(``torch.library.custom_op``), whose implementation the dispatcher picks by
+the device of the inputs: K5 on a CUDA tensor, ``window_attention_plain``
+on a CPU tensor. Its gradient is the op
+``boxinstseg::window_attention_backward`` (K6; on the CPU
+``window_attention_backward_plain``). A fake implementation gives each
+op's output shapes from its inputs' shapes, so that ``torch.export`` and
+``FlopCounterMode`` trace through it; the flop formulas count 4 N^2 C a
+window forward and 8 N^2 C backward, as torch counts attention.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+from typing import Tuple
+
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ._native import as_fp32, check, load_library
 
@@ -107,23 +116,6 @@ def _split(qkv):
     return qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
 
 
-class PlainWindowAttentionFunction(torch.autograd.Function):
-    """Plain forward over the fused qkv, with the explicit backward."""
-
-    @staticmethod
-    def forward(ctx, qkv, bias_hnn, regions, scale):
-        ctx.save_for_backward(qkv, bias_hnn, regions)
-        ctx.scale = scale
-        return window_attention_plain(*_split(qkv), bias_hnn, regions, scale)
-
-    @staticmethod
-    def backward(ctx, g):
-        qkv, bias_hnn, regions = ctx.saved_tensors
-        dq, dk, dv, dbias = window_attention_backward_plain(
-            *_split(qkv), bias_hnn, regions, ctx.scale, g)
-        return torch.cat((dq, dk, dv), -1), dbias, None, None
-
-
 # ------------------------------------------------------------- CUDA kernels
 
 @functools.lru_cache(maxsize=None)
@@ -190,14 +182,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check_inputs(q, k, v, bias_hnn, regions, g=None):
-    """Shapes, types and strides the kernels take; returns (BW, N, H, D,
-    nW, ld, (bias_smem, shared-memory bytes))."""
+def _check_layout(q, k, v, bias_hnn, regions, g=None):
+    """Devices, types, shapes and strides of the op's inputs; returns (BW,
+    N, H, D, nW, ld). Reads no value, so it also runs on fake tensors."""
     named = [('q', q), ('k', k), ('v', v), ('bias_hnn', bias_hnn),
              ('regions', regions)] + ([('g', g)] if g is not None else [])
     for name, t in named:
-        if not t.is_cuda:
-            raise ValueError(f'{name} must be a CUDA tensor')
         if t.device != q.device:
             raise ValueError(f'{name} is on {t.device}, q on {q.device}')
         want = torch.int32 if name == 'regions' else torch.float32
@@ -229,12 +219,25 @@ def _check_inputs(q, k, v, bias_hnn, regions, g=None):
     nw = regions.shape[0]
     if bw % nw:
         raise ValueError(f'{bw} windows are not whole images of {nw}')
-    if n > MAX_N or d > MAX_D:
-        raise ValueError(f'N {n} / head dim {d} exceed the kernels\' '
-                         f'{MAX_N} / {MAX_D}')
     if g is not None and (tuple(g.shape) != (bw, n, c)
                           or not g.is_contiguous()):
         raise ValueError(f'g must be contiguous {(bw, n, c)}')
+    return bw, n, h, d, nw, ld
+
+
+def _check_inputs(q, k, v, bias_hnn, regions, g=None):
+    """What the kernels take: ``_check_layout``, CUDA tensors and the
+    kernels' limits; returns (BW, N, H, D, nW, ld, (bias_smem,
+    shared-memory bytes))."""
+    for t in (q, k, v, bias_hnn, regions) + ((g,) if g is not None else ()):
+        if not t.is_cuda:
+            raise ValueError('the window attention kernels take CUDA '
+                             'tensors')
+    bw, n, h, d, nw, ld = _check_layout(q, k, v, bias_hnn, regions, g)
+    c = h * d
+    if n > MAX_N or d > MAX_D:
+        raise ValueError(f'N {n} / head dim {d} exceed the kernels\' '
+                         f'{MAX_N} / {MAX_D}')
     plan = smem_plan(n, d, g is not None)
     if plan is None:
         need = plan_bytes(n, d, g is not None, False)
@@ -297,43 +300,105 @@ def window_attention_backward_cuda(q, k, v, bias_hnn, regions, scale, g):
 window_attention_backward_cuda.launches = 0
 
 
-class WindowAttentionFunction(torch.autograd.Function):
-    """K5 forward, K6 backward, over the fused qkv (BW, N, 3C). The kernels
-    take fp32: a bf16 or fp16 qkv or bias, as autocast leaves them, runs in
-    fp32; the output and dqkv come back in qkv's dtype (as the JAX wrapper
-    returns q's), dbias in the bias's."""
+# --------------------------------------------------- registered torch ops
 
-    @staticmethod
-    def forward(ctx, qkv, bias_hnn, regions, scale):
-        ctx.dtypes = (qkv.dtype, bias_hnn.dtype)
-        qkv, bias_hnn = as_fp32(qkv).contiguous(), as_fp32(bias_hnn)
-        ctx.save_for_backward(qkv, bias_hnn, regions)
-        ctx.scale = scale
-        return window_attention_forward_cuda(
-            *_split(qkv), bias_hnn, regions, scale).to(ctx.dtypes[0])
+@torch.library.custom_op('boxinstseg::window_attention', mutates_args=(),
+                         device_types='cuda')
+def window_attention_op(qkv: torch.Tensor, bias_hnn: torch.Tensor,
+                        regions: torch.Tensor, scale: float) -> torch.Tensor:
+    """Window attention of the fused qkv (BW, N, 3C) as a torch op: K5 on
+    the card."""
+    return window_attention_forward_cuda(*_split(qkv), bias_hnn, regions,
+                                         scale)
 
-    @staticmethod
-    def backward(ctx, g):
-        qkv, bias_hnn, regions = ctx.saved_tensors
-        dqkv, dbias = window_attention_backward_cuda(
-            *_split(qkv), bias_hnn, regions, ctx.scale,
-            as_fp32(g).contiguous())
-        return dqkv.to(ctx.dtypes[0]), dbias.to(ctx.dtypes[1]), None, None
+
+@window_attention_op.register_kernel('cpu')
+def _window_attention_cpu(qkv, bias_hnn, regions, scale):
+    _check_layout(*_split(qkv), bias_hnn, regions)
+    return window_attention_plain(*_split(qkv), bias_hnn, regions, scale)
+
+
+@window_attention_op.register_fake
+def _window_attention_fake(qkv, bias_hnn, regions, scale):
+    bw, n, h, d, _, _ = _check_layout(*_split(qkv), bias_hnn, regions)
+    return qkv.new_empty((bw, n, h * d))
+
+
+@torch.library.custom_op('boxinstseg::window_attention_backward',
+                         mutates_args=(), device_types='cuda')
+def window_attention_backward_op(qkv: torch.Tensor, bias_hnn: torch.Tensor,
+                                 regions: torch.Tensor, scale: float,
+                                 grad: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Its backward as a torch op: (dqkv (BW, N, 3C), dbias (H, N, N)), K6
+    on the card."""
+    return window_attention_backward_cuda(*_split(qkv), bias_hnn, regions,
+                                          scale, grad)
+
+
+@window_attention_backward_op.register_kernel('cpu')
+def _window_attention_backward_cpu(qkv, bias_hnn, regions, scale, grad):
+    _check_layout(*_split(qkv), bias_hnn, regions, grad)
+    dq, dk, dv, dbias = window_attention_backward_plain(
+        *_split(qkv), bias_hnn, regions, scale, grad)
+    return torch.cat((dq, dk, dv), -1), dbias
+
+
+@window_attention_backward_op.register_fake
+def _window_attention_backward_fake(qkv, bias_hnn, regions, scale, grad):
+    _check_layout(*_split(qkv), bias_hnn, regions, grad)
+    return torch.empty_like(qkv), torch.empty_like(bias_hnn)
+
+
+def _setup_context(ctx, inputs, output):
+    qkv, bias_hnn, regions, scale = inputs
+    ctx.save_for_backward(qkv, bias_hnn, regions)
+    ctx.scale = scale
+
+
+def _backward_formula(ctx, grad):
+    qkv, bias_hnn, regions = ctx.saved_tensors
+    dqkv, dbias = window_attention_backward_op(qkv, bias_hnn, regions,
+                                               ctx.scale, grad.contiguous())
+    return dqkv, dbias, None, None
+
+
+window_attention_op.register_autograd(_backward_formula,
+                                      setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.boxinstseg.window_attention)
+def _window_attention_flops(qkv_shape, bias_shape, regions_shape, scale,
+                            out_shape=None, **kwargs) -> int:
+    """q k^T and p v: two products of N x N x D a window and head."""
+    bw, n, c3 = qkv_shape
+    return 4 * bw * n * n * (c3 // 3)
+
+
+@register_flop_formula(torch.ops.boxinstseg.window_attention_backward)
+def _window_attention_backward_flops(qkv_shape, bias_shape, regions_shape,
+                                     scale, grad_shape, out_shape=None,
+                                     **kwargs) -> int:
+    """dv, dp, dq and dk: four products, as torch counts SDPA's backward."""
+    bw, n, c3 = qkv_shape
+    return 8 * bw * n * n * (c3 // 3)
 
 
 def window_attention_qkv(qkv: torch.Tensor, bias_hnn: torch.Tensor,
                          regions: torch.Tensor, scale: float) -> torch.Tensor:
     """Window attention of the fused qkv output (BW, N, 3C) -> (BW, N, C).
 
-    A CUDA tensor launches the kernels (and raises on what they do not
-    take); a CPU tensor takes the plain versions."""
-    args = (qkv.contiguous(), bias_hnn.contiguous(), regions.contiguous(),
-            float(scale))
-    if qkv.is_cuda:
-        return WindowAttentionFunction.apply(*args)
-    if qkv.device.type == 'cpu':
-        return PlainWindowAttentionFunction.apply(*args)
-    raise ValueError(f'no window attention for device {qkv.device}')
+    Calls the op ``boxinstseg::window_attention``: K5 / K6 for CUDA tensors
+    (which raise on what they do not take), the plain versions for CPU
+    tensors. The kernels take fp32: a bf16 or fp16 qkv or bias, as autocast
+    leaves them, runs in fp32; the output and dqkv come back in qkv's dtype
+    (as the JAX wrapper returns q's), dbias in the bias's."""
+    if qkv.device.type not in ('cuda', 'cpu'):
+        raise ValueError(f'no window attention for device {qkv.device}')
+    dtype = qkv.dtype
+    return window_attention_op(
+        as_fp32(qkv).contiguous(), as_fp32(bias_hnn).contiguous(),
+        regions.contiguous(), float(scale)).to(dtype)
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -99,10 +99,11 @@ def local_rank() -> int:
 
 
 def local_device() -> torch.device:
-    """This rank's card, ``cuda:{LOCAL_RANK}``, or the CPU without one."""
-    if torch.cuda.is_available():
-        return torch.device('cuda', local_rank())
-    return torch.device('cpu')
+    """This rank's card, ``cuda:{LOCAL_RANK}``; raises without one (a CPU
+    run passes its device explicitly)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('local_device: no CUDA device is available')
+    return torch.device('cuda', local_rank())
 
 
 def collective_device() -> torch.device:

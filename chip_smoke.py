@@ -47,7 +47,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 7. box2mask reference - a small Box2Mask's loss dict on the card against the
                CPU.
 8. swin kernels - the Swin window attention pair K5/K6 against its plain
-               versions (alone, through its autograd.Function, and K6
+               versions (alone, through its registered torch op, and K6
                against autograd through the plain forward) at Swin-L's
                stage-0 (shifted) and stage-2 shapes, Swin-T's window 7 and a
                ragged small case; times at both Swin-L shapes beside the
@@ -151,11 +151,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                card at batch 1 against one process at batch 2 on the two
                JPEGs, 2 SGD steps: losses (rtol 1e-4) and grad norm (1e-3),
                K5/K6 launched in every process.
+21c. public surface - the port's demos and tools on the card:
+               demo/image_demo_torch.py on a JPEG of the files phase with its
+               BoxInst checkpoint (score_thr 0: 100 detections); the video
+               demo (batch 1) and the batched one (batch 4, a decode
+               thread, pinned copies) over an 8-frame MJPG video of the
+               landscape JPEGs, frame by frame: each detection paired with
+               one of the same label, box within 1e-3 px and score within
+               rtol 1e-4 (two whose scores tie so may trade places or
+               stand in for each other), the scores equal within rtol 1e-4
+               place by place, the same masks but at pixels whose score lies
+               within 1e-4 of the threshold; frames/s of each. BoxInst
+               exported (tools/deployment/export_model_torch.py,
+               torch.export) from the slice's checkpoint at 800x1344,
+               batch 1, then tools/deployment/test_torch.py on the eval
+               phase's images: the eval phase's metrics. Box2Mask R-50 and
+               Swin-L exported from seed 0 at 1024x1024: the graph holds
+               one boxinstseg::msda_forward an encoder layer (6) and, for
+               Swin-L, one boxinstseg::window_attention a block (24); the
+               loaded program launches K4f and K5 that many times, and its
+               outputs (and BoxInst's) equal the eager model's within the
+               kernels' tolerance; export seconds and .pt2 MB.
+               tools/analysis_tools/benchmark_torch.py (BoxInst and
+               Box2Mask R-50 predict, BoxInst --train at batch 2: medians,
+               min, max, peak GiB, the card) and get_flops_torch.py (the
+               three; their parameter counts those of the exported models).
 
 Every training phase logs every step (log_config.interval=1), so that each
 step's logged time ends in a device sync, and runs without evaluation
 (--no-validate). The device phase also says which of PIL, imageio and
-libnvjpeg the machine has. Phases 1-19 never import cv2; 20-21b read
+libnvjpeg the machine has. Phases 1-19 never import cv2; 20-21c read
 the JPEGs with it.
 
 Prints a JSON line with one entry per kernel, the card's nvidia-smi line,
@@ -282,6 +307,20 @@ DDP_BN_RTOL, DDP_BN_ATOL = 1e-4, 1e-6
 DDP_LIMIT = 900                    # seconds for one set of child processes
 CARD_BOXES = (1, 6, 3, 8, 2, 5, 4, 7)  # the cards phase's images, a rank each
 ADJOINT_RTOL = 1e-5                # <A x, y> vs <x, A^T y>, float64 sums
+# the public surface phase: the demos on the files phase's landscape JPEGs
+# (an 8-frame video of them, batch 4 in the accelerated demo; paired
+# detections agree within BOX_ATOL px and SCORE_RTOL, masks but at pixels
+# whose score lies within MASK_NEAR of the threshold), the exports'
+# canvases, the benchmark's timed iterations
+VIDEO_FRAMES, VIDEO_BATCH = 8, 4
+BOX_ATOL = 1e-3
+SCORE_RTOL = 1e-4  # batch 1 vs 4: scores this close (relative) may trade
+                   # places; the phase prints how far apart batch 1 and 4
+                   # put a score and how close neighbouring scores lie
+MASK_NEAR = 1e-4   # as the eval tests: a mask may flip this near 0.5
+BOXINST_CANVAS = (800, 1344)
+B2M_CANVAS = (1024, 1024)
+BENCH_ITERS = 10
 
 # the least time of a kernel: bytes over the memory rate or operations over
 # the fp32 rate (NVIDIA H100 SXM data sheet, at its 700 W limit)
@@ -894,7 +933,8 @@ def msda_kept(levels, ref, offsets):
 def check_msda(tag, levels, value, ref, offsets, attn, grad):
     """The MSDA kernel pair against ``ms_deform_attn``'s plain version: the
     forward, the backward against the plain backward and against autograd
-    through the plain forward, both through ``MSDAFunction``; whether two
+    through the plain forward, both through the registered op
+    ``boxinstseg::msda_forward`` and its autograd; whether two
     backward runs give the same bits. Returns the forward and backward max
     abs errors and the largest difference between two backward runs."""
     import torch
@@ -915,11 +955,16 @@ def check_msda(tag, levels, value, ref, offsets, attn, grad):
     for name, gk, gp, ga in zip(names, grads_k, grads_p, grads_a):
         b_err = max(b_err, compare(f'MSDA backward {name} {tag}', gk, gp))
         compare(f'MSDA backward {name} {tag} vs autograd', gk, ga)
+    before = (msda.msda_forward_cuda.launches,
+              msda.msda_backward_cuda.launches)
     out_f = msda.ms_deform_attn(leaves[0], levels, ref, leaves[1], leaves[2])
     grads_f = torch.autograd.grad(out_f, leaves, grad)
-    compare(f'MSDAFunction forward {tag}', out_f.detach(), out_p)
+    if (msda.msda_forward_cuda.launches - before[0],
+            msda.msda_backward_cuda.launches - before[1]) != (1, 1):
+        fail(f'the msda_forward op {tag} did not launch the pair once')
+    compare(f'msda_forward op {tag}', out_f.detach(), out_p)
     for name, gf, gp in zip(names, grads_f, grads_p):
-        compare(f'MSDAFunction {name} {tag}', gf, gp)
+        compare(f'msda_forward op {name} {tag}', gf, gp)
     again = msda.msda_backward_cuda(value, levels, ref, offsets, attn, grad)
     same = [torch.equal(a, b) for a, b in zip(grads_k, again)]
     rerun = max((a - b).abs().max().item() for a, b in zip(grads_k, again))
@@ -1178,10 +1223,10 @@ def swin_inputs(case, gen):
 
 
 def check_swin(tag, case, gen):
-    """K5 and K6 against the plain versions: alone, through
-    ``WindowAttentionFunction``, and K6 against autograd through the plain
-    forward. Returns the inputs and the forward / backward max abs
-    errors."""
+    """K5 and K6 against the plain versions: alone, through the registered
+    op ``boxinstseg::window_attention`` and its autograd (what the backbone
+    calls), and K6 against autograd through the plain forward. Returns the
+    inputs and the forward / backward max abs errors."""
     import torch
     from boxinstseg_tpu_torch.ops import swin_attention as swa
     qkv, bias, regions, g = swin_inputs(case, gen)
@@ -1204,14 +1249,18 @@ def check_swin(tag, case, gen):
         b_err = max(b_err, compare(f'K6 {name} {tag}', gk, gp))
         compare(f'K6 {name} {tag} vs autograd', gk, ga)
     leaves = [t.clone().requires_grad_(True) for t in (qkv, bias)]
-    out_f = swa.WindowAttentionFunction.apply(leaves[0], leaves[1], regions,
-                                              scale)
+    before = (swa.window_attention_forward_cuda.launches,
+              swa.window_attention_backward_cuda.launches)
+    out_f = swa.window_attention_qkv(leaves[0], leaves[1], regions, scale)
     out_f.backward(g)
-    compare(f'WindowAttentionFunction forward {tag}', out_f.detach(), out_p)
-    compare(f'WindowAttentionFunction d(qkv) {tag}', leaves[0].grad,
+    if (swa.window_attention_forward_cuda.launches - before[0],
+            swa.window_attention_backward_cuda.launches - before[1]) \
+            != (1, 1):
+        fail(f'the window_attention op {tag} did not launch K5 and K6 once')
+    compare(f'window_attention op forward {tag}', out_f.detach(), out_p)
+    compare(f'window_attention op d(qkv) {tag}', leaves[0].grad,
             torch.cat(want[:3], -1))
-    compare(f'WindowAttentionFunction d(bias) {tag}', leaves[1].grad,
-            want[3])
+    compare(f'window_attention op d(bias) {tag}', leaves[1].grad, want[3])
     print(f'swin {tag} (BW {qkv.shape[0]}, N {qkv.shape[1]}, heads '
           f'{bias.shape[0]}, head dim {case[6]}, region ids '
           f'{int(regions.max().item()) + 1}): K5 max abs err {f_err:.3g}, '
@@ -2637,6 +2686,7 @@ def phase_eval(checkpoint):
     print(f'the ground truth as detections ({len(data.coco.anns)} boxes): '
           f'bbox mAP {oracle["bbox_mAP"]:.3f}, segm mAP '
           f'{oracle["segm_mAP"]:.3f}')
+    return metrics
 
 
 def phase_discobox_predict(cfg, model):
@@ -3555,6 +3605,345 @@ def phase_cards(work_dir, files, cards, device='cuda', narrow=None):
                       'cards')
 
 
+def load_script(rel):
+    """The repo's script ``rel`` (a path under the root) as a module."""
+    path = os.path.join(ROOT, rel)
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(path))[0], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cfg_options(*opts):
+    """``--cfg-options`` and ``opts``, or nothing when there are none."""
+    return ['--cfg-options', *opts] if opts else []
+
+
+def write_video(path, images, frames):
+    """An MJPG ``.avi`` of ``frames`` frames cycling through ``images``
+    (one size), written with cv2."""
+    import cv2
+    first = cv2.imread(images[0])
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*'MJPG'), 10,
+                             (first.shape[1], first.shape[0]))
+    if not writer.isOpened():
+        fail(f'cv2 cannot write MJPG to {path}')
+    for i in range(frames):
+        writer.write(cv2.imread(images[i % len(images)]))
+    writer.release()
+    return path
+
+
+def mask_scores(model, cfg, frame):
+    """BoxInst's mask scores of one frame at batch 1, as the video demo
+    predicts it, at the frame's resolution before the 0.5 threshold: (n,
+    h, w) for the n valid detections in ``format_detection``'s order."""
+    import torch
+    from boxinstseg_tpu_torch.apis.test import (eval_batcher, predict_batch,
+                                                upsample_masks)
+    from boxinstseg_tpu_torch.data.pipelines import Compose
+    sample = Compose(list(cfg.get('test_pipeline')
+                          or cfg.data['test']['pipeline']))(
+        {'img': frame, 'filename': None, 'bbox_fields': [],
+         'mask_fields': []})
+    batch = eval_batcher(cfg)([sample])
+    out = predict_batch(model, batch, False)
+    keep = torch.nonzero(out['valid'][0]).flatten()
+    return upsample_masks(out['masks'][0][keep], batch['img_shape'][0],
+                          batch['ori_shape'][0], aligned=True)
+
+
+def ties(x, y):
+    """Scores ``x`` and ``y`` equal within SCORE_RTOL of the larger."""
+    import numpy as np
+    return np.abs(x - y) <= SCORE_RTOL * np.maximum(np.abs(x), np.abs(y))
+
+
+def pair_detections(a, b):
+    """Pairs (i, j) of the detections ``a`` and ``b`` of one frame: the
+    same label, boxes within BOX_ATOL px and tied scores (``ties``), each
+    detection paired once, in ``a``'s order. Returns the pairs and the
+    unpaired indices of ``a`` and of ``b``."""
+    import numpy as np
+    free = np.ones(len(b['labels']), bool)
+    pairs, lone_a = [], []
+    for i, (label, box) in enumerate(zip(a['labels'], a['bboxes'])):
+        near = free & (b['labels'] == label) \
+            & (np.abs(b['bboxes'][:, :4] - box[:4]).max(1) <= BOX_ATOL) \
+            & ties(b['bboxes'][:, 4], box[4])
+        if near.any():
+            j = int(np.flatnonzero(near)[0])
+            free[j] = False
+            pairs.append((i, j))
+        else:
+            lone_a.append(i)
+    return pairs, lone_a, [int(j) for j in np.flatnonzero(free)]
+
+
+def check_demo_frames(plain, accel, model, cfg, video):
+    """The two video demos' per-frame results. Batch 1 and batch 4 round
+    the last bits apart, so two detections whose scores tie within
+    SCORE_RTOL may trade places, and where NMS or the max_per_img cut chose
+    between them, one may stand in for the other. Per frame: as many
+    detections, their scores (each list in descending order) tied place by
+    place; every detection paired (``pair_detections``: the same label,
+    boxes within BOX_ATOL px, tied scores) but those that stand in for one
+    another, which tie in score; paired masks equal except at pixels whose
+    batch-1 score lies within MASK_NEAR of the 0.5 threshold. Returns the
+    largest box and (relative) score differences of the pairs, the largest
+    score difference place by place, the smallest gap between neighbouring
+    batch-1 scores, the pairs out of place, the stand-ins, the mask pixels
+    that differ and their largest distance to the threshold."""
+    import cv2
+    import numpy as np
+    import torch
+    if len(plain) != len(accel) or not plain:
+        fail(f'video demos: {len(plain)} vs {len(accel)} frames')
+    cap = cv2.VideoCapture(video)
+    frames = [cap.read()[1] for _ in plain]
+    cap.release()
+    worst = dict(box=0.0, score=0.0, place=0.0, gap=math.inf, moved=0,
+                 stand_in=0, off=0, near=0.0)
+    for i, (a, b, frame) in enumerate(zip(plain, accel, frames)):
+        if len(a['labels']) != len(b['labels']):
+            fail(f'video demos, frame {i}: {len(a["labels"])} vs '
+                 f'{len(b["labels"])} detections')
+        sa, sb = a['bboxes'][:, 4], b['bboxes'][:, 4]
+        if not ties(sa, sb).all():
+            gap = np.abs(sa - sb).max()
+            fail(f'video demos, frame {i}: scores differ by {gap} in place')
+        if len(sa):
+            worst['place'] = max(worst['place'], float(np.abs(sa - sb).max()))
+        if len(sa) > 1:
+            worst['gap'] = min(worst['gap'],
+                              float(np.abs(np.diff(sa)).min()))
+        pairs, lone_a, lone_b = pair_detections(a, b)
+        for k in lone_a:
+            tie = [j for j in lone_b if ties(sb[j], sa[k])]
+            if not tie:
+                fail(f'video demos, frame {i}: batch-1 detection {k} (label '
+                     f'{a["labels"][k]}, score {sa[k]}, box '
+                     f'{a["bboxes"][k, :4].tolist()}) has no counterpart')
+            lone_b.remove(tie[0])
+        if lone_b:
+            fail(f'video demos, frame {i}: batch-{VIDEO_BATCH} detections '
+                 f'{lone_b} have no counterpart')
+        worst['stand_in'] += len(lone_a)
+        worst['moved'] += sum(ia != ib for ia, ib in pairs)
+        for ia, ib in pairs:
+            worst['box'] = max(worst['box'], float(np.abs(
+                a['bboxes'][ia, :4] - b['bboxes'][ib, :4]).max()))
+            worst['score'] = max(worst['score'], float(
+                abs(sa[ia] - sb[ib]) / max(abs(sa[ia]), abs(sb[ib]), 1e-30)))
+        apart = [(ia, ib) for ia, ib in pairs
+                 if not np.array_equal(a['masks'][ia], b['masks'][ib])]
+        if not apart:
+            continue
+        scores = mask_scores(model, cfg, frame)
+        for ia, ib in apart:
+            where = torch.from_numpy(a['masks'][ia] != b['masks'][ib])
+            dist = (scores[ia][where.to(scores.device)] - 0.5).abs().max()
+            worst['off'] += int(where.sum())
+            worst['near'] = max(worst['near'], dist.item())
+            if not dist.item() <= MASK_NEAR:
+                fail(f'video demos, frame {i}, detection {ia}: masks differ '
+                     f'at a score {dist.item()} from the threshold')
+    return worst
+
+
+def check_close(what, got, want):
+    """A loaded program's output against the eager model's: integer and
+    boolean outputs exactly, floats within KERNEL_ATOL * max(1, max |want|)
+    + KERNEL_RTOL * |want|. Returns the max abs difference."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f'{what}: {tuple(got.shape)} {got.dtype} vs '
+             f'{tuple(want.shape)} {want.dtype}')
+    if not want.is_floating_point():
+        if not torch.equal(got, want):
+            fail(f'{what}: differs from eager')
+        return 0.0
+    diff = (got - want).abs()
+    tol = KERNEL_ATOL * max(want.abs().max().item(), 1.0) \
+        + KERNEL_RTOL * want.abs()
+    if not bool(torch.isfinite(got).all()) or not bool((diff <= tol).all()):
+        fail(f'{what}: differs from eager by {diff.max().item()}')
+    return diff.max().item()
+
+
+def phase_public_surface(work_dir, files, files_checkpoint, checkpoint,
+                         eval_metrics, device='cuda', narrow=None,
+                         canvases=None):
+    """The port's public surface on the card: the image demo on a JPEG of
+    the files phase with its BoxInst checkpoint; the video demo (batch 1)
+    and the accelerated one (batch VIDEO_BATCH) over an 8-frame MJPG video,
+    compared frame by frame (``check_demo_frames``); BoxInst exported
+    from the slice's checkpoint at 800x1344, batch 1, and evaluated
+    through tools/deployment/test_torch.py on the eval phase's images with
+    the eval phase's metrics; Box2Mask R-50 and Swin-L exported from seed 0
+    at 1024x1024,
+    their boxinstseg ops counted in the graph, the kernels' launches
+    counted while the loaded programs run, their outputs against the eager
+    models'; benchmark_torch (BoxInst and Box2Mask predict, BoxInst train)
+    and get_flops_torch (the three) beside the card's name and power
+    limit, the parameter counts those of the exported models. ``device``,
+    ``narrow`` (extra options by config) and ``canvases`` (by config) let
+    it be rehearsed on the CPU with narrow models."""
+    import cv2
+    import torch
+    from boxinstseg_tpu_torch.apis.export import ExportedDetector
+    from boxinstseg_tpu_torch.apis.inference import init_detector, load_config
+    from boxinstseg_tpu_torch.ops import msda
+    from boxinstseg_tpu_torch.ops import swin_attention as swa
+    narrow = narrow or {}
+    canvases = canvases or {}
+    boxinst_canvas = canvases.get(CONFIG, BOXINST_CANVAS)
+    score0 = ['--cfg-options', 'model.test_cfg.score_thr=0',
+              *narrow.get(CONFIG, ())]
+    ann_file, prefix = files
+    with open(ann_file) as f:
+        landscape = [os.path.join(prefix, im['file_name'])
+                     for im in json.load(f)['images']
+                     if im['width'] > im['height']]
+
+    # 1. the image demo
+    out = os.path.join(work_dir, 'demo_out.jpg')
+    result = load_script('demo/image_demo_torch.py').main([
+        landscape[0], CONFIG, files_checkpoint, '--out-file', out,
+        '--score-thr', '0', '--device', device, *score0])
+    drawn = cv2.imread(out)
+    if drawn is None or drawn.shape != cv2.imread(landscape[0]).shape:
+        fail(f'image demo: {out} not written at the image\'s size')
+    print(f'image demo: {len(result["bboxes"])} detections; {out}: '
+          f'{os.path.getsize(out)} bytes, shape {drawn.shape}')
+
+    # 2. the video demos, frame by frame
+    video = write_video(os.path.join(work_dir, 'frames.avi'), landscape,
+                        VIDEO_FRAMES)
+    plain, plain_rate = load_script('demo/video_demo_torch.py').main([
+        video, CONFIG, files_checkpoint, '--out',
+        os.path.join(work_dir, 'plain.avi'), '--score-thr', '0',
+        '--device', device, *score0])
+    accel, accel_rate = load_script('demo/video_accel_demo_torch.py').main([
+        video, CONFIG, files_checkpoint, '--out',
+        os.path.join(work_dir, 'accel.avi'), '--batch', str(VIDEO_BATCH),
+        '--score-thr', '0', '--device', device, *score0])
+    model, cfg = init_detector(load_config(CONFIG, score0[1:]),
+                               files_checkpoint, device=device)
+    worst = check_demo_frames(plain, accel, model, cfg, video)
+    print(f'video demos over {VIDEO_FRAMES} frames of {drawn.shape[0]}x'
+          f'{drawn.shape[1]} ({sum(len(r["labels"]) for r in plain)} '
+          f'detections): batch 1 {plain_rate:.3f} frames/s, batch '
+          f'{VIDEO_BATCH} {accel_rate:.3f} frames/s (decode, predict, '
+          f'format, draw, encode); paired boxes within {worst["box"]:.3g} '
+          f'px and scores within rtol {worst["score"]:.3g} (in place within '
+          f'{worst["place"]:.3g}; neighbouring batch-1 scores at least '
+          f'{worst["gap"]:.3g} apart), {worst["moved"]} '
+          f'pairs out of place and {worst["stand_in"]} stand-ins among '
+          f'tied scores, masks equal but {worst["off"]} pixels, each within '
+          f'{worst["near"]:.3g} of the threshold')
+    del plain, accel, model
+
+    # 3. BoxInst from the slice's checkpoint, evaluated as the eval phase;
+    # 4. Box2Mask R-50 and Swin-L from seed 0
+    export = load_script('tools/deployment/export_model_torch.py')
+    gen = torch.Generator(device=device).manual_seed(0)
+    counters = {'msda_forward': msda.msda_forward_cuda,
+                'swin_attention_forward': swa.window_attention_forward_cuda}
+    params = {}
+    for name, config, ckpt, opts in (
+            ('boxinst', CONFIG, [checkpoint], EVAL_OPTS),
+            ('box2mask', B2M_CONFIG, [], ()), ('swin-l', SWIN_CONFIG, [], ())):
+        h, w = canvases.get(config, BOXINST_CANVAS if config == CONFIG
+                            else B2M_CANVAS)
+        pt2 = os.path.join(work_dir, f'{name}.pt2')
+        res = export.main([config, *ckpt, '--output-file', pt2, '--shape',
+                           str(h), str(w), '--batch', '1', '--device', device,
+                           *cfg_options(*opts, *narrow.get(config, ()))])
+        model = res['model']
+        params[name] = sum(p.numel() for p in model.parameters())
+        want_ops = {}
+        if getattr(model, 'panoptic_head', None) is not None:
+            want_ops['msda_forward'] = len(
+                model.panoptic_head.pixel_decoder.encoder.layers)
+        if hasattr(model.backbone, 'stages'):
+            want_ops['window_attention'] = sum(
+                len(stage.blocks) for stage in model.backbone.stages)
+        if res['ops'] != want_ops:
+            fail(f'{name}: the graph holds {res["ops"]}, not {want_ops}')
+        loaded = ExportedDetector(torch.export.load(pt2))
+        batch = dict(image=torch.randn((1, 3, h, w), generator=gen,
+                                       device=device),
+                     img_shape=torch.tensor([[h, w]], dtype=torch.int32,
+                                            device=device),
+                     scale_factor=torch.ones((1, 4), device=device))
+        with launches_of(counters) as launches, torch.inference_mode():
+            got = loaded.predict(batch)
+            if device == 'cuda':
+                torch.cuda.synchronize()
+        if device == 'cuda' and (
+                launches['msda_forward'] != want_ops.get('msda_forward', 0)
+                or launches['swin_attention_forward']
+                != want_ops.get('window_attention', 0)):
+            fail(f'{name}: the loaded program launched {launches}')
+        with torch.inference_mode():
+            want = model.predict(batch)
+        if set(got) != set(want):
+            fail(f'{name}: outputs {sorted(got)} vs {sorted(want)}')
+        diffs = {k: check_close(f'{name} {k}', got[k], want[k])
+                 for k in want}
+        print(f'{name} exported in {res["seconds"]:.3f} s at {h}x{w}, batch '
+              f'1 ({res["bytes"] / 1e6:.3f} MB .pt2): boxinstseg ops '
+              f'{res["ops"] or "none"}; launches while the loaded program '
+              f'ran {launches}; against eager on a random image, max abs '
+              f'diff ' + ', '.join(f'{k} {v:.3g}' for k, v in diffs.items()))
+        del res, model, got, want
+        if name == 'boxinst':
+            register_dataset()
+            metrics = load_script('tools/deployment/test_torch.py').main([
+                CONFIG, pt2, '--shape', str(h), str(w), '--batch', '1',
+                '--eval', 'bbox', 'segm', '--device', device,
+                '--cfg-options', *EVAL_OPTS,
+                f'data.test.length={EVAL_IMAGES}', *narrow.get(CONFIG, ())])
+            if metrics != eval_metrics:
+                fail(f'the exported BoxInst reads {metrics}, the eval phase '
+                     f'{eval_metrics}')
+            print(f'tools/deployment/test_torch.py on the eval phase\'s '
+                  f'{EVAL_IMAGES} images: the eval phase\'s metrics (bbox '
+                  f'mAP {metrics["bbox_mAP"]}, segm mAP '
+                  f'{metrics["segm_mAP"]})')
+        del loaded
+        os.remove(pt2)
+
+    # 5. the benchmark tool and 6. the FLOPs tool
+    bench = load_script('tools/analysis_tools/benchmark_torch.py')
+    timing = ['--iters', str(BENCH_ITERS), '--device', device]
+    b2m_h, b2m_w = canvases.get(B2M_CONFIG, B2M_CANVAS)
+    for config, extra in (
+            (CONFIG, ['--height', str(boxinst_canvas[0]), '--width',
+                      str(boxinst_canvas[1])]),
+            (B2M_CONFIG, ['--height', str(b2m_h), '--width', str(b2m_w)]),
+            (CONFIG, ['--train', '--batch-size', '2', '--height',
+                      str(boxinst_canvas[0]), '--width',
+                      str(boxinst_canvas[1])])):
+        print(f'benchmark_torch {os.path.basename(config)}:', flush=True)
+        bench.main([config, *extra, *timing,
+                    *cfg_options(*narrow.get(config, ()))])
+    flops = load_script('tools/analysis_tools/get_flops_torch.py')
+    for name, config in (('boxinst', CONFIG), ('box2mask', B2M_CONFIG),
+                         ('swin-l', SWIN_CONFIG)):
+        h, w = canvases.get(config, BOXINST_CANVAS if config == CONFIG
+                            else B2M_CANVAS)
+        print(f'get_flops_torch {os.path.basename(config)}:', flush=True)
+        out = flops.main([config, '--shape', str(h), str(w), '--device',
+                          device, *cfg_options(*narrow.get(config, ()))])
+        if out['params'] != params[name]:
+            fail(f'{name}: get_flops_torch counts {out["params"]} '
+                 f'parameters, the exported model has {params[name]}')
+    release_cache()
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -3684,7 +4073,7 @@ def run_phases(tool, work_dir, report, smi, t_start):
     phase_predict_reference()
 
     phase('eval')
-    phase_eval(checkpoint)
+    eval_metrics = phase_eval(checkpoint)
 
     phase('discobox predict')
     phase_discobox_predict(disco_cfg, disco_model)
@@ -3703,13 +4092,17 @@ def run_phases(tool, work_dir, report, smi, t_start):
     files = write_coco_files(os.path.join(work_dir, 'files'), FILE_SHAPES)
     pair = write_coco_files(os.path.join(work_dir, 'pair'),
                             FILE_SHAPES[:1] * 2, boxes=PAIR_BOXES, seed=1)
-    checkpoint = phase_files(tool, work_dir, files)
+    files_checkpoint = phase_files(tool, work_dir, files)
 
     phase('ddp')
-    phase_ddp(work_dir, files, pair, slice_ms, checkpoint)
+    phase_ddp(work_dir, files, pair, slice_ms, files_checkpoint)
 
     phase('ddp swin-l')
     phase_ddp_swin(work_dir, pair)
+
+    phase('public surface')
+    phase_public_surface(work_dir, files, files_checkpoint, checkpoint,
+                         eval_metrics)
 
     phase('condinst')
     phase_condinst(tool, work_dir, files)

@@ -550,7 +550,7 @@ def _bf16_case(kind, cuda):
         leaves = [value.bfloat16(), offsets.bfloat16(), attn.bfloat16()]
 
         def run(v, o, a):
-            return msda.MSDAFunction.apply(v, levels, ref, o, a)
+            return msda.ms_deform_attn(v, levels, ref, o, a)
         return run, leaves, 3, (2, 3)
     if kind == 'lcm':
         offs, aff, x, _ = _lcm_inputs(9, cuda, (1, 3, 37, 53))
@@ -564,7 +564,7 @@ def _bf16_case(kind, cuda):
         leaves = [qkv.bfloat16(), bias.bfloat16()]
 
         def run(q, b):
-            return swa.WindowAttentionFunction.apply(q, b, regions, 0.25)
+            return swa.window_attention_qkv(q, b, regions, 0.25)
         return run, leaves, 2, (6, 7)
     kern, thresh, bin0, targets = _crf_inputs(9, cuda, 1, 5, 37, 53)
     leaves = [kern.bfloat16(), thresh.bfloat16(), bin0.bfloat16(),
