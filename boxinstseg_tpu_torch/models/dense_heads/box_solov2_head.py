@@ -63,9 +63,6 @@ class BoxSOLOv2Head(nn.Module):
                  tf_size: Tuple[int, int] = (96, 96), tf_max_depth: int = 0,
                  levelset_feat_channels: int = 5):
         super().__init__()
-        if use_dcn_in_tower:
-            raise NotImplementedError('deformable tower convs are not '
-                                      'ported yet')
         self.num_classes = num_classes
         self.strides = tuple(strides)
         self.scale_ranges = tuple(tuple(r) for r in scale_ranges)
@@ -80,11 +77,15 @@ class BoxSOLOv2Head(nn.Module):
         self.tf_max_depth = tf_max_depth
         ch = seg_feat_channels
         gn = dict(type='GN', num_groups=min(32, ch))
+        # the deformable tower option reaches the towers and the feature
+        # convs (reference box_solov2_head.py:68-69)
+        dcn = type_dcn if use_dcn_in_tower else None
 
         def tower(first_in):
             return nn.ModuleList(ConvModule(
                 first_in if i == 0 else ch, ch, 3, 1, 1, norm_cfg=gn,
-                bias=False, init_std=0.01) for i in range(stacked_convs))
+                bias=False, init_std=0.01, conv_type=dcn)
+                for i in range(stacked_convs))
 
         self.kernel_convs = tower(in_channels + 2)
         self.cate_convs = tower(in_channels)
@@ -99,7 +100,8 @@ class BoxSOLOv2Head(nn.Module):
             for j in range(max(i, 1)):
                 cin = ch if j else in_channels + (2 if i == 3 else 0)
                 level.add_module(f'conv{j}', ConvModule(
-                    cin, ch, 3, 1, 1, bias=False, init_std=0.01))
+                    cin, ch, 3, 1, 1, bias=False, init_std=0.01,
+                    conv_type=dcn))
             self.feature_convs.append(level)
         self.solo_mask = normal_init_(Conv2d(ch, ch, 1, 1, 0), 0.01)
         self.levelset_bottom = normal_init_(

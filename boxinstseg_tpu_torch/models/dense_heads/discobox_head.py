@@ -247,9 +247,6 @@ class DiscoBoxSOLOv2Head(nn.Module):
                  init_cfg: Optional[dict] = None, max_pos: int = 128,
                  max_corr_queries: int = 16):
         super().__init__()
-        if use_dcn_in_tower:
-            raise NotImplementedError('deformable tower convs are not '
-                                      'ported yet')
         self.num_classes = num_classes
         self.strides = tuple(strides)
         self.scale_ranges = tuple(tuple(r) for r in scale_ranges)
@@ -262,12 +259,13 @@ class DiscoBoxSOLOv2Head(nn.Module):
         self.max_pos = max_pos
         self.max_corr_queries = max_corr_queries
         gn = dict(type='GN', num_groups=min(32, seg_feat_channels))
+        dcn = type_dcn if use_dcn_in_tower else None   # deformable towers
 
         def tower(first_in):
             return nn.ModuleList(ConvModule(
                 first_in if i == 0 else seg_feat_channels,
                 seg_feat_channels, 3, 1, 1, norm_cfg=gn, bias=False,
-                init_std=0.01) for i in range(stacked_convs))
+                init_std=0.01, conv_type=dcn) for i in range(stacked_convs))
 
         self.kernel_convs = tower(in_channels + 2)
         self.cate_convs = tower(in_channels)

@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel import dist as pdist
+from .deform_conv import DeformConv2d
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -148,17 +149,28 @@ def GroupNorm(num_channels: int, num_groups: int = 32) -> nn.GroupNorm:
 class ConvModule(nn.Module):
     """conv -> norm -> activation (reference: mmcv ConvModule). The conv
     has a bias iff there is no norm, unless ``bias`` says otherwise; the
-    norm is named ``bn`` or ``gn`` as in the reference checkpoints."""
+    norm is named ``bn`` or ``gn`` as in the reference checkpoints.
+    ``conv_type`` 'DCN' or 'DCNv2' makes the conv deformable
+    (``deform_conv.DeformConv2d``, v1 or v2); None is the plain conv."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntPair = 3, stride: IntPair = 1,
                  padding: IntPair = 0, dilation: IntPair = 1,
                  norm_cfg: Optional[dict] = None, act: Optional[str] = 'relu',
-                 bias: Optional[bool] = None, init_std: Optional[float] = None):
+                 bias: Optional[bool] = None, init_std: Optional[float] = None,
+                 conv_type: Optional[str] = None):
         super().__init__()
         use_bias = bias if bias is not None else norm_cfg is None
-        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
-                           padding, dilation, bias=use_bias)
+        if conv_type in ('DCN', 'DCNv2'):
+            self.conv = DeformConv2d(in_channels, out_channels, kernel_size,
+                                     stride, padding, dilation,
+                                     modulated=conv_type == 'DCNv2',
+                                     bias=use_bias)
+        elif conv_type is not None:
+            raise ValueError(f'unknown conv type {conv_type!r}')
+        else:
+            self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
+                               padding, dilation, bias=use_bias)
         if init_std is not None:
             normal_init_(self.conv, init_std)
         self.norm_name = None

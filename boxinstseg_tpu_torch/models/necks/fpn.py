@@ -4,7 +4,10 @@
 BoxInst layout: start_level=1, num_outs=5, add_extra_convs='on_output',
 relu_before_extra_convs=True -> P3..P7; without extra convs the extra
 levels are max-pooled (P2..P6 of the SOLO-family configs). The extra convs
-sit at the end of ``fpn_convs``, as in the reference checkpoints.
+sit at the end of ``fpn_convs``, as in the reference checkpoints. The
+first of them reads the last used input (``'on_input'``, whose conv takes
+that input's channels), the last lateral (``'on_lateral'``) or the last
+output (``'on_output'``, and ``True`` as in the JAX package).
 """
 from __future__ import annotations
 
@@ -42,9 +45,9 @@ class FPN(nn.Module):
         super().__init__()
         if norm_cfg is not None:
             raise ValueError('FPN norm_cfg is not supported')
-        if add_extra_convs not in (False, 'on_output'):
-            raise NotImplementedError(
-                f'add_extra_convs={add_extra_convs!r} is not ported yet')
+        if add_extra_convs not in (False, True, 'on_input', 'on_lateral',
+                                   'on_output'):
+            raise ValueError(f'unknown add_extra_convs {add_extra_convs!r}')
         self.in_channels = list(in_channels)
         end = len(self.in_channels) if end_level in (-1, None) \
             else end_level + 1
@@ -59,8 +62,11 @@ class FPN(nn.Module):
         self.fpn_convs = nn.ModuleList(
             conv(out_channels, 3, 1, 1) for _ in self.used)
         if add_extra_convs:
-            for _ in range(num_outs - len(self.used)):
-                self.fpn_convs.append(conv(out_channels, 3, 2, 1))
+            for k in range(num_outs - len(self.used)):
+                cin = self.in_channels[self.used[-1]] \
+                    if k == 0 and add_extra_convs == 'on_input' \
+                    else out_channels
+                self.fpn_convs.append(conv(cin, 3, 2, 1))
 
     def forward(self, inputs):
         assert len(inputs) == len(self.in_channels)
@@ -78,8 +84,10 @@ class FPN(nn.Module):
             if not self.add_extra_convs:
                 for _ in range(extra):
                     outs.append(max_pool_torch(outs[-1], 1, 2, 0))
-            else:  # 'on_output'
-                src = outs[-1]
+            else:
+                src = {'on_input': inputs[self.used[-1]],
+                       'on_lateral': laterals[-1]}.get(
+                           self.add_extra_convs, outs[-1])
                 for k in range(extra):
                     if k > 0 and self.relu_before_extra_convs:
                         src = F.relu(src)

@@ -1,5 +1,8 @@
 """JAX CondInst (with its semantic head), Box2Mask, DiscoBox and
-BoxLevelset variables (ResNet or Swin backbone) -> port ``state_dict``.
+BoxLevelset variables -> port ``state_dict``: any backbone of the JAX
+registry (ResNet, ResNeXt, ResNetV1d, ResNeSt, DetectoRS_ResNet, PVT v1 /
+v2, Swin), any neck (FPN, PAFPN, ChannelMapper, FPN_CARAFE) and the
+deformable tower convs.
 
 The inverse of ``boxinstseg_tpu.utils.checkpoint_convert.
 convert_condinst_checkpoint``, ``convert_box2mask_head``,
@@ -33,9 +36,12 @@ def _t(v) -> torch.Tensor:
 
 
 def _emit_conv(sd, prefix, node):
+    """A flax conv, or a deformable conv with its ``conv_offset``."""
     sd[f'{prefix}.weight'] = _conv(node['kernel'])
     if 'bias' in node:
         sd[f'{prefix}.bias'] = _t(node['bias'])
+    if 'conv_offset' in node:
+        _emit_conv(sd, f'{prefix}.conv_offset', node['conv_offset'])
 
 
 def _emit_norm(sd, prefix, node, stats=None, tracked=False):
@@ -48,32 +54,114 @@ def _emit_norm(sd, prefix, node, stats=None, tracked=False):
             sd[f'{prefix}.num_batches_tracked'] = torch.tensor(0)
 
 
+def _emit_tree(sd, prefix, node, stats):
+    """A block's subtree: convs (``kernel``), frozen BNs (``scale``, with
+    their statistics), bare HWIO conv weights (the SAConv's ``weight`` and
+    ``weight_diff``) and nested modules (the split-attention conv, the
+    SAConv), by the JAX names."""
+    for sub, leaf in node.items():
+        if not isinstance(leaf, Mapping):
+            sd[f'{prefix}.{sub}'] = _conv(leaf)
+        elif 'kernel' in leaf:
+            _emit_conv(sd, f'{prefix}.{sub}', leaf)
+        elif 'scale' in leaf:
+            _emit_norm(sd, f'{prefix}.{sub}', leaf, stats[sub])
+        else:
+            _emit_tree(sd, f'{prefix}.{sub}', leaf, stats.get(sub, {}))
+
+
 def _backbone(sd, params, stats):
-    """Swin when the tree has ``stage0_block0``, else ResNet."""
+    """PVT when the tree has ``patch_embed0``, Swin when it has
+    ``stage0_block0``, else a ResNet family member: ResNet, ResNeXt,
+    ResNetV1d, ResNeSt or DetectoRS_ResNet. The deep stem's
+    ``stem_conv{i}`` / ``stem_bn{i}`` go to ``stem.{3i}`` / ``stem.{3i+1}``.
+    The JAX tree does not say whether a shortcut pools; a deep stem
+    (ResNetV1d, ResNeSt) is taken to mean it does: the shortcut goes to
+    ``downsample.{1,2}`` (its pool sits at index 0), else to
+    ``downsample.{0,1}``. A ResNet whose ``deep_stem`` and ``avg_down``
+    differ (no config sets them apart) fails the strict load."""
+    if 'patch_embed0' in params:
+        _pvt(sd, params)
+        return
     if 'stage0_block0' in params:
         _swin(sd, params)
         return
+    d0 = 1 if 'stem_conv0' in params else 0
     for name, node in params.items():
         st = stats.get(name, {})
-        if name in ('conv1', 'bn1'):
-            if name == 'conv1':
-                _emit_conv(sd, 'backbone.conv1', node)
+        if name == 'conv1':
+            _emit_conv(sd, 'backbone.conv1', node)
+            continue
+        if name == 'bn1':
+            _emit_norm(sd, 'backbone.bn1', node, st)
+            continue
+        m = re.match(r'^stem_(conv|bn)(\d)$', name)
+        if m:
+            i = 3 * int(m.group(2)) + (m.group(1) == 'bn')
+            if m.group(1) == 'conv':
+                _emit_conv(sd, f'backbone.stem.{i}', node)
             else:
-                _emit_norm(sd, 'backbone.bn1', node, st)
+                _emit_norm(sd, f'backbone.stem.{i}', node, st)
             continue
         m = re.match(r'^layer(\d)_(\d+)$', name)
         if not m:
             raise KeyError(f'unknown backbone entry {name}')
         block = f'backbone.layer{m.group(1)}.{m.group(2)}'
-        for sub, leaf in node.items():
-            if sub == 'downsample_conv':
-                _emit_conv(sd, f'{block}.downsample.0', leaf)
-            elif sub == 'downsample_bn':
-                _emit_norm(sd, f'{block}.downsample.1', leaf, st[sub])
-            elif sub.startswith('conv'):
-                _emit_conv(sd, f'{block}.{sub}', leaf)
+        _emit_tree(sd, block, {k: v for k, v in node.items()
+                               if not k.startswith('downsample_')}, st)
+        if 'downsample_conv' in node:
+            _emit_conv(sd, f'{block}.downsample.{d0}',
+                       node['downsample_conv'])
+            _emit_norm(sd, f'{block}.downsample.{d0 + 1}',
+                       node['downsample_bn'], st['downsample_bn'])
+
+
+def _pvt(sd, params):
+    """JAX PyramidVisionTransformer(V2) tree -> mmdet PVT keys: stage i's
+    patch embedding at ``layers.{i}.0``, its position embedding (v1) at
+    ``layers.{i}.1.0`` and its blocks after it, its closing norm at
+    ``layers.{i}.2``; q/k/v into ``in_proj``; the FFN's Dense layers as 1x1
+    convs."""
+    p = 'backbone.layers'
+    for name, node in params.items():
+        m = re.match(r'^(patch_embed|embed_norm|pos_embed|out_norm)(\d+)$',
+                     name)
+        if m:
+            kind, i = m.group(1), m.group(2)
+            if kind == 'patch_embed':
+                _emit_conv(sd, f'{p}.{i}.0.projection', node)
+            elif kind == 'embed_norm':
+                _layer_norm(sd, f'{p}.{i}.0.norm', node)
+            elif kind == 'pos_embed':
+                sd[f'{p}.{i}.1.0.pos_embed'] = _t(node)
             else:
-                _emit_norm(sd, f'{block}.{sub}', leaf, st[sub])
+                _layer_norm(sd, f'{p}.{i}.2', node)
+            continue
+        m = re.match(r'^stage(\d+)_block(\d+)$', name)
+        if not m:
+            raise KeyError(f'unknown PVT backbone entry {name}')
+        i = m.group(1)
+        j = int(m.group(2)) + (f'pos_embed{i}' in params)
+        blk = f'{p}.{i}.1.{j}'
+        attn, ffn = node['attn'], node['ffn']
+        _layer_norm(sd, f'{blk}.norm1', node['norm1'])
+        _layer_norm(sd, f'{blk}.norm2', node['norm2'])
+        sd[f'{blk}.attn.attn.in_proj_weight'] = torch.cat(
+            [_t(np.asarray(attn[k]['kernel']).T) for k in 'qkv'])
+        sd[f'{blk}.attn.attn.in_proj_bias'] = torch.cat(
+            [_t(attn[k]['bias']) for k in 'qkv'])
+        _linear(sd, f'{blk}.attn.attn.out_proj', attn['proj'])
+        if 'sr' in attn:
+            _emit_conv(sd, f'{blk}.attn.sr', attn['sr'])
+            _layer_norm(sd, f'{blk}.attn.norm', attn['sr_norm'])
+        for key, idx in (('fc1', 0), ('dwconv', 1),
+                         ('fc2', 4 if 'dwconv' in ffn else 3)):
+            if key not in ffn:
+                continue
+            leaf = dict(ffn[key])
+            if key != 'dwconv':   # a Dense kernel (in, out) as a 1x1 conv
+                leaf['kernel'] = np.asarray(leaf['kernel'])[None, None]
+            _emit_conv(sd, f'{blk}.ffn.layers.{idx}', leaf)
 
 
 def _merge_perm(c: int) -> np.ndarray:
@@ -151,8 +239,21 @@ def _swin(sd, params):
             _linear(sd, f'{blk}.ffn.layers.1', node['mlp_fc2'])
 
 
-def _neck(sd, params):
+def _carafe_encoder(node):
+    """The JAX content encoder's output channels ``(sy*2 + sx) * k2 + k``
+    -> mmcv's ``k * 4 + sy*2 + sx`` (FPN_CARAFE's scale 2)."""
+    kernel, bias = np.asarray(node['kernel']), np.asarray(node['bias'])
+    k2 = kernel.shape[-1] // 4
+    order = np.asarray([q * k2 + k for k in range(k2) for q in range(4)])
+    return dict(kernel=kernel[..., order], bias=bias[order])
+
+
+def _neck(sd, params, stats):
+    """FPN, PAFPN, ChannelMapper or FPN_CARAFE. The extra convs of FPN and
+    PAFPN follow their laterals in ``fpn_convs``; ChannelMapper's are
+    ``extra_convs``."""
     num_laterals = sum(1 for k in params if k.startswith('lateral_'))
+    mapper = any(re.match(r'^conv_\d+$', k) for k in params)
     for name, node in params.items():
         kind, i = name.rsplit('_', 1)
         i = int(i)
@@ -160,8 +261,21 @@ def _neck(sd, params):
             _emit_conv(sd, f'neck.lateral_convs.{i}.conv', node)
         elif kind == 'fpn_conv':
             _emit_conv(sd, f'neck.fpn_convs.{i}.conv', node)
+        elif kind == 'extra_conv' and mapper:
+            _conv_module(sd, f'neck.extra_convs.{i}', node,
+                         stats.get(name, {}))
         elif kind == 'extra_conv':
             _emit_conv(sd, f'neck.fpn_convs.{num_laterals + i}.conv', node)
+        elif kind in ('downsample_conv', 'pafpn_conv'):
+            _emit_conv(sd, f'neck.{kind}s.{i}.conv', node)
+        elif kind == 'conv':
+            _conv_module(sd, f'neck.convs.{i}', node, stats.get(name, {}))
+        elif kind == 'upsample':
+            up = f'neck.upsample_modules.{i - 1}'
+            _emit_conv(sd, f'{up}.channel_compressor',
+                       node['channel_compressor'])
+            _emit_conv(sd, f'{up}.content_encoder',
+                       _carafe_encoder(node['content_encoder']))
         else:
             raise KeyError(f'unknown neck entry {name}')
 
@@ -340,7 +454,7 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
         _backbone(sd, params['backbone_m'],
                   batch_stats.get('backbone_m', {}))
     if 'neck_m' in params:
-        _neck(sd, params['neck_m'])
+        _neck(sd, params['neck_m'], batch_stats.get('neck_m', {}))
     if 'bbox_head_m' in params:
         _bbox_head(sd, params['bbox_head_m'])
     if 'mask_branch_m' in params:
@@ -357,15 +471,24 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
 
 
 def load_pretrained_backbone(backbone: torch.nn.Module, path: str) -> None:
-    """A local torchvision-format ResNet ``.pth`` (a bare state_dict or one
-    under ``state_dict``) into the port's ResNet, whose key names are
-    torchvision's: the classifier ``fc.*`` is dropped, and so are the BN
-    counters ``num_batches_tracked``, which the port's frozen BN lacks.
-    Every backbone tensor must be in the file (the JAX package's
-    ``load_torchvision_resnet``)."""
+    """A local ``.pth`` (a bare state_dict or one under ``state_dict``) into
+    one of the port's backbones, by the port's key names: a torchvision
+    ResNet / ResNeXt, an mmdet ResNet / ResNeXt / ResNetV1d (``stem.*``,
+    ``downsample.{1,2}``), an mmdet PVT / PVTv2 or Swin, or a detector's
+    checkpoint, whose ``backbone.*`` entries are taken. The classifier
+    (``fc.*``, ``head.*``) is dropped, and so are the BN counters
+    ``num_batches_tracked``, which the port's frozen BN lacks. Every
+    backbone tensor must be in the file (the JAX package's
+    ``load_torchvision_resnet``), at its shape: an mmdet ResNeSt or
+    DetectoRS file raises, because the JAX modules that the port follows
+    depart from mmdet's parameters there (README)."""
     sd = torch.load(path, map_location='cpu', weights_only=True)
     sd = sd.get('state_dict', sd)
-    sd = {k: v for k, v in sd.items() if not k.startswith('fc.')
+    if any(k.startswith('backbone.') for k in sd):
+        sd = {k[len('backbone.'):]: v for k, v in sd.items()
+              if k.startswith('backbone.')}
+    sd = {k: v for k, v in sd.items()
+          if not k.startswith(('fc.', 'head.'))
           and not k.endswith('num_batches_tracked')}
     missing, unexpected = backbone.load_state_dict(sd, strict=False)
     if missing or unexpected:

@@ -176,6 +176,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                Box2Mask R-50 predict, BoxInst --train at batch 2: medians,
                min, max, peak GiB, the card) and get_flops_torch.py (the
                three; their parameter counts those of the exported models).
+21d. inventory - after condinst, the backbone and neck inventory at full
+               width, random init from seed 0, seeded synthetic 800x1333
+               images at batch 2: DiscoBox X-101-DCN (the R-101 config with
+               ResNeXt-101 64x4d and deformable v1 tower convs) 5 SGD
+               steps in bf16 (the config's fp16 key), ts_cfg.start_iter=2,
+               K7 once a step, the steps without and with the teacher's
+               forward apart (median, min, max), peak memory, then predict
+               on one image at batch 1; BoxLevelset R-50 with DCNv2 towers
+               and feature convs, 2 AdamW steps in fp32, then predict;
+               one DCNv2 layer at (2, 256, 200, 336) -> 256 against the
+               plain nn.Conv2d, forward + backward, beside its bound;
+               BoxInst R-50 1x with ResNetV1d-50, ResNeSt-50,
+               DetectoRS_ResNet-50, PVTv2-b2, PVT v1, PAFPN, FPN_CARAFE and
+               FPN on_input, 2 SGD steps each, K1/K2 once a step; then
+               every new module's tiny version on the card against the CPU
+               (fp32, TF32 off): outputs and input gradients, and the DCN
+               layers' weight gradients.
 
 Every training phase logs every step (log_config.interval=1), so that each
 step's logged time ends in a device sync, and runs without evaluation
@@ -288,6 +305,9 @@ CRF_SHAPES = (((2, 128, 336, 200), 10, False), ((1, 1, 37, 53), 10, False),
 CRF_TOO_BIG = (1, 1, 1200, 1200)   # more than 8 bands: must raise
 CRF_ITERS = 10
 DISCO_START_ITER = 2
+# DiscoBox R-50: a tensor of each of these parts must change in training
+DISCO_PARTS = ('backbone.layer2.', 'neck.', 'bbox_head.kernel_convs.',
+               'bbox_head.solo_cate.', 'mask_feat_head.')
 # the evaluation phases: score_thr 0 keeps max_per_img detections an image
 # on the briefly trained models, and the test set is synthetic
 EVAL_OPTS = ['model.test_cfg.score_thr=0',
@@ -1467,25 +1487,32 @@ def live_gt_counts():
         train.batch_to_device = to_device
 
 
-def print_steps(result, peak, gts, teacher_after=None):
-    """Each step's time beside its live GT count; the median of steps 2-5,
-    or for DiscoBox (``teacher_after`` = start_iter) of the steps without
-    and with the teacher's forward apart (PERF.md section 2)."""
+def print_steps(result, peak, gts=None, teacher_after=None):
+    """Each step's time (beside its live GT count where ``gts`` is given);
+    the median, min and max of steps 2 on, or for DiscoBox
+    (``teacher_after`` = start_iter) of the steps without and with the
+    teacher's forward apart (PERF.md section 2). Returns the median of
+    steps 2 on."""
     step_ms = [1e3 * (h['time'] - h['data_time']) for h in result.history]
     print(f'losses at step {result.step}: ' + ', '.join(
         f'{k} {v:.5f}' for k, v in result.history[-1].items()
         if k.startswith('loss')))
-    print('step ms (compute + sync, data excluded) with live GTs: ' +
-          ', '.join(f'{t:.3f} ({n} GTs)' for t, n in zip(step_ms, gts)))
+    print('step ms (compute + sync, data excluded)' + (
+        ' with live GTs: ' + ', '.join(
+            f'{t:.3f} ({n} GTs)' for t, n in zip(step_ms, gts))
+        if gts is not None else ': ' + ', '.join(
+            f'{t:.3f}' for t in step_ms)))
+
+    def spread(first, last):
+        ms = step_ms[first - 1:last]
+        return (f'steps {first}-{last} median {statistics.median(ms):.3f}, '
+                f'min {min(ms):.3f}, max {max(ms):.3f} ms')
     if teacher_after is None:
-        medians = (f'median of steps 2-{result.step} '
-                   f'{statistics.median(step_ms[1:]):.3f} ms')
+        medians = spread(2, result.step)
     else:
         k = teacher_after + 1
-        medians = (f'median of steps 2-{k} (no teacher) '
-                   f'{statistics.median(step_ms[1:k]):.3f} ms, of steps '
-                   f'{k + 1}-{result.step} (teacher) '
-                   f'{statistics.median(step_ms[k:]):.3f} ms')
+        medians = (f'{spread(2, k)} (no teacher), '
+                   f'{spread(k + 1, result.step)} (teacher)')
     print(f'{medians}; peak memory {peak / 2**30:.3f} GiB')
     return statistics.median(step_ms[1:])
 
@@ -1537,6 +1564,8 @@ def phase_slice(tool, work_dir):
 def describe_backbone(bb):
     if bb.type == 'ResNet':
         return f'ResNet-{bb.depth}'
+    if bb.type == 'ResNeXt':
+        return f'ResNeXt-{bb.depth} {bb.groups}x{bb.base_width}d'
     return (f'{bb.type} embed {bb.embed_dims}, depths {list(bb.depths)}, '
             f'heads {list(bb.num_heads)}, window {bb.window_size}')
 
@@ -2190,10 +2219,12 @@ def record_ema_gaps(step_cls, gaps):
     return call
 
 
-def phase_discobox(tool):
-    """5 SGD steps of DiscoBox R-50 3x through the train entry point, the
-    teacher switched on after step DISCO_START_ITER. Returns the CRF
-    kernel's launches, the config and the trained model (on the CPU)."""
+def phase_discobox(tool, config=DISCO_CONFIG, extra=(), parts=DISCO_PARTS):
+    """5 SGD steps of DiscoBox (R-50 3x, or ``config`` with the options
+    ``extra``) through the train entry point, the teacher switched on after
+    step DISCO_START_ITER; fails unless a tensor of each of ``parts``
+    changed. Returns the CRF kernel's launches, the config and the trained
+    model (on the CPU)."""
     import torch
     from boxinstseg_tpu_torch.engine.train_state import TSTrainStep
     from boxinstseg_tpu_torch.ops import crf
@@ -2201,21 +2232,23 @@ def phase_discobox(tool):
     work_dir = tempfile.mkdtemp(prefix='chip_smoke_disco_')
     seed = 0
     opts = [f'ts_cfg.start_iter={DISCO_START_ITER}',
-            *TRAIN_OPTS,
+            *TRAIN_OPTS, *extra,
             'data.samples_per_gpu=2', 'data.train.type=SyntheticBoxDataset']
     try:
-        cfg = tool.load_config(DISCO_CONFIG, opts, work_dir, seed)
+        cfg = tool.load_config(config, opts, work_dir, seed)
         from boxinstseg_tpu_torch.apis.train import apply_precision_policy
         if not apply_precision_policy(cfg):
-            fail('the shipped DiscoBox config no longer asks for mixed '
-                 'precision')
+            fail(f'{os.path.basename(config)} no longer asks for mixed '
+                 f'precision')
         print(f'precision: bf16 autocast, fp32 parameters and losses (the '
               f'config\'s fp16 = {dict(cfg.fp16)})')
         head, mf = cfg.model.bbox_head, cfg.model.mask_feat_head
         ob = head.loss_corr.obj_bank
+        towers = (f'{head.type_dcn} ' if head.get('use_dcn_in_tower')
+                  else '')
         print(f'model: {describe_backbone(cfg.model.backbone)}, FPN '
               f'{cfg.model.neck.out_channels} P2-P6, {head.stacked_convs}x '
-              f'{head.seg_feat_channels}-channel GN towers, grids '
+              f'{head.seg_feat_channels}-channel {towers}GN towers, grids '
               f'{list(head.num_grids)}, {head.ins_out_channels}-channel '
               f'kernels, mask feature {mf.out_channels}->{mf.num_classes}, '
               f'{head.num_classes} classes, max_pos {head.max_pos}, CRF '
@@ -2228,8 +2261,7 @@ def phase_discobox(tool):
         crf.crf_mean_field_cuda.launches = 0
         try:
             with live_gt_counts() as gts:
-                result = train_tool(tool, DISCO_CONFIG, work_dir, seed,
-                                    opts)
+                result = train_tool(tool, config, work_dir, seed, opts)
         finally:
             TSTrainStep.__call__ = call
         torch.cuda.synchronize()
@@ -2250,11 +2282,11 @@ def phase_discobox(tool):
         if not {'teacher_state_dict', 'object_bank'} <= set(ckpt):
             fail(f'checkpoint keys {sorted(ckpt)}')
         changed, model = changed_tensors(tool, cfg, seed, result)
-        for part in ('backbone.layer2.', 'neck.', 'bbox_head.kernel_convs.',
-                     'bbox_head.solo_cate.', 'mask_feat_head.'):
+        for part in parts:
             if not any(k.startswith(part) for k in changed):
                 fail(f'no {part}* tensor changed in training')
-        print(f'{len(changed)} tensors changed; launches {launches}; teacher '
+        print(f'{len(changed)} tensors changed; launches {launches} ('
+              f'{launches["crf_mean_field"] / STEPS:g} a step); teacher '
               f'forward by step {teacher}; EMA gap by step '
               f'{[f"{g:.3g}" for g in gaps]}; avg_loss_ins by step '
               f'{[round(h["avg_loss_ins"], 5) for h in result.history]}')
@@ -2689,15 +2721,14 @@ def phase_eval(checkpoint):
     return metrics
 
 
-def phase_discobox_predict(cfg, model):
+def phase_discobox_predict(cfg, model, what='DiscoBox R-50'):
     """``predict`` of the trained DiscoBox on one 800x1333 image under its
     bf16 policy, with ``score_thr`` and ``filter_thr`` 0 so that it keeps
     ``max_per_img`` detections; the SOLO family's formatting."""
     from boxinstseg_tpu_torch.apis.train import apply_precision_policy
     bf16 = apply_precision_policy(cfg)
     if not bf16:
-        fail('the shipped DiscoBox config no longer asks for mixed '
-             'precision')
+        fail(f'{what}: the config no longer asks for mixed precision')
     test_cfg = dict(cfg.model.test_cfg, score_thr=0.0, filter_thr=0.0)
     model.test_cfg = test_cfg
     model = model.cuda().eval()
@@ -2709,9 +2740,8 @@ def phase_discobox_predict(cfg, model):
     check_outputs(out, {'scores': (1, d), 'labels': (1, d), 'valid': (1, d),
                         'masks': (1, d, 200, 336)})
     print(f'bf16 autocast; test_cfg {test_cfg}')
-    print_predict_times('DiscoBox R-50 predict, batch 1', det, times,
-                        ori_shape)
-    check_format_on_cpu('DiscoBox', out, img_shape, ori_shape, test_cfg, det)
+    print_predict_times(f'{what} predict, batch 1', det, times, ori_shape)
+    check_format_on_cpu(what, out, img_shape, ori_shape, test_cfg, det)
 
 
 def image_decoders():
@@ -3254,6 +3284,286 @@ def phase_condinst_reference():
     losses = compare_loss_dicts(cfg, batch, 50)
     if {'loss_mask', 'loss_segm'} - set(losses):
         fail(f'the small supervised CondInst gave {sorted(losses)}')
+
+
+DISCO_X101_CONFIG = os.path.join(
+    ROOT, 'configs/discobox/discobox_solov2_coco_r101_fpn_3x.py')
+# DiscoBox on SOLOv2's X-101-DCN recipe: ResNeXt-101 64x4d, deformable
+# (v1) tower convs; the backbone has no deformable stages (the JAX package
+# has none)
+X101_DCN_OPTS = ['model.backbone.type=ResNeXt', 'model.backbone.groups=64',
+                 'model.backbone.base_width=4',
+                 'model.bbox_head.use_dcn_in_tower=True',
+                 'model.bbox_head.type_dcn=DCN']
+X101_PARTS = ('backbone.layer3.', 'bbox_head.kernel_convs.0.conv.',
+              'bbox_head.cate_convs.3.conv.conv_offset.')
+BOXLS_DCN_OPTS = ['model.bbox_head.use_dcn_in_tower=True',
+                  'model.bbox_head.type_dcn=DCNv2']
+INVENTORY_STEPS = 2
+INVENTORY_TRAIN_OPTS = ['runner.type=IterBasedRunner',
+                        f'runner.max_iters={INVENTORY_STEPS}',
+                        'log_config.interval=1']
+PVT_CHANNELS = "model.neck.in_channels=[64, 128, 320, 512]"
+# BoxInst R-50 1x with each new backbone and neck (options on its config)
+BOXINST_VARIANTS = {
+    'ResNetV1d-50': ['model.backbone.type=ResNetV1d'],
+    # base_width 64 at groups 1: the JAX width int(planes * base_width / 64)
+    # * groups is then planes, the published ResNeSt-50's (F9)
+    'ResNeSt-50': ['model.backbone.type=ResNeSt',
+                   'model.backbone.base_width=64'],
+    'DetectoRS_ResNet-50': ['model.backbone.type=DetectoRS_ResNet'],
+    'PVTv2-b2': ["model.backbone={'type': 'PyramidVisionTransformerV2', "
+                 "'embed_dims': (64, 128, 320, 512), "
+                 "'num_layers': (3, 4, 6, 3)}", PVT_CHANNELS],
+    'PVT v1 (small)': ["model.backbone={'type': "
+                       "'PyramidVisionTransformer'}", PVT_CHANNELS],
+    'PAFPN': ['model.neck.type=PAFPN'],
+    'FPN_CARAFE': ["model.neck={'type': 'FPN_CARAFE', 'in_channels': "
+                   "[256, 512, 1024, 2048], 'out_channels': 256, "
+                   "'start_level': 1, 'num_outs': 5}"],
+    'FPN on_input': ['model.neck.add_extra_convs=on_input'],
+}
+DCN_LAYER_SHAPE = (2, 256, 200, 336)   # BoxLevelset's stride-4 feature conv
+# tiny versions of every module of the slice, card against CPU
+TINY_PVT = dict(embed_dims=(16, 32), num_stages=2, num_layers=(1, 2),
+                num_heads=(1, 2), sr_ratios=(8, 4), mlp_ratios=(2, 2),
+                out_indices=(0, 1))
+TINY_BACKBONES = {
+    'ResNeXt': dict(type='ResNeXt', depth=50, num_stages=2, groups=4,
+                    out_indices=(0, 1)),
+    'ResNetV1d': dict(type='ResNetV1d', depth=50, num_stages=2,
+                      stem_channels=32, out_indices=(0, 1)),
+    'ResNeSt': dict(type='ResNeSt', depth=50, num_stages=2, groups=2,
+                    base_width=16, stem_channels=32, out_indices=(0, 1)),
+    'DetectoRS_ResNet': dict(type='DetectoRS_ResNet', depth=50,
+                             num_stages=2, out_indices=(0, 1)),
+    'PyramidVisionTransformer': dict(type='PyramidVisionTransformer',
+                                     **TINY_PVT),
+    'PyramidVisionTransformerV2': dict(type='PyramidVisionTransformerV2',
+                                       **TINY_PVT),
+}
+TINY_NECK_CHANNELS = (8, 16, 32, 64)
+TINY_NECKS = {
+    'FPN on_input': dict(type='FPN', in_channels=TINY_NECK_CHANNELS,
+                         out_channels=16, start_level=1, num_outs=5,
+                         add_extra_convs='on_input'),
+    'FPN on_lateral': dict(type='FPN', in_channels=TINY_NECK_CHANNELS,
+                           out_channels=16, start_level=1, num_outs=5,
+                           add_extra_convs='on_lateral'),
+    'PAFPN': dict(type='PAFPN', in_channels=TINY_NECK_CHANNELS,
+                  out_channels=16, start_level=1, num_outs=5,
+                  add_extra_convs='on_output', relu_before_extra_convs=True),
+    'ChannelMapper': dict(type='ChannelMapper',
+                          in_channels=TINY_NECK_CHANNELS, out_channels=16,
+                          norm_cfg=dict(type='GN', num_groups=4),
+                          act_cfg=dict(type='ReLU'), num_outs=5),
+    'FPN_CARAFE': dict(type='FPN_CARAFE', in_channels=TINY_NECK_CHANNELS,
+                       out_channels=16, num_outs=5),
+}
+
+
+def inventory_boxlevelset(tool):
+    """BoxLevelset R-50 with DCNv2 towers and feature convs, fp32:
+    INVENTORY_STEPS AdamW steps at batch 2, 800x1344, then predict on one
+    image; the step ms and peak memory."""
+    import torch
+    from boxinstseg_tpu_torch.apis.inference import init_detector
+    seed = 0
+    work_dir = tempfile.mkdtemp(prefix='chip_smoke_boxls_dcn_')
+    opts = [*INVENTORY_TRAIN_OPTS, *BOXLS_DCN_OPTS, 'data.samples_per_gpu=2',
+            'data.train.type=SyntheticBoxDataset']
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        result = train_tool(tool, BOXLS_CONFIG, work_dir, seed, opts)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        check_history(result, INVENTORY_STEPS,
+                      required=('loss_cate', 'loss_levelset'))
+        cfg = tool.load_config(BOXLS_CONFIG, opts, work_dir, seed)
+        model, cfg = init_detector(cfg, result.checkpoint, device='cuda')
+        convs = [m for m in model.modules()
+                 if type(m).__name__ == 'DeformConv2d']
+        if len(convs) != 8 + 7 or not all(m.modulated for m in convs):
+            fail(f'{len(convs)} DCNv2 layers in the BoxLevelset head')
+        print(f'BoxLevelset R-50 DCNv2 ({len(convs)} layers: 8 tower, 7 '
+              f'feature convs), batch 2, 800x1344, fp32:')
+        print_steps(result, peak)
+        test_cfg = dict(cfg.model.test_cfg, score_thr=0.0, filter_thr=0.0,
+                        mask_thr=0.5)
+        model.test_cfg = test_cfg
+        inputs, img_shape, ori_shape = eval_inputs(
+            cfg, SyntheticEvalDataset(cfg.data.test.pipeline, length=1))
+        out, det, times = time_predict(model, test_cfg, inputs, img_shape,
+                                       ori_shape)
+        d = test_cfg['max_per_img']
+        check_outputs(out, {'scores': (1, d), 'labels': (1, d),
+                            'valid': (1, d), 'masks': (1, d, 200, 336)})
+        print_predict_times('BoxLevelset R-50 DCNv2 predict, batch 1 '
+                            '(mask_thr 0.5)', det, times, ori_shape)
+        del model
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+
+def time_dcn_layer():
+    """One DCNv2 layer at the stride-4 feature conv's shape, forward +
+    backward (CUDA events, 5 calls after 3), against the plain
+    nn.Conv2d of the same shape, fp32; its offset branch set to non-zero
+    weights, so that samples fall between pixels. The byte bound counts x,
+    the output, their gradients and the weights once each; the operation
+    bound the two convolutions' and the contraction's multiply-adds (2
+    operations each, forward and the two backward products) at the fp32
+    rate."""
+    import torch
+    from boxinstseg_tpu_torch.models.deform_conv import DeformConv2d
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    b, c, h, w = DCN_LAYER_SHAPE
+    x = torch.randn(DCN_LAYER_SHAPE, device='cuda', generator=gen,
+                    requires_grad=True)
+    dcn = DeformConv2d(c, c, 3, 1, 1, modulated=True).cuda()
+    with torch.no_grad():
+        dcn.conv_offset.weight.normal_(0, 0.01, generator=gen)
+        dcn.conv_offset.bias.normal_(0, 1, generator=gen)
+    conv = torch.nn.Conv2d(c, c, 3, 1, 1).cuda()
+    dcn_ms = cuda_ms(lambda: dcn(x).sum().backward(), 5)
+    conv_ms = cuda_ms(lambda: conv(x).sum().backward(), 5)
+    weights = sum(p.numel() for p in dcn.parameters())
+    nbytes = 4 * (4 * x.numel() + 2 * weights)
+    macs = b * h * w * 9 * c * (c + 27)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 3 * 2 * macs / FP32_OPS_PER_S
+    print(f'DCNv2 layer {DCN_LAYER_SHAPE} -> {c}, forward + backward, fp32: '
+          f'{dcn_ms:.3f} ms; plain nn.Conv2d {conv_ms:.3f} ms '
+          f'({dcn_ms / conv_ms:.2f}x); bound {max(bytes_ms, ops_ms):.3f} ms '
+          f'(bytes {bytes_ms:.3f}, operations {ops_ms:.3f})')
+    return dcn_ms, conv_ms
+
+
+def inventory_boxinst(tool):
+    """BoxInst R-50 1x with each of BOXINST_VARIANTS: INVENTORY_STEPS SGD
+    steps at batch 2, 800x1344, fp32, K1/K2 on from step 1; each step's
+    ms, peak memory, and K1/K2's launches (one each a step)."""
+    import torch
+    seed = 0
+    for name, extra in BOXINST_VARIANTS.items():
+        work_dir = tempfile.mkdtemp(prefix='chip_smoke_variant_')
+        opts = ['model.mask_head.pairwise_warmup=1', *INVENTORY_TRAIN_OPTS,
+                'data.samples_per_gpu=2',
+                'data.train.type=SyntheticBoxDataset', *extra]
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            with pairwise_launches() as launches:
+                result = train_tool(tool, CONFIG, work_dir, seed, opts)
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            check_history(result, INVENTORY_STEPS,
+                          required=('loss_pairwise',))
+            if set(launches.values()) != {INVENTORY_STEPS}:
+                fail(f'BoxInst {name}: K1/K2 launched {launches} in '
+                     f'{INVENTORY_STEPS} steps')
+            cfg = tool.load_config(CONFIG, opts, work_dir, seed)
+            print(f'BoxInst {name} ({cfg.model.backbone.type}, '
+                  f'{cfg.model.neck.type}), batch 2, 800x1344, fp32; K1/K2 '
+                  f'launches {launches}:')
+            print_steps(result, peak)
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
+        release_cache()
+
+
+def check_module_card_vs_cpu(name, module, inputs, gen_params=()):
+    """``module`` (built on the CPU) on the CPU and on the card from the
+    same weights and inputs, fp32: its outputs, the inputs' gradients and
+    the gradients of ``gen_params`` (names) within REF_ATOL x max(1, max
+    |cpu|) + REF_RTOL x |cpu|. Returns the largest relative error."""
+    import torch
+    runs = {}
+    for dev in ('cpu', 'cuda'):
+        m = module.to(dev)
+        m.zero_grad(set_to_none=True)
+        xs = [x.detach().to(dev).requires_grad_() for x in inputs]
+        outs = m(xs) if len(xs) > 1 else m(xs[0])
+        outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+        sum((o * torch.cos(torch.arange(o.numel(), device=dev,
+                                        dtype=o.dtype).view(o.shape) * 0.37)
+             ).sum() for o in outs).backward()
+        named = dict(m.named_parameters())
+        runs[dev] = [t.detach().cpu() for t in (
+            *outs, *[x.grad for x in xs if x.grad is not None],
+            *[named[k].grad for k in gen_params])]
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(runs['cuda'], runs['cpu'])):
+        ref = max(want.abs().max().item(), 1.0)
+        diff = (got - want).abs()
+        tol = REF_ATOL * ref + REF_RTOL * want.abs()
+        if got.shape != want.shape or not bool((diff <= tol).all()):
+            fail(f'{name}: tensor {i} on the card vs CPU differs by '
+                 f'{diff.max().item()} (max |cpu| {ref})')
+        worst = max(worst, diff.max().item() / ref)
+    return worst
+
+
+def inventory_card_vs_cpu():
+    """A tiny version of every module of the slice on the card against the
+    CPU, fp32, TF32 off: the six backbones, the necks (FPN on_input and
+    on_lateral, PAFPN, ChannelMapper, FPN_CARAFE), and DCN v1 / v2 layers
+    at stride 2 / dilation 2 with offsets that leave the image, whose
+    offset conv's weight gradients are compared too."""
+    import torch
+    from boxinstseg_tpu_torch.models.deform_conv import DeformConv2d
+    from boxinstseg_tpu_torch.registry import BACKBONES, NECKS
+    gen = torch.Generator().manual_seed(0)
+    worst = {}
+    for name, cfg in TINY_BACKBONES.items():
+        torch.manual_seed(0)
+        x = torch.randn(2, 3, 72, 88, generator=gen)
+        backbone = BACKBONES.build(dict(cfg)).train()
+        for m in backbone.modules():
+            if type(m).__name__ == 'SACBottleneck':
+                # the weight-standardised SAConv multiplies by about
+                # sqrt(fan-in); its BN's variance absorbs that, as trained
+                # statistics would, so the maps stay O(1)
+                m.bn2.running_var.fill_(m.conv2.weight[0].numel())
+        worst[name] = check_module_card_vs_cpu(name, backbone, [x])
+    for name, cfg in TINY_NECKS.items():
+        torch.manual_seed(0)
+        xs = [torch.randn(2, c, h, w, generator=gen) for c, (h, w) in zip(
+            TINY_NECK_CHANNELS, ((30, 26), (15, 13), (8, 7), (4, 4)))]
+        worst[name] = check_module_card_vs_cpu(
+            name, NECKS.build(dict(cfg)).train(), xs)
+    for modulated in (False, True):
+        torch.manual_seed(0)
+        dcn = DeformConv2d(6, 8, 3, 2, 2, 2, modulated=modulated)
+        with torch.no_grad():
+            dcn.conv_offset.weight.normal_(0, 0.3, generator=gen)
+            dcn.conv_offset.bias.normal_(0, 2, generator=gen)
+        name = 'DCNv2' if modulated else 'DCN'
+        worst[name] = check_module_card_vs_cpu(
+            name, dcn, [torch.randn(2, 6, 17, 21, generator=gen)],
+            ('conv_offset.weight', 'conv_offset.bias', 'weight'))
+    print('card vs CPU (outputs, input gradients; DCN also its weights\' '
+          'gradients), worst error / max(1, max |cpu|): ' + ', '.join(
+              f'{k} {v:.3g}' for k, v in worst.items()))
+
+
+def phase_inventory(tool):
+    """The backbone and neck inventory at full width: DiscoBox X-101-DCN,
+    BoxLevelset R-50 DCNv2 and one DCNv2 layer against its conv, BoxInst
+    with each new backbone and neck, then every new module's tiny version
+    on the card against the CPU."""
+    t0 = time.perf_counter()
+    register_dataset()
+    _, cfg, model = phase_discobox(tool, DISCO_X101_CONFIG, X101_DCN_OPTS,
+                                   X101_PARTS)
+    phase_discobox_predict(cfg, model, 'DiscoBox X-101-DCN')
+    del model
+    release_cache()
+    inventory_boxlevelset(tool)
+    time_dcn_layer()
+    release_cache()
+    inventory_boxinst(tool)
+    inventory_card_vs_cpu()
+    print(f'inventory phase {time.perf_counter() - t0:.1f} s')
 
 
 def _child_main(target, rank, world, port, mode, results, args):
@@ -4106,6 +4416,9 @@ def run_phases(tool, work_dir, report, smi, t_start):
 
     phase('condinst')
     phase_condinst(tool, work_dir, files)
+
+    phase('inventory')
+    phase_inventory(tool)
 
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
