@@ -3,18 +3,18 @@
 MaskHungarianAssigner, mask_hungarian_assigner.py:113-123, with
 ClassificationCost + BoxMatchingCost, match_cost.py:365-425).
 
-The costs are computed on the device; the assignment is solved on the host
-with ``scipy.optimize.linear_sum_assignment``, all problems of a step after
-one device-to-host copy. The JAX package solves on the device with an exact
-Jonker-Volgenant solver; for a cost matrix with a unique optimum both give
-the same assignment.
+The costs and the assignment are computed on the device: every problem of
+a step goes through one ``ops.lsa.solve_lsa`` call (the CUDA kernel on the
+card), the JAX package's exact Jonker-Volgenant solver step for step, so
+that tied costs resolve as they do there; the host never waits.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
+
+from ...ops.lsa import solve_lsa
 
 
 def classification_cost(cls_scores: torch.Tensor, gt_labels: torch.Tensor
@@ -50,18 +50,23 @@ def hungarian_match(cost: torch.Tensor, gt_valid: torch.Tensor
     Returns (assigned query (B, G) int64, zero in the padded slots,
     gt_valid).
 
-    Each problem assigns its valid GTs (rows, in slot order) to distinct
-    queries at the least total cost; the padded slots take no part, as
-    in the JAX package, where they only soak up leftover queries."""
+    As the JAX function: the GTs (rows) are sorted valid-first, stably,
+    the padded rows zeroed, and only the live count is augmented; the
+    padded slots take no part."""
     b, q, g = cost.shape
     assert g <= q, (g, q)
-    from scipy.optimize import linear_sum_assignment
-    cost_np = cost.detach().float().cpu().numpy()
-    valid_np = gt_valid.detach().cpu().numpy().astype(bool)
-    assigned = np.zeros((b, g), np.int64)
-    for i in range(b):
-        rows = np.nonzero(valid_np[i])[0]
-        if len(rows):
-            r, cols = linear_sum_assignment(cost_np[i][:, rows].T)
-            assigned[i, rows[r]] = cols
-    return torch.from_numpy(assigned).to(cost.device), gt_valid
+    valid = gt_valid.bool()
+    order = torch.sort((~valid).to(torch.uint8), dim=1,
+                       stable=True).indices                    # (B, G)
+    valid_sorted = torch.gather(valid, 1, order)
+    cost_t = torch.gather(cost.detach().transpose(1, 2), 1,
+                          order[:, :, None].expand(b, g, q))
+    cost_t = torch.where(valid_sorted[:, :, None], cost_t,
+                         torch.zeros((), dtype=cost_t.dtype,
+                                     device=cost_t.device))
+    n_valid = valid.sum(dim=1).to(torch.int32)
+    assigned_sorted = solve_lsa(cost_t, n_valid)                 # (B, G)
+    inv = torch.argsort(order, dim=1)
+    assigned = torch.gather(assigned_sorted, 1, inv)
+    return torch.where(valid, assigned, torch.zeros_like(assigned)), \
+        gt_valid

@@ -1,4 +1,5 @@
 from . import losses  # noqa: F401  (registers loss modules)
+from ..ops import anchors  # noqa: F401  (registers the prior generators)
 from .backbones import (detectors_resnet, pvt, resnest,  # noqa: F401
                         resnet, swin)
 from .necks import fpn, pafpn  # noqa: F401

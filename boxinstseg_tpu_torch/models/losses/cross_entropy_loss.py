@@ -14,18 +14,41 @@ def binary_cross_entropy_with_logits(logits, targets):
              + (1.0 - targets) * F.logsigmoid(-logits))
 
 
+def softmax_cross_entropy(logits, labels, num_classes, class_weight=None):
+    """-log softmax at the label, times its class weight; a label outside
+    [0, num_classes) has no hot entry (a zero loss), as
+    ``jax.nn.one_hot``."""
+    logp = F.log_softmax(logits, dim=-1)
+    onehot = (labels.long()[..., None] == torch.arange(
+        num_classes, device=logits.device)).to(logits.dtype)
+    ce = -(onehot * logp).sum(-1)
+    if class_weight is not None:
+        cw = torch.as_tensor(class_weight, dtype=logits.dtype,
+                             device=logits.device)
+        ce = ce * cw[labels.long()]
+    return ce
+
+
 @LOSSES.register_module()
 class CrossEntropyLoss:
     def __init__(self, use_sigmoid: bool = False, use_mask: bool = False,
                  reduction: str = 'mean', class_weight=None,
                  loss_weight: float = 1.0):
-        if not use_sigmoid:
-            raise NotImplementedError('the softmax cross-entropy is not '
-                                      'ported yet')
+        self.use_sigmoid = use_sigmoid
+        self.class_weight = class_weight
         self.loss_weight = loss_weight
 
     def __call__(self, pred, target, weight=None, avg_factor=None):
-        loss = binary_cross_entropy_with_logits(pred, target.to(pred.dtype))
+        """The sum of the per-sample losses (times ``weight``) over
+        ``avg_factor``, or their mean without a weight."""
+        if self.use_sigmoid:
+            loss = binary_cross_entropy_with_logits(pred,
+                                                    target.to(pred.dtype))
+            if loss.dim() > target.dim():
+                loss = loss.sum(-1)
+        else:
+            loss = softmax_cross_entropy(pred, target, pred.shape[-1],
+                                         self.class_weight)
         if weight is not None:
             loss = loss * weight
         total = loss.sum()

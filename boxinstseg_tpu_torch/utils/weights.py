@@ -409,6 +409,29 @@ def _pixel_decoder(sd, prefix, params):
             raise KeyError(f'unknown pixel decoder entry {name}')
 
 
+def _plain_pixel_decoder(sd, params):
+    """The JAX ``PixelDecoder`` / ``TransformerEncoderPixelDecoder`` tree ->
+    the port's (mmdet's) keys."""
+    for name, node in params.items():
+        m = re.match(r'^(lateral|output)_convs_(\d+)$', name)
+        if m:
+            _conv_module(sd, f'{m.group(1)}_convs.{m.group(2)}', node, {})
+        elif name in ('last_feat_conv', 'encoder_out_proj'):
+            _conv_module(sd, name, node, {})
+        elif name in ('mask_feature', 'encoder_in_proj'):
+            _emit_conv(sd, name, node)
+        elif name == 'encoder':
+            for lname, layer in node.items():
+                prefix = f'encoder.layers.{lname.split("_")[1]}'
+                _mha(sd, f'{prefix}.attentions.0', layer['attn'])
+                _ffn(sd, prefix, layer['ffn'])
+                for i in range(2):
+                    _layer_norm(sd, f'{prefix}.norms.{i}',
+                                layer[f'norm{i + 1}'])
+        else:
+            raise KeyError(f'unknown pixel decoder entry {name}')
+
+
 _MASK_EMBED = {'mask_embed_0': 0, 'mask_embed_1': 2, 'mask_embed_out': 4}
 
 
@@ -447,9 +470,14 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
 
     Each submodule tree (backbone_m, neck_m, bbox_head_m, mask_branch_m,
     segm_head_m, mask_feat_head_m, panoptic_head_m) is converted when
-    present, so a lone backbone or head converts too."""
+    present, so a lone backbone or head converts too; so does the tree of
+    a lone ``PixelDecoder`` or ``TransformerEncoderPixelDecoder`` (its
+    own names at the top; DropBlock has no parameters)."""
     batch_stats = batch_stats or {}
     sd: Dict[str, torch.Tensor] = {}
+    if 'last_feat_conv' in params or 'encoder_in_proj' in params:
+        _plain_pixel_decoder(sd, params)
+        return sd
     if 'backbone_m' in params:
         _backbone(sd, params['backbone_m'],
                   batch_stats.get('backbone_m', {}))

@@ -42,8 +42,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                through tools/train_torch.py on seeded synthetic 1024x1024
                images; the MSDA and LCM kernels' launch counts over that run
                must equal their per-step counts (MSDA: one forward and one
-               backward an encoder layer) times the step count. Each step's
-               time is printed beside its live GT count.
+               backward an encoder layer) times the step count. The
+               Hungarian match goes through the LSA kernel (csrc/lsa.cu),
+               one launch a step for all 10 x 2 problems, with scipy's
+               linear_sum_assignment replaced by a function that raises.
+               Each step's time is printed beside its live GT count.
 7. box2mask reference - a small Box2Mask's loss dict on the card against the
                CPU.
 8. swin kernels - the Swin window attention pair K5/K6 against its plain
@@ -57,9 +60,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                JSON rows carry stage 0; stage 2 rides beside it.
 9. swin-l    - Box2Mask Swin-L LSJ at full width trained for 5 AdamW steps
                through tools/train_torch.py on seeded synthetic 1024x1024
-               images, batch 1; then MaskFormer.predict on one image (K5
-               only, no K6), its output through format_detection and the
-               RLE codec.
+               images, batch 1 (the LSA kernel once a step, scipy refused);
+               then MaskFormer.predict on one image (K5 only, no K6), its
+               output through format_detection and the RLE codec.
 10. swin reference - a small Box2Mask on a tiny Swin (window 4, odd maps,
                shifted blocks): loss dict and backbone gradients on the card
                against the CPU.
@@ -79,6 +82,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                every border, 0 and 1 rounds; a shape past the limit must
                raise); time, bound, plain time, and against the
                one-block-a-plane kernel in turns.
+11b. lsa kernel - the linear sum assignment kernel (no pl.pallas_call:
+               it replaces boxinstseg_tpu/ops/lsa.py:24 solve_lsa, which
+               the JAX Box2Mask step runs on the device) against its plain
+               version, assignments and step counts equal element for
+               element, at the Box2Mask R-50 step's own costs (20, K, 100)
+               with their live counts, at a crowded (20, 100, 100) and at
+               integer costs with many exact ties; each total cost scipy's
+               optimum within rel 1e-6; its time, the augmenting steps the
+               inputs took (all, and in the longest problem), the bound,
+               the plain version's time and, in turns with the kernel, the
+               scipy path's (copy, host solve, copy back). Its report is a
+               JSON line of its own before the kernels line.
 12. discobox - DiscoBox R-50 3x at full width (the shipped config with
                ts_cfg.start_iter=2) trained for 5 SGD steps through
                tools/train_torch.py on seeded synthetic 800x1333 images,
@@ -193,6 +208,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                every new module's tiny version on the card against the CPU
                (fp32, TF32 off): outputs and input gradients, and the DCN
                layers' weight gradients.
+21e. zoo     - every module of the last inventory slice on the card and on
+               the CPU from the same inputs, at the shapes of the mmdet
+               model that uses it (the model is printed with each check):
+               RetinaNet R-50 anchors at 800x1344 (201,600) and
+               max_iou_assign on them against 100 GT slots at batch 2,
+               SSD300 and YOLOv3-608 anchors (and responsible flags), ATSS
+               and TOOD on 22,400 anchors, SimOTA at YOLOX-s 640x640 (8,400
+               points, 80 classes), hungarian_bbox_assign at DETR's 100
+               queries x 100 slots (the LSA kernel), the samplers at RPN's
+               256 and R-CNN's 512, the focal-family, IoU and regression
+               losses and their gradients on (44,800, 80) and (44,800, 4),
+               Seesaw at LVIS (1,024 x 1,205), PISA at (1,024, 81), the
+               softmax CE and accuracy, the AE loss at CornerNet's 128 x
+               128, MaskFormer R-50's pixel decoders at 800x1333 batch 2,
+               merge_aug_masks over a flip pair of 100 masks at 800x1333,
+               Mask2Former's 12,544 uncertain points, CenterNet's (2, 80,
+               128, 128) gaussian targets, DropBlock and the bricks. Random
+               modules take the same CPU-drawn uniforms on both devices.
+               Outputs within REF_ATOL x max(1, max |cpu|) + REF_RTOL x
+               |cpu|, integer and boolean outputs equal; the card's ms.
 
 Every training phase logs every step (log_config.interval=1), so that each
 step's logged time ends in a device sync, and runs without evaluation
@@ -247,6 +282,9 @@ VALUE_RTOL = 1e-5                  # fp32, summation order
 # through autograd it is divided by max(den, 1), and so is GRAD_ATOL
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-5
 REF_RTOL, REF_ATOL = 1e-4, 1e-6    # cuDNN vs CPU conv summation order
+# the LSA kernel's input sets: the problems of a Box2Mask step (10 decoder
+# outputs x batch 2), at its own costs and at (20, 100, 100)
+LSA_PROBLEMS = 20
 
 # one encoder layer of Box2Mask's pixel decoder (R-50 and Swin-L LSJ):
 # batch 2, 8 heads, 32 channels a head, 4 points, the levels at strides 32,
@@ -1570,14 +1608,16 @@ def describe_backbone(bb):
             f'heads {list(bb.num_heads)}, window {bb.window_size}')
 
 
-def phase_box2mask(tool, config, samples, parts):
+def phase_box2mask(tool, config, samples, parts, lsa_kept=None):
     """5 AdamW steps of a Box2Mask config through the train entry point on
-    1024x1024 synthetic images, ``samples`` a batch. Returns the launches of
-    the kernels over the run, their expected per-step counts, the config
-    and the trained model (on the CPU). Fails unless a tensor of each of
-    ``parts`` changed."""
+    1024x1024 synthetic images, ``samples`` a batch, with scipy's
+    linear_sum_assignment refusing every call (the Hungarian match goes
+    through the LSA kernel, once a step). Returns the launches of the
+    kernels over the run, the config and the trained model (on the CPU).
+    Fails unless a tensor of each of ``parts`` changed. ``lsa_kept``, a
+    dict, receives the last LSA call's inputs."""
     import torch
-    from boxinstseg_tpu_torch.ops import lcm, msda
+    from boxinstseg_tpu_torch.ops import lcm, lsa, msda
     from boxinstseg_tpu_torch.ops import swin_attention as swa
     register_dataset()
     work_dir = tempfile.mkdtemp(prefix='chip_smoke_b2m_')
@@ -1589,7 +1629,8 @@ def phase_box2mask(tool, config, samples, parts):
     counters = {'msda_forward': msda.msda_forward_cuda,
                 'msda_backward': msda.msda_backward_cuda,
                 'lcm_forward': lcm.lcm_forward_cuda,
-                'lcm_adjoint': lcm.lcm_adjoint_cuda}
+                'lcm_adjoint': lcm.lcm_adjoint_cuda,
+                'lsa_solve': lsa.solve_lsa_cuda}
     try:
         cfg = tool.load_config(config, opts, work_dir, seed)
         head = cfg.model.panoptic_head
@@ -1606,10 +1647,11 @@ def phase_box2mask(tool, config, samples, parts):
               f'{cfg.optimizer.type}, grad clip '
               f'{cfg.optimizer_config.grad_clip.max_norm}')
         # one MSDA launch per encoder layer (all levels); one LCM
-        # refinement; one K5 and one K6 per Swin block
+        # refinement; one LSA solve of every decoder output's match; one K5
+        # and one K6 per Swin block
         per_step = {'msda_forward': pd.num_encoder_layers,
                     'msda_backward': pd.num_encoder_layers,
-                    'lcm_forward': 1, 'lcm_adjoint': 1}
+                    'lcm_forward': 1, 'lcm_adjoint': 1, 'lsa_solve': 1}
         if bb.type == 'SwinTransformer':
             counters['swin_attention_forward'] = \
                 swa.window_attention_forward_cuda
@@ -1620,7 +1662,9 @@ def phase_box2mask(tool, config, samples, parts):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        with live_gt_counts() as gts:
+        kept = {} if lsa_kept is None else lsa_kept
+        with live_gt_counts() as gts, no_scipy_lsa(), \
+                capture_lsa_inputs(kept):
             result = train_tool(tool, config, work_dir, seed, opts)
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in counters.items()}
@@ -1628,6 +1672,10 @@ def phase_box2mask(tool, config, samples, parts):
         check_history(result, STEPS,
                       required=('loss_cls', 'loss_project',
                                 'loss_levelset'))
+        print(f'LSA kernel launches a step: {launches["lsa_solve"] / STEPS:g}'
+              f' (scipy\'s linear_sum_assignment refused every call); the '
+              f'last step\'s problems {tuple(kept["cost"].shape)}, live rows '
+              f'{kept["n_rows"].tolist()}')
         for name, n in launches.items():
             if n != per_step[name] * STEPS:
                 fail(f'{name} launched {n} times in {STEPS} steps, expected '
@@ -4254,6 +4302,590 @@ def phase_public_surface(work_dir, files, files_checkpoint, checkpoint,
     release_cache()
 
 
+# ---------------------------------------------------------------- LSA
+
+@contextlib.contextmanager
+def no_scipy_lsa():
+    """scipy's linear_sum_assignment raises within: the Box2Mask phases
+    must solve their Hungarian match on the card."""
+    import scipy.optimize
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('scipy.optimize.linear_sum_assignment called '
+                             'on the Box2Mask path')
+    saved = scipy.optimize.linear_sum_assignment
+    scipy.optimize.linear_sum_assignment = refuse
+    try:
+        yield
+    finally:
+        scipy.optimize.linear_sum_assignment = saved
+
+
+@contextlib.contextmanager
+def capture_lsa_inputs(kept):
+    """Keep the last Hungarian match's LSA inputs (cost, n_rows) in
+    ``kept`` (references, no copies)."""
+    from boxinstseg_tpu_torch.core.targets import hungarian
+    inner = hungarian.solve_lsa
+
+    def recorded(cost, n_rows=None):
+        kept['cost'], kept['n_rows'] = cost, n_rows
+        return inner(cost, n_rows)
+    hungarian.solve_lsa = recorded
+    try:
+        yield
+    finally:
+        hungarian.solve_lsa = inner
+
+
+def lsa_cases(b2m, gen):
+    """The LSA kernel's input sets: the Box2Mask R-50 step's own costs
+    with their live counts; a crowded full capacity (20, 100, 100), every
+    row live; integer costs 0-3 (many exact ties), every row live."""
+    import torch
+    p = LSA_PROBLEMS
+    crowded = torch.randn((p, 100, 100), generator=gen, device='cuda') * 3
+    tied = torch.randint(0, 4, (p, 100, 100), generator=gen,
+                         device='cuda').float()
+    full = torch.full((p,), 100, dtype=torch.int32, device='cuda')
+    return {'box2mask r-50 step': (b2m['cost'], b2m['n_rows']),
+            'crowded 100x100': (crowded, full),
+            'tied integers': (tied, full)}
+
+
+def scipy_lsa(cost, n_rows):
+    """The yardstick: the costs to the host, one scipy solve a problem on
+    its live rows, the assignment back to the card."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+    c = cost.cpu().numpy()
+    rows = n_rows.cpu().numpy()
+    out = np.zeros(c.shape[:2], np.int64)
+    for i, k in enumerate(rows):
+        if k:
+            r, cols = linear_sum_assignment(c[i, :k])
+            out[i, r] = cols
+    return torch.from_numpy(out).to(cost.device)
+
+
+def host_ms(fn, iters=20):
+    """Host clock over ``iters`` calls after 3, ending in a device sync."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def phase_lsa_kernel(b2m, launches_a_step):
+    """The LSA kernel against its plain version on each input set,
+    assignments and step counts equal element for element; its time, the
+    plain version's and the scipy path's in turns at the Box2Mask inputs,
+    and the bound. Returns the report line's fields."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+    from boxinstseg_tpu_torch.ops import lsa
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    report = None
+    for name, (cost, n_rows) in lsa_cases(b2m, gen).items():
+        p, n, m = cost.shape
+        steps = torch.zeros((p,), dtype=torch.int32, device='cuda')
+        got = lsa.solve_lsa_cuda(cost, n_rows, steps)
+        torch.cuda.synchronize()
+        want, want_steps = lsa.solve_lsa_plain(cost.cpu(), n_rows.cpu(),
+                                               return_steps=True)
+        if not torch.equal(got.cpu(), want):
+            bad = int((got.cpu() != want).sum())
+            fail(f'lsa kernel, {name}: {bad} assignments differ from the '
+                 f'plain version')
+        if not torch.equal(steps.cpu().long(), want_steps):
+            fail(f'lsa kernel, {name}: step counts differ from the plain '
+                 f'version')
+        rows = n_rows.cpu().numpy()
+        ties = 0
+        for i, k in enumerate(rows):
+            c = cost[i, :k].cpu().numpy()
+            r, cc = linear_sum_assignment(c)
+            opt = c[r, cc].astype(np.float64).sum()
+            tot = c[np.arange(k), want[i, :k].numpy()].astype(
+                np.float64).sum()
+            if abs(tot - opt) > 1e-6 * max(abs(opt), 1.0):
+                fail(f'lsa kernel, {name}: problem {i} costs {tot}, '
+                     f'scipy {opt}')
+            ties += int((want[i, :k].numpy() != cc).any())
+        ms = cuda_ms(lambda: lsa.solve_lsa_cuda(cost, n_rows))
+        total = int(want_steps.sum())
+        # bytes: the cost and the counts read once, col4row written once;
+        # operations: the relaxation's two subtractions and the slack's
+        # update, a column a step, over the steps these inputs took
+        b = bound(nbytes(cost, n_rows) + p * n * 8, 3 * m * total)
+        print(f'lsa kernel, {name}: ({p}, {n}, {m}), live rows '
+              f'{int(rows.sum())} ({int(rows.min())}-{int(rows.max())}), '
+              f'equal to the plain version (assignments and steps); '
+              f'augmenting steps {total} in all, {int(want_steps.max())} in '
+              f'the longest problem (serial); {ties} problems where scipy '
+              f'picks another optimum; {ms:.4f} ms, bound {b["bound_ms"]:.6f}'
+              f' ms ({b["bound_by"]})')
+        if report is None:
+            plain_ms = cuda_ms(lambda: lsa.solve_lsa_plain(cost, n_rows),
+                               iters=3)
+            turns = [host_ms(lambda: lsa.solve_lsa_cuda(cost, n_rows)),
+                     host_ms(lambda: scipy_lsa(cost, n_rows)),
+                     host_ms(lambda: scipy_lsa(cost, n_rows)),
+                     host_ms(lambda: lsa.solve_lsa_cuda(cost, n_rows))]
+            print(f'lsa kernel, {name}: in turns (host clock, 20 calls '
+                  f'each, ending in a sync): kernel {turns[0]:.4f}, scipy '
+                  f'path (copy, host solve, copy back) {turns[1]:.4f}, '
+                  f'{turns[2]:.4f}, kernel {turns[3]:.4f} ms; the plain '
+                  f'version on the card {plain_ms:.3f} ms')
+            report = dict(
+                name='lsa_solve', route='cuda',
+                source='boxinstseg_tpu_torch/csrc/lsa.cu',
+                replaces='boxinstseg_tpu/ops/lsa.py:24 solve_lsa (not a '
+                         'pl.pallas_call)',
+                launches_a_step=launches_a_step, max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, **b, scipy_ms=min(turns[1], turns[2]),
+                kernel_host_ms=min(turns[0], turns[3]), steps=total,
+                serial_steps=int(want_steps.max()))
+    return report
+
+
+# ---------------------------------------------------------------- zoo
+
+# RetinaNet R-50 at 800x1344: strides 8-128, 3 ratios x 3 octave scales
+RETINA_SIZES = ((100, 168), (50, 84), (25, 42), (13, 21), (7, 11))
+ZOO_GTS = 100                       # GT slots an image
+ZOO_LIVE = 23                       # live GTs an image
+
+
+class ZooCheck:
+    """Runs a function on the card and on the CPU from the same inputs
+    (CPU tensors moved), checks the outputs within atol x max(1,
+    max |cpu|) + REF_RTOL x |cpu| (integer and boolean outputs equal), and
+    prints the model, shape, card ms and worst error. atol is REF_ATOL,
+    or KERNEL_ATOL for a full-width stack of long fp32 sums (a 3x3 conv
+    over 256 channels sums 2,304 products, in another order on the card:
+    the MaskFormer pixel decoders differ by up to ~4e-6 at max |cpu| ~2)."""
+
+    def __init__(self):
+        self.worst = {}
+
+    def __call__(self, model, what, fn, *args, timed=True, atol=REF_ATOL,
+                 **kwargs):
+        import torch
+
+        def move(a, dev):
+            if isinstance(a, torch.Tensor):
+                return a.to(dev)
+            if isinstance(a, (list, tuple)):
+                return type(a)(move(x, dev) for x in a)
+            return a
+        cpu = fn(*args, **kwargs)
+        cargs, ckw = move(args, 'cuda'), {k: move(v, 'cuda')
+                                          for k, v in kwargs.items()}
+        card = fn(*cargs, **ckw)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: fn(*cargs, **ckw), iters=3) if timed else None
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(self.flat(card), self.flat(cpu))):
+            g = g.detach().cpu()
+            w = w.detach()
+            if g.shape != w.shape:
+                fail(f'zoo, {what}: output {i} {tuple(g.shape)} on the card, '
+                     f'{tuple(w.shape)} on the CPU')
+            if not w.is_floating_point():
+                if not torch.equal(g, w):
+                    fail(f'zoo, {what}: integer output {i} differs at '
+                         f'{int((g != w).sum())} of {w.numel()} places')
+                continue
+            ref = max(w.abs().max().item() if w.numel() else 0.0, 1.0)
+            diff = (g - w).abs()
+            if not bool((diff <= atol * ref + REF_RTOL * w.abs()).all()):
+                fail(f'zoo, {what}: output {i} differs by '
+                     f'{diff.max().item()} (max |cpu| {ref}, atol {atol} x '
+                     f'max(1, max |cpu|))')
+            if w.numel():
+                worst = max(worst, diff.max().item() / ref)
+        self.worst[what] = worst
+        print(f'zoo: {model}, {what}: ' + (f'{ms:.3f} ms, ' if timed else '')
+              + f'worst error / max(1, max |cpu|) {worst:.3g}'
+              + (f' (atol {atol:g})' if atol != REF_ATOL else ''),
+              flush=True)
+        return cpu
+
+    @staticmethod
+    def flat(x):
+        import torch
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, dict):
+            return [v for k in sorted(x) for v in ZooCheck.flat(x[k])]
+        if isinstance(x, (list, tuple)):
+            return [v for a in x for v in ZooCheck.flat(a)]
+        return []
+
+
+def zoo_boxes(gen, n, w=1344.0, h=800.0, max_wh=400.0):
+    import torch
+    xy = torch.rand((n, 2), generator=gen) * torch.tensor([w, h])
+    wh = torch.rand((n, 2), generator=gen) * max_wh + 8
+    return torch.cat([xy, xy + wh], 1)
+
+
+def zoo_gts(gen, anchors, k=ZOO_GTS, live=ZOO_LIVE):
+    """k GT slots, the first ``live`` valid: jittered anchors (so that
+    some anchors overlap them well), labels in 0-79."""
+    import torch
+    idx = torch.randint(0, anchors.shape[0], (k,), generator=gen)
+    g = anchors[idx] + torch.randn((k, 4), generator=gen) * 4
+    valid = torch.arange(k) < live
+    return g, valid, torch.randint(0, 80, (k,), generator=gen)
+
+
+def zoo_anchors_and_assigners(check, gen):
+    import torch
+    from boxinstseg_tpu_torch.core.targets import assigner_zoo as Z
+    from boxinstseg_tpu_torch.core.targets import assigners as A
+    from boxinstseg_tpu_torch.registry import PRIOR_GENERATORS
+    retina = PRIOR_GENERATORS.build(dict(
+        type='AnchorGenerator', octave_base_scale=4, scales_per_octave=3,
+        ratios=[0.5, 1.0, 2.0], strides=[8, 16, 32, 64, 128]))
+
+    def grid(gen_, sizes, pad, device='cpu'):
+        return (gen_.grid_priors(sizes, device=device),
+                gen_.valid_flags(sizes, pad, device=device))
+    priors = check('RetinaNet R-50', 'anchors at 800x1344 (5 levels x 9)',
+                   lambda dev_probe: grid(retina, RETINA_SIZES, (800, 1333),
+                                          dev_probe.device),
+                   torch.zeros(1))
+    anchors = torch.cat(priors[0])
+    if anchors.shape[0] != 201600:
+        fail(f'RetinaNet anchors: {anchors.shape[0]}, expected 201,600')
+    ssd = PRIOR_GENERATORS.build(dict(
+        type='SSDAnchorGenerator', scale_major=False, input_size=300,
+        basesize_ratio_range=(0.15, 0.9), strides=[8, 16, 32, 64, 100, 300],
+        ratios=[[2], [2, 3], [2, 3], [2, 3], [2], [2]]))
+    check('SSD300', 'anchors (6 levels, 8,732)',
+          lambda probe: grid(ssd, ((38, 38), (19, 19), (10, 10), (5, 5),
+                                   (3, 3), (1, 1)), (300, 300),
+                             probe.device), torch.zeros(1))
+    yolo = PRIOR_GENERATORS.build(dict(
+        type='YOLOAnchorGenerator', strides=[32, 16, 8],
+        base_sizes=[[(116, 90), (156, 198), (373, 326)],
+                    [(30, 61), (62, 45), (59, 119)],
+                    [(10, 13), (16, 30), (33, 23)]]))
+    yolo_sizes = ((19, 19), (38, 38), (76, 76))
+    yg = zoo_boxes(gen, 40, 608, 608, 200)
+    check('YOLOv3-608', 'anchors and responsible flags (3 levels, 22,743)',
+          lambda b: (grid(yolo, yolo_sizes, (608, 608), b.device),
+                     yolo.responsible_flags(yolo_sizes, b)), yg)
+    # max IoU at batch 2 against 100 GT slots (80.6 MB of overlaps an
+    # image), then the RPN sampler's 256 from them
+    for img in range(2):
+        g, valid, labels = zoo_gts(gen, anchors)
+        assigned, _, _ = check(
+            'RetinaNet R-50', f'max_iou_assign image {img} (201,600 x 100)',
+            A.max_iou_assign, anchors, g, valid, 0.5, 0.4, 0.0,
+            gt_labels=labels)
+    noise = torch.rand((2, anchors.shape[0]), generator=gen)
+    check('RPN R-50', 'random_sample 256 of 201,600', A.random_sample,
+          assigned, 256, 0.5, noise=tuple(noise))
+    # ATSS / TOOD: one anchor a location, 22,400
+    atss_gen = PRIOR_GENERATORS.build(dict(
+        type='AnchorGenerator', ratios=[1.0], octave_base_scale=8,
+        scales_per_octave=1, strides=[8, 16, 32, 64, 128]))
+    a1 = torch.cat(atss_gen.grid_priors(RETINA_SIZES, device='cpu'))
+    levels = [h * w for h, w in RETINA_SIZES]
+    g, valid, labels = zoo_gts(gen, a1)
+    check('ATSS R-50', 'atss_assign (22,400 x 100)', Z.atss_assign, a1,
+          levels, g, valid, 9, gt_labels=labels)
+    scores = torch.rand((a1.shape[0], 80), generator=gen)
+    dec = a1 + torch.randn(a1.shape, generator=gen) * 8
+    check('TOOD R-50', 'task_aligned_assign (22,400 x 100, 80 classes)',
+          Z.task_aligned_assign, scores, dec, a1, g, valid, labels)
+    # SimOTA at YOLOX-s 640x640: 8,400 points, 80 classes
+    pts = []
+    for s in (8, 16, 32):
+        n = 640 // s
+        yy, xx = torch.meshgrid(torch.arange(n), torch.arange(n),
+                                indexing='ij')
+        pts.append(torch.stack([xx.reshape(-1) * s, yy.reshape(-1) * s,
+                                torch.full((n * n,), s),
+                                torch.full((n * n,), s)], 1).float())
+    pts = torch.cat(pts)
+    g, valid, labels = zoo_gts(gen, torch.cat([pts[:, :2] - 20,
+                                               pts[:, :2] + 40], 1))
+    dec = torch.cat([pts[:, :2] - 16, pts[:, :2] + 16], 1) + torch.randn(
+        (pts.shape[0], 4), generator=gen) * 4
+    check('YOLOX-s', 'sim_ota_assign (8,400 x 100, 80 classes)',
+          Z.sim_ota_assign, torch.rand((8400, 80), generator=gen), pts, dec,
+          g, valid, labels)
+    # DETR: 100 queries x 100 slots through the LSA kernel
+    q = 100
+    pred = torch.rand((q, 4), generator=gen) * 0.5 + 0.2
+    g = zoo_boxes(gen, 100, 1333, 800, 300)
+    valid = torch.arange(100) < 37
+    check('DETR R-50', 'hungarian_bbox_assign (100 queries x 100 slots)',
+          Z.hungarian_bbox_assign, pred, torch.randn((q, 80), generator=gen),
+          g, valid, torch.randint(0, 80, (100,), generator=gen), (800, 1333))
+
+
+def zoo_samplers(check, gen):
+    """R-CNN's 512 of 2,000 proposals (and the GTs) a sampler."""
+    import torch
+    from boxinstseg_tpu_torch.core.targets import samplers as S
+    n = 2000
+    assigned = torch.where(torch.rand(n, generator=gen) < 0.1,
+                           torch.randint(1, 24, (n,), generator=gen),
+                           torch.randint(-1, 1, (n,), generator=gen))
+    ov = torch.rand(n, generator=gen) * 0.5
+    u = tuple(torch.rand((5, n), generator=gen))
+    check('Libra R-CNN R-50', 'instance_balanced_pos_sample 128 of 2,000',
+          S.instance_balanced_pos_sample, assigned, 128, max_gts=100,
+          noise=u[:3])
+    check('Libra R-CNN R-50', 'iou_balanced_neg_sample 384 of 2,000',
+          S.iou_balanced_neg_sample, assigned, ov, 384, 0.0, 0.5,
+          noise=u)
+    check('Libra R-CNN R-50', 'combined_sample 512 of 2,000',
+          S.combined_sample, assigned, ov, 512, 0.25,
+          noise=(u[:3], u))
+    check('Faster R-CNN OHEM', 'ohem_sample 512 of 2,000', S.ohem_sample,
+          assigned, torch.rand(n, generator=gen), 512, 0.25)
+    pred = zoo_boxes(gen, 200, max_wh=200).repeat(10, 1) + torch.randn(
+        (n, 4), generator=gen) * 6
+    check('PISA Faster R-CNN', 'score_hlr_neg_sample 512 of 2,000',
+          S.score_hlr_neg_sample, assigned, torch.rand(n, generator=gen),
+          pred, 512, ori_loss=torch.rand(n, generator=gen), noise=u[:2],
+          timed=False)
+
+
+def zoo_losses(check, gen):
+    import torch
+    from boxinstseg_tpu_torch.models import losses as L
+    from boxinstseg_tpu_torch.registry import LOSSES
+    n = 44800                        # 22,400 locations x batch 2
+    logits = torch.randn((n, 80), generator=gen) * 2
+    iou_t = torch.where(torch.rand((n, 80), generator=gen) > 0.99,
+                        torch.rand((n, 80), generator=gen),
+                        torch.zeros(n, 80))
+    label = torch.randint(0, 81, (n,), generator=gen)
+    score = torch.rand(n, generator=gen)
+    heat = torch.rand((n, 80), generator=gen) ** 4
+    lw = (torch.rand((n, 80), generator=gen) > 0.05).float()
+
+    def loss_and_grad(fn):
+        def run(x, *rest):
+            x = x.detach().requires_grad_()
+            v = fn(x, *rest)
+            g, = torch.autograd.grad(v, x)
+            return v.detach(), g
+        return run
+    for name, cfg, args in (
+            ('VarifocalLoss', {}, (iou_t,)),
+            ('QualityFocalLoss', {}, ((label, score),)),
+            ('GHMC', {}, ((iou_t > 0).float(), lw)),
+            ('KnowledgeDistillationKLDivLoss', dict(T=2),
+             (torch.randn((n, 80), generator=gen),))):
+        check('GFL / VFNet / GHM / LD R-50', f'{name} on ({n}, 80)',
+              loss_and_grad(LOSSES.build(dict(type=name, **cfg))), logits,
+              *args)
+    check('CenterNet', f'GaussianFocalLoss on ({n}, 80)',
+          loss_and_grad(LOSSES.build(dict(type='GaussianFocalLoss'))),
+          torch.sigmoid(logits), heat)
+    tgt = zoo_boxes(gen, n)
+    pred = tgt + torch.randn((n, 4), generator=gen) * 10
+    w4 = torch.rand((n, 4), generator=gen)
+    for name in ('IoULoss', 'GIoULoss', 'DIoULoss', 'CIoULoss',
+                 'BoundedIoULoss', 'L1Loss', 'SmoothL1Loss', 'MSELoss',
+                 'BalancedL1Loss'):
+        per_box = name in ('IoULoss', 'GIoULoss')
+        check('FCOS / ATSS R-50', f'{name} on ({n}, 4)',
+              loss_and_grad(lambda p, t, w, _l=LOSSES.build(dict(type=name)):
+                            _l(p, t, w, avg_factor=1000.0)),
+              pred, tgt, w4.mean(1) if per_box else w4)
+    check('GHM RetinaNet', f'GHMR on ({n}, 4)',
+          loss_and_grad(LOSSES.build(dict(type='GHMR'))),
+          pred / 100, tgt / 100, (w4 > 0.1).float())
+    check('GFL R-50', f'DistributionFocalLoss on ({4 * n}, 17)',
+          loss_and_grad(LOSSES.build(dict(type='DistributionFocalLoss'))),
+          torch.randn((4 * n, 17), generator=gen),
+          torch.rand(4 * n, generator=gen) * 15.99)
+    # Seesaw at LVIS v1: 1,024 samples, 1,203 classes (+2 objectness)
+    seesaw = LOSSES.build(dict(type='SeesawLoss', num_classes=1203))
+    labels = torch.randint(0, 1204, (1024,), generator=gen)
+
+    def seesaw_run(s, lab):
+        cum = seesaw.update_cum_samples(
+            seesaw.init_cum_samples(device=s.device), lab)
+        s = s.detach().requires_grad_()
+        out = seesaw(s, lab, cum)
+        g, = torch.autograd.grad(sum(out.values()), s)
+        return cum, out, g
+    check('Seesaw Mask R-CNN LVIS', 'SeesawLoss on (1,024, 1,205)',
+          seesaw_run, torch.randn((1024, 1205), generator=gen), labels)
+    # PISA at (1,024, 81); CE and accuracy on it
+    cls = torch.randn((1024, 81), generator=gen)
+    lab = torch.randint(0, 81, (1024,), generator=gen)
+    deltas = torch.randn((1024, 4), generator=gen) * 0.1
+    rois = zoo_boxes(gen, 1024)
+
+    def isr(c, l, d, r, g):
+        return L.isr_p(c, d, (l, torch.ones_like(d[:, 0]), d * 0.5,
+                              torch.ones_like(d)), r, g,
+                       lambda s, y, reduction_override=None:
+                       torch.nn.functional.cross_entropy(s, y,
+                                                         reduction='none'),
+                       lambda r_, d_: r_ + d_, num_class=80)
+    check('PISA Faster R-CNN', 'isr_p on (1,024, 81)', isr, cls, lab,
+          deltas, rois, torch.randint(0, 20, (1024,), generator=gen))
+    check('PISA Faster R-CNN', 'carl_loss on (1,024, 81)',
+          loss_and_grad(lambda c, l, d, t: L.carl_loss(
+              c, l, d, t, lambda a, b: (a - b).abs(),
+              num_class=80)['loss_carl']),
+          cls, lab, deltas, deltas * 0.5)
+    check('Faster R-CNN', 'CrossEntropyLoss (softmax) on (1,024, 81)',
+          loss_and_grad(LOSSES.build(dict(type='CrossEntropyLoss'))),
+          cls, lab)
+    check('Faster R-CNN', 'accuracy top-1, 5 on (1,024, 81)',
+          lambda c, l: L.accuracy(c, l, (1, 5)), cls, lab)
+    # CornerNet's associative embedding: 128 x 128 maps, 128 objects
+    emb = torch.randn((2, 128, 128, 1), generator=gen)
+    match = torch.randint(0, 128, (2, 128, 2, 2), generator=gen)
+    mvalid = torch.arange(128)[None].expand(2, 128) < torch.tensor(
+        [[37], [90]])
+    check('CornerNet HG-104', 'AssociativeEmbeddingLoss (2, 128 objects)',
+          lambda a, b, m, v: L.AssociativeEmbeddingLoss()(a, b, m, v),
+          emb, torch.randn((2, 128, 128, 1), generator=gen), match, mvalid)
+
+
+def zoo_modules(check, gen):
+    import torch
+    from boxinstseg_tpu_torch.models.plugins.dropblock import DropBlock
+    from boxinstseg_tpu_torch.models.plugins.pixel_decoder import (
+        PixelDecoder, TransformerEncoderPixelDecoder)
+    from boxinstseg_tpu_torch.models.utils import bricks as B
+    from boxinstseg_tpu_torch.models.utils import gaussian_target as G
+    from boxinstseg_tpu_torch.models.utils import point_sample as P
+    from boxinstseg_tpu_torch.ops import merge_augs as M
+
+    def forward(module):
+        def run(*xs):
+            m = module.to(xs[0].device)
+            with torch.no_grad():
+                return m(list(xs)) if len(xs) > 1 else m(xs[0])
+        return run
+    # MaskFormer R-50 at 800x1333, batch 2: C2-C5
+    feats = [torch.randn((2, c, h, w), generator=gen) for c, (h, w) in zip(
+        (256, 512, 1024, 2048), ((200, 334), (100, 167), (50, 84),
+                                 (25, 42)))]
+    torch.manual_seed(0)
+    check('MaskFormer R-50', 'TransformerEncoderPixelDecoder at 800x1333, '
+          'batch 2 (6 layers)', forward(TransformerEncoderPixelDecoder(
+              num_encoder_layers=6).eval()), *feats, atol=KERNEL_ATOL)
+    check('MaskFormer R-50', 'PixelDecoder at 800x1333, batch 2',
+          forward(PixelDecoder().eval()), *feats, atol=KERNEL_ATOL)
+    # merge_aug_masks: a flip pair of 100 masks at 800x1333
+    masks = [torch.randn((100, 1, 800, 1333), generator=gen)
+             for _ in range(2)]
+    metas = [dict(flip=False), dict(flip=True,
+                                    flip_direction='horizontal')]
+    check('Mask R-CNN R-50 TTA', 'merge_aug_masks, a flip pair of (100, 1, '
+          '800, 1333)', lambda a, b: M.merge_aug_masks([a, b], metas),
+          *masks)
+    del masks
+    props = [torch.cat([zoo_boxes(gen, 1000), torch.rand((1000, 1),
+                                                          generator=gen)], 1)
+             for _ in range(2)]
+    pmetas = [dict(img_shape=(800, 1333), scale_factor=[1.0] * 4,
+                   flip=False),
+              dict(img_shape=(800, 1333), scale_factor=[1.0] * 4, flip=True)]
+    check('RPN R-50 TTA', 'merge_aug_proposals, 2 x 1,000',
+          lambda a, b: M.merge_aug_proposals(
+              [a, b], pmetas, dict(nms=dict(iou_threshold=0.7),
+                                   max_per_img=1000)), *props, timed=False)
+    # Mask2Former: 12,544 points on 100 queries' stride-4 masks
+    mp = torch.randn((100, 1, 200, 334), generator=gen)
+    labels = torch.zeros(100, dtype=torch.long)
+    noise = (torch.rand((100, 3 * 12544, 2), generator=gen),
+             torch.rand((100, 12544 - int(0.75 * 12544), 2), generator=gen))
+    check('Mask2Former R-50', 'get_uncertain_point_coords_with_randomness '
+          '(100 queries, 12,544 points)',
+          lambda m, l, n0, n1: P.get_uncertain_point_coords_with_randomness(
+              m, l, 12544, 3.0, 0.75, noise=(n0, n1)), mp, labels, *noise)
+    pts = torch.rand((100, 12544, 2), generator=gen)
+    check('Mask2Former R-50', 'point_sample (100, 1, 200, 334) at 12,544',
+          P.point_sample, mp, pts)
+    # CenterNet R-18 at 512x512: (2, 80, 128, 128)
+    centers = torch.rand((2, 20, 2), generator=gen) * 127
+    whs = torch.rand((2, 20, 2), generator=gen) * 60 + 4
+    cls_ids = torch.randint(0, 80, (2, 20), generator=gen)
+
+    def centernet(c, wh, k):
+        heat = torch.zeros((2, 80, 128, 128), device=c.device)
+        for b in range(2):
+            for i in range(20):
+                r = torch.clamp(G.gaussian_radius(
+                    (wh[b, i, 1], wh[b, i, 0]), 0.3).floor(), min=0)
+                cx, cy = c[b, i].floor()
+                heat[b, k[b, i]] = G.gen_gaussian_target(
+                    heat[b, k[b, i]], (cx, cy), r)
+        peaks = G.get_local_maximum(heat)
+        top = G.get_topk_from_heatmap(peaks, 100)
+        feat = G.transpose_and_gather_feat(heat[:, :8], top[1])
+        return heat, top, feat
+    check('CenterNet R-18', 'gaussian targets, local max, top 100 on (2, '
+          '80, 128, 128)', centernet, centers, whs, cls_ids, timed=False)
+    # DropBlock at ResNet-50 stage 3 of 800x1344: (2, 1024, 50, 84)
+    drop = DropBlock(drop_prob=0.1, block_size=7, warmup_iters=0).train()
+    x = torch.randn((2, 1024, 50, 84), generator=gen)
+    seeds = (torch.rand((2, 1024, 44, 78), generator=gen)
+             < float(drop.gamma(50, 84))).float()
+    check('DropBlock R-50', 'DropBlock (2, 1024, 50, 84), block 7',
+          lambda a, s: drop(a, seeds=s), x, seeds)
+    torch.manual_seed(0)
+    for model, what, module, shape, atol in (
+            ('MobileNetV2 (SSDLite)', 'InvertedResidual 32 -> 32 at 80x80',
+             B.InvertedResidual(32, 32, 192, se_ratio=4), (2, 32, 80, 80),
+             REF_ATOL),
+            ('DyHead ATSS', 'DyReLU 256 at 100x168', B.DyReLU(256),
+             (2, 256, 100, 168), REF_ATOL),
+            ('SCNet R-50', 'SimplifiedBasicBlock 256 at 14x14',
+             B.SimplifiedBasicBlock(256, 256), (512, 256, 14, 14),
+             REF_ATOL),
+            ('Panoptic FPN R-50', 'ConvUpsample 256 -> 128, 3 layers',
+             B.ConvUpsample(256, 128, 3, norm_cfg=dict(type='GN',
+                                                       num_groups=32)),
+             (2, 256, 25, 42), KERNEL_ATOL),
+            ('Seesaw Mask R-CNN LVIS', 'NormedLinear 1,024 -> 1,204',
+             B.NormedLinear(1024, 1204), (1024, 1024), REF_ATOL),
+            ('RetinaNet (normed head)', 'NormedConv2d 256 -> 720 at 100x168',
+             B.NormedConv2d(256, 720, 3), (2, 256, 100, 168), REF_ATOL)):
+        check(model, what, forward(module.train()),
+              torch.randn(shape, generator=gen), atol=atol)
+
+
+def phase_zoo():
+    """Every module of this slice on the card and on the CPU at the shapes
+    of the mmdet model that uses it (ZooCheck)."""
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    check = ZooCheck()
+    zoo_anchors_and_assigners(check, gen)
+    zoo_samplers(check, gen)
+    zoo_losses(check, gen)
+    zoo_modules(check, gen)
+    print(f'zoo: {len(check.worst)} checks, worst error / max(1, max |cpu|) '
+          f'{max(check.worst.values()):.3g}; the phase '
+          f'{time.perf_counter() - t0:.1f} s')
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -4291,9 +4923,9 @@ def main(argv=None):
     from boxinstseg_tpu_torch.ops import _native
     t0 = time.perf_counter()
     _native.build_all(['pairwise', 'msda', 'lcm', 'swin_attention', 'crf',
-                       *BASELINES.values()])
-    print(f'pairwise.cu, msda.cu, lcm.cu, swin_attention.cu, crf.cu and the '
-          f'baselines of pairwise.cu, lcm.cu and crf.cu: '
+                       'lsa', *BASELINES.values()])
+    print(f'pairwise.cu, msda.cu, lcm.cu, swin_attention.cu, crf.cu, lsa.cu '
+          f'and the baselines of pairwise.cu, lcm.cu and crf.cu: '
           f'{time.perf_counter() - t0:.2f} s (nvcc ' + ', '.join(
               f'{os.path.basename(k)} {v:.2f} s'
               for k, v in _native.BUILD_SECONDS.items()) + ')')
@@ -4334,9 +4966,11 @@ def run_phases(tool, work_dir, report, smi, t_start):
     phase_reference()
 
     phase('box2mask')
+    lsa_kept = {}
     b2m_launches, _, _ = phase_box2mask(
         tool, B2M_CONFIG, 2, ('backbone.', 'panoptic_head.pixel_decoder.'
-                              'encoder.', 'panoptic_head.transformer_decoder.'))
+                              'encoder.', 'panoptic_head.transformer_decoder.'),
+        lsa_kept)
     launches.update(b2m_launches)
 
     phase('box2mask reference')
@@ -4369,6 +5003,10 @@ def run_phases(tool, work_dir, report, smi, t_start):
 
     phase('crf kernel')
     report.update(phase_crf_kernel())
+
+    phase('lsa kernel')
+    lsa_report = phase_lsa_kernel(lsa_kept, b2m_launches['lsa_solve'] / STEPS)
+    del lsa_kept
 
     phase('discobox')
     disco_launches, disco_cfg, disco_model = phase_discobox(tool)
@@ -4420,10 +5058,14 @@ def run_phases(tool, work_dir, report, smi, t_start):
     phase('inventory')
     phase_inventory(tool)
 
+    phase('zoo')
+    phase_zoo()
+
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     **report[name]) for name in REPLACES]
     print(f'smoke wall time {time.perf_counter() - t_start:.1f} s')
+    print(json.dumps({'lsa': lsa_report}))
     print(json.dumps({'kernels': kernels}))
     print(smi[0])
     print(json.dumps({'ok': True, 'device': {

@@ -605,3 +605,46 @@ def test_kernel_entries_take_bf16_inputs(cuda, kind):
                     b.grad.float(), f.grad.to(torch.bfloat16).float(),
                     atol=1e-2 * max(f.grad.abs().max().item(), 1e-3),
                     rtol=1e-2)
+
+
+def _lsa_cases(seed):
+    """(cost, n_rows) of the LSA kernel's cases: random padded problems,
+    a crowded full capacity, and integer costs with many exact ties."""
+    rng = np.random.RandomState(seed)
+    rand = rng.randn(20, 30, 100).astype(np.float32)
+    crowded = (rng.randn(20, 100, 100) * 3).astype(np.float32)
+    tied = rng.randint(0, 3, (20, 40, 60)).astype(np.float32)
+    return [(rand, rng.randint(0, 31, 20)),
+            (crowded, np.full(20, 100)),
+            (tied, rng.randint(20, 41, 20))]
+
+
+@pytest.mark.parametrize('case', [0, 1, 2])
+def test_lsa_kernel_equals_plain(cuda, case):
+    from boxinstseg_tpu_torch.ops import lsa
+    cost, n_rows = _lsa_cases(0)[case]
+    c = torch.from_numpy(cost)
+    nr = torch.from_numpy(n_rows.astype(np.int32))
+    want, steps = lsa.solve_lsa_plain(c, nr, return_steps=True)
+    before = lsa.solve_lsa_cuda.launches
+    got_steps = torch.zeros(len(n_rows), dtype=torch.int32, device=cuda)
+    got = lsa.solve_lsa_cuda(c.to(cuda), nr.to(cuda), got_steps)
+    torch.cuda.synchronize()
+    assert lsa.solve_lsa_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got_steps.cpu().long(), steps)
+    assert torch.equal(lsa.solve_lsa(c.to(cuda), nr.to(cuda)).cpu(), want)
+
+
+def test_lsa_wrapper_rejects_what_it_does_not_take(cuda):
+    from boxinstseg_tpu_torch.ops import lsa
+    nr = torch.ones(2, dtype=torch.int32, device=cuda)
+    for cost, n_rows in (
+            (torch.zeros(2, 5, 4, device=cuda), nr),             # n > m
+            (torch.zeros(2, 3, 4, device=cuda, dtype=torch.float64), nr),
+            (torch.zeros(2, 4, 3, device=cuda).transpose(1, 2), nr),
+            (torch.zeros(2, 3, 4, device=cuda), nr.long()),
+            (torch.zeros(2, 300, 300, device=cuda),
+             torch.ones(2, dtype=torch.int32, device=cuda))):
+        with pytest.raises(ValueError):
+            lsa.solve_lsa_cuda(cost, n_rows)
