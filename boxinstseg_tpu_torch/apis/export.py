@@ -18,6 +18,13 @@ regions do not export as the eager policy runs them).
 
 ``ExportedDetector`` wraps a loaded program with ``predict(batch)``, so
 that ``apis.test.run_evaluation`` drives it as it drives the model.
+
+``export_loss`` traces a detector's forward and loss (``model.loss(batch,
+iteration)``, in ``train()``) at one batch into a program that takes the
+batch dict and returns the loss dict. The loss path's kernels stay single
+nodes there too: ``boxinstseg::pairwise_forward`` / ``pairwise_backward``
+(BoxInst), ``lcm_forward``, ``solve_lsa`` and ``msda_forward`` (Box2Mask),
+``crf_mean_field`` (DiscoBox), and the host MST solve ``grid_mst``.
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..ops import msda, swin_attention  # noqa: F401  (register the ops)
+from ..ops import (crf, lcm, lsa, msda, mst, pairwise,  # noqa: F401
+                   swin_attention)                      # (register the ops)
 from .train import apply_precision_policy
 
 OP_NAMESPACE = 'boxinstseg'
@@ -71,15 +79,73 @@ def export_predict(model: torch.nn.Module, cfg, shape: Tuple[int, int],
                                    example_inputs(batch, shape, device))
 
 
-def count_ops(program: torch.export.ExportedProgram,
-              namespace: str = OP_NAMESPACE) -> Dict[str, int]:
-    """How many calls of each ``namespace::`` op the program's graph
-    holds, by op name."""
+class LossModule(torch.nn.Module):
+    """``model.loss(batch, iteration)`` over a batch dict, the exported
+    signature of ``export_loss``; ``loss_kwargs`` are passed on (such as
+    DiscoBox's ``gates``)."""
+
+    def __init__(self, model: torch.nn.Module, iteration=None,
+                 **loss_kwargs):
+        super().__init__()
+        self.model = model
+        self.iteration = iteration
+        self.loss_kwargs = loss_kwargs
+
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        return self.model.loss(batch, self.iteration, **self.loss_kwargs)
+
+
+def export_loss(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                iteration=None, **loss_kwargs) -> torch.export.ExportedProgram:
+    """``torch.export.export`` (non-strict) of ``model.loss(batch,
+    iteration)`` in ``train()`` at this batch's shapes (``iteration`` and
+    ``loss_kwargs`` baked in). The program takes the batch dict and returns
+    the loss dict; ``program.module()`` is differentiable in its
+    parameters (``loss_grad_graph``) and updates BN running statistics as
+    the eager step does."""
+    model.train()
+    return torch.export.export(LossModule(model, iteration, **loss_kwargs),
+                               (batch,), strict=False)
+
+
+def loss_grad_graph(program: torch.export.ExportedProgram,
+                    batch: Dict[str, torch.Tensor]) -> torch.fx.GraphModule:
+    """The train step's graph of an ``export_loss`` program: its forward
+    and loss, then the gradients of the summed losses (every key with
+    'loss') in its trainable parameters, traced at aten level
+    (``make_fx``) through autograd, so the backward ops of the kernels
+    (``pairwise_backward``, ``lcm_adjoint``, ``msda_backward``) are nodes.
+    The graph takes the batch's tensors in its key order and returns
+    [total loss, the gradients that are not None]."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    module = program.module()
+    params = [p for p in module.parameters() if p.requires_grad]
+    keys = list(batch)
+
+    def step(*tensors):
+        losses = module(dict(zip(keys, tensors)))
+        total = sum(v for k, v in losses.items() if 'loss' in k)
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        return [total] + [g for g in grads if g is not None]
+    return make_fx(step)(*batch.values())
+
+
+def count_ops(program, namespace: str = OP_NAMESPACE) -> Dict[str, int]:
+    """How many calls of each ``namespace::`` op the graph of ``program``
+    (an ``ExportedProgram`` or a ``GraphModule``) holds, by op name,
+    including the graphs nested in it (an autocast region, as the loss's
+    fp32 region, is a submodule of the exported graph)."""
+    root = program.graph_module if hasattr(program, 'graph_module') \
+        else program
     counts = collections.Counter()
-    for node in program.graph.nodes:
-        if node.op == 'call_function' and \
-                getattr(node.target, 'namespace', None) == namespace:
-            counts[node.target.__name__.split('.')[0]] += 1
+    for module in root.modules():
+        if not isinstance(module, torch.fx.GraphModule):
+            continue
+        for node in module.graph.nodes:
+            if node.op == 'call_function' and \
+                    getattr(node.target, 'namespace', None) == namespace:
+                counts[node.target.__name__.split('.')[0]] += 1
     return dict(counts)
 
 

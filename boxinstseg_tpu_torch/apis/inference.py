@@ -19,6 +19,7 @@ from ..config import Config
 from ..core.structures import InstanceData
 from ..data.pipelines import Compose
 from ..registry import build_detector
+from ..utils.env import set_tf32, tf32_from_cfg
 from .test import eval_batcher, format_detection, predict_batch
 from .train import apply_precision_policy, get_logger
 
@@ -64,6 +65,8 @@ def init_detector(config: Union[str, Config],
     lacks (such as the reference BN's ``num_batches_tracked`` beside the
     port's frozen BN) are logged and skipped."""
     cfg = Config.fromfile(config) if isinstance(config, str) else config
+    get_logger()
+    set_tf32(tf32_from_cfg(cfg))
     model = build_detector(cfg.model.copy())
     if checkpoint is not None:
         if not checkpoint.endswith('.pth'):

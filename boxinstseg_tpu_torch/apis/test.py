@@ -39,6 +39,7 @@ from ..models.detectors.maskformer import panoptic_postprocess
 from ..native import rle_lib
 from ..ops.upsample import aligned_bilinear, interpolate_bilinear
 from ..parallel import dist as pdist
+from ..utils.env import set_tf32, tf32_from_cfg
 from .train import apply_precision_policy, batch_to_device, get_logger
 
 
@@ -248,8 +249,9 @@ def run_evaluation(model: torch.nn.Module, dataset, cfg,
         from .. import native
         raise RuntimeError(f'the native RLE codec did not build: '
                            f'{native.BUILD_ERROR}')
-    bf16 = apply_precision_policy(cfg)
     logger = get_logger()
+    set_tf32(tf32_from_cfg(cfg))
+    bf16 = apply_precision_policy(cfg)
     b = cfg.get('data', {}).get('samples_per_gpu', 2)
     n_total = len(dataset) if max_images is None \
         else min(max_images, len(dataset))

@@ -53,6 +53,7 @@ from ..engine.schedules import build_lr_schedule
 from ..engine.train_state import TSTrainStep, make_train_step
 from ..models.detectors.single_stage_ts import SingleStageWSInsTSDetector
 from ..parallel import dist as pdist
+from ..utils.env import set_tf32, tf32_from_cfg
 
 
 def _train_resize_cfg(cfg):
@@ -439,6 +440,7 @@ def train_detector(model: torch.nn.Module, dataset, cfg: Config,
     os.makedirs(work_dir, exist_ok=True)
     logger = get_logger(os.path.join(work_dir, 'train.log')
                         if pdist.rank() == 0 else None)
+    set_tf32(tf32_from_cfg(cfg))
     bf16 = apply_precision_policy(cfg)
     if bf16:
         logger.info('mixed precision: bf16 activations, f32 params/losses')

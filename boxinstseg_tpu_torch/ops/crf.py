@@ -10,9 +10,10 @@ inter-image priors: ``num_iter`` rounds of
 with the 9 offsets of a 3x3 stencil in row-major order from (-1, -1) and
 zero padding. The result is a pseudo-label: no gradient flows through it.
 
-``crf_mean_field`` dispatches on the device of ``bin0``: a CUDA tensor goes
-through the kernel (which raises on what it does not take), a CPU tensor
-through ``crf_mean_field_plain``.
+``crf_mean_field`` calls the registered torch op
+``boxinstseg::crf_mean_field``, whose implementation the dispatcher picks
+by the device of ``bin0``: the kernel on a CUDA tensor (which raises on
+what it does not take), ``crf_mean_field_plain`` on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ._native import as_fp32, check, load_library
 
@@ -135,9 +137,7 @@ def _lib():
 
 
 def _check_inputs(kern, thresh, bin0, targets, kernel_size):
-    if kernel_size != 3:
-        raise ValueError(f'kernel size {kernel_size}: the CRF kernel takes '
-                         f'the 3x3 stencil only')
+    _check_kernel_size(kernel_size)
     for name, t in (('kern', kern), ('thresh', thresh), ('bin0', bin0),
                     ('targets', targets)):
         if not t.is_cuda:
@@ -145,10 +145,24 @@ def _check_inputs(kern, thresh, bin0, targets, kernel_size):
         if t.device != bin0.device:
             raise ValueError(f'{name} is on {t.device}, bin0 on '
                              f'{bin0.device}')
-        if t.dtype != torch.float32:
-            raise ValueError(f'{name} must be float32, got {t.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
+    _check_layout(kern, thresh, bin0, targets)
+
+
+def _check_kernel_size(kernel_size):
+    if kernel_size != 3:
+        raise ValueError(f'kernel size {kernel_size}: the CRF takes the 3x3 '
+                         f'stencil only')
+
+
+def _check_layout(kern, thresh, bin0, targets):
+    """The shapes and types the op takes; no device or stride check, so it
+    also runs on fake tensors."""
+    for name, t in (('kern', kern), ('thresh', thresh), ('bin0', bin0),
+                    ('targets', targets)):
+        if t.dtype != torch.float32:
+            raise ValueError(f'{name} must be float32, got {t.dtype}')
     if bin0.dim() != 4 or targets.shape != bin0.shape:
         raise ValueError(f'bin0 {tuple(bin0.shape)} and targets '
                          f'{tuple(targets.shape)} must be one (B, K, H, W)')
@@ -200,21 +214,58 @@ def crf_mean_field_cuda(kern, thresh, bin0, targets, num_iter,
 crf_mean_field_cuda.launches = 0
 
 
+# --------------------------------------------------- registered torch op
+
+@torch.library.custom_op('boxinstseg::crf_mean_field', mutates_args=(),
+                         device_types='cuda')
+def crf_mean_field_op(kern: torch.Tensor, thresh: torch.Tensor,
+                      bin0: torch.Tensor, targets: torch.Tensor,
+                      num_iter: int, kernel_size: int) -> torch.Tensor:
+    """K7 as a torch op: the fixed point after ``num_iter`` rounds (fp32;
+    no gradient: a pseudo-label)."""
+    return crf_mean_field_cuda(kern, thresh, bin0, targets, num_iter,
+                               kernel_size)
+
+
+@crf_mean_field_op.register_kernel('cpu')
+def _crf_mean_field_cpu(kern, thresh, bin0, targets, num_iter, kernel_size):
+    _check_kernel_size(kernel_size)
+    _check_layout(kern, thresh, bin0, targets)
+    return crf_mean_field_plain(kern, thresh, bin0, targets, num_iter)
+
+
+@crf_mean_field_op.register_fake
+def _crf_mean_field_fake(kern, thresh, bin0, targets, num_iter,
+                         kernel_size):
+    _check_kernel_size(kernel_size)
+    _check_layout(kern, thresh, bin0, targets)
+    return torch.empty_like(bin0)
+
+
+@register_flop_formula(torch.ops.boxinstseg.crf_mean_field)
+def _crf_mean_field_flops(kern_shape, thresh_shape, bin0_shape,
+                          targets_shape, num_iter, kernel_size,
+                          out_shape=None, **kwargs) -> int:
+    """The stencil's multiply-add per offset, pixel and round, over every
+    pixel of every plane (the dense count)."""
+    n = 1
+    for k in bin0_shape:
+        n *= k
+    return 2 * kernel_size * kernel_size * n * num_iter
+
+
 def crf_mean_field(kern: torch.Tensor, thresh: torch.Tensor,
                    bin0: torch.Tensor, targets: torch.Tensor, num_iter: int,
                    kernel_size: int = 3) -> torch.Tensor:
-    """The binary mean-field fixed point (no gradient), in bin0's dtype. A
-    CUDA tensor launches the kernel, in fp32 whatever the inputs' dtype (a
-    bf16 input, as autocast leaves it, is cast as the JAX wrapper casts);
-    a CPU tensor takes the plain version."""
-    args = [t.detach() for t in (kern, thresh, bin0, targets)]
-    if bin0.is_cuda:
-        return crf_mean_field_cuda(
-            *[as_fp32(t).contiguous() for t in args], num_iter,
-            kernel_size).to(bin0.dtype)
-    if bin0.device.type == 'cpu':
-        if kernel_size != 3:
-            raise ValueError(f'kernel size {kernel_size}: the CRF takes the '
-                             f'3x3 stencil only')
-        return crf_mean_field_plain(*args, num_iter)
-    raise ValueError(f'no CRF fixed point for device {bin0.device}')
+    """The binary mean-field fixed point (no gradient), in bin0's dtype.
+
+    Calls the op ``boxinstseg::crf_mean_field``: the kernel for CUDA
+    tensors, in fp32 whatever the inputs' dtype (a bf16 input, as autocast
+    leaves it, is cast as the JAX wrapper casts), the plain version for
+    CPU tensors. A kernel size other than 3 raises on either."""
+    if bin0.device.type not in ('cuda', 'cpu'):
+        raise ValueError(f'no CRF fixed point for device {bin0.device}')
+    args = [as_fp32(t.detach()).contiguous()
+            for t in (kern, thresh, bin0, targets)]
+    return crf_mean_field_op(*args, int(num_iter),
+                             int(kernel_size)).to(bin0.dtype)

@@ -12,17 +12,21 @@ for the same number of rounds: ``apply_at`` scatters aff * g back to the
 clamped neighbour. aff is a constant (the affinity is computed under
 no-grad).
 
-``lcm_refine`` dispatches on the device of ``phi``: a CUDA tensor goes
-through the kernels (``LCMRefineFunction``), a CPU tensor through the plain
-versions (``PlainLCMRefineFunction``).
+``lcm_refine`` calls the registered torch op ``boxinstseg::lcm_forward``
+(the offsets flattened to ``[dy0, dx0, dy1, dx1, ...]``), whose gradient in
+phi is the op ``boxinstseg::lcm_adjoint``; the dispatcher picks the
+implementation by the device of phi: the kernels on a CUDA tensor, the
+plain versions (``lcm_forward_plain``, ``lcm_adjoint_plain``) on a CPU
+tensor.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ._native import as_fp32, check, load_library
 
@@ -78,21 +82,6 @@ def lcm_adjoint_plain(aff, g, offsets, num_iter):
     for _ in range(num_iter):
         g = apply_at(aff, g, offsets)
     return g
-
-
-class PlainLCMRefineFunction(torch.autograd.Function):
-    """Plain forward rounds; the backward runs the adjoint rounds."""
-
-    @staticmethod
-    def forward(ctx, aff, phi, offsets, num_iter):
-        ctx.save_for_backward(aff)
-        ctx.cfg = (tuple(offsets), num_iter)
-        return lcm_forward_plain(aff, phi, offsets, num_iter)
-
-    @staticmethod
-    def backward(ctx, g):
-        aff, = ctx.saved_tensors
-        return None, lcm_adjoint_plain(aff, g, *ctx.cfg), None, None
 
 
 # ------------------------------------------------------------- CUDA kernels
@@ -178,10 +167,17 @@ def _check_inputs(aff, phi, offsets):
             raise ValueError(f'{name} must be a CUDA tensor')
         if t.device != phi.device:
             raise ValueError(f'{name} is on {t.device}, phi on {phi.device}')
-        if t.dtype != torch.float32:
-            raise ValueError(f'{name} must be float32, got {t.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
+    _check_layout(aff, phi, offsets)
+
+
+def _check_layout(aff, phi, offsets):
+    """The shapes and types the ops take; no device or stride check, so it
+    also runs on fake tensors."""
+    for name, t in (('aff', aff), ('phi', phi)):
+        if t.dtype != torch.float32:
+            raise ValueError(f'{name} must be float32, got {t.dtype}')
     if phi.dim() != 4:
         raise ValueError(f'phi must be (B, C, H, W), got {tuple(phi.shape)}')
     b, _, h, w = phi.shape
@@ -254,39 +250,100 @@ def lcm_adjoint_cuda(aff, g, offsets, num_iter):
 lcm_adjoint_cuda.launches = 0
 
 
-class LCMRefineFunction(torch.autograd.Function):
-    """Forward kernel; the backward is the adjoint kernel. The kernels
-    take fp32 (as the JAX wrapper casts): a bf16 or fp16 phi, as autocast
-    leaves it, runs in fp32 and comes back in its own dtype, and so does
-    its gradient."""
+# --------------------------------------------------- registered torch ops
 
-    @staticmethod
-    def forward(ctx, aff, phi, offsets, num_iter):
-        aff = as_fp32(aff).contiguous()
-        ctx.save_for_backward(aff)
-        ctx.cfg = (tuple(offsets), num_iter)
-        ctx.dtype = phi.dtype
-        return lcm_forward_cuda(aff, as_fp32(phi).contiguous(), offsets,
-                                num_iter).to(phi.dtype)
+def _pairs(flat: List[int]) -> Tuple[Tuple[int, int], ...]:
+    """[dy0, dx0, dy1, dx1, ...] -> ((dy0, dx0), (dy1, dx1), ...)."""
+    if len(flat) % 2:
+        raise ValueError(f'offsets {flat}: not (dy, dx) pairs')
+    return tuple((int(flat[i]), int(flat[i + 1]))
+                 for i in range(0, len(flat), 2))
 
-    @staticmethod
-    def backward(ctx, g):
-        aff, = ctx.saved_tensors
-        grad = lcm_adjoint_cuda(aff, as_fp32(g).contiguous(), *ctx.cfg)
-        return None, grad.to(ctx.dtype), None, None
+
+@torch.library.custom_op('boxinstseg::lcm_forward', mutates_args=(),
+                         device_types='cuda')
+def lcm_forward_op(aff: torch.Tensor, phi: torch.Tensor, offsets: List[int],
+                   num_iter: int) -> torch.Tensor:
+    """K3 as a torch op: ``num_iter`` rounds of phi (B, C, H, W) with the
+    constant affinities aff (B, K, H, W); ``offsets`` flat (dy, dx)
+    pairs."""
+    return lcm_forward_cuda(aff, phi, _pairs(offsets), num_iter)
+
+
+@lcm_forward_op.register_kernel('cpu')
+def _lcm_forward_cpu(aff, phi, offsets, num_iter):
+    _check_layout(aff, phi, _pairs(offsets))
+    return lcm_forward_plain(aff, phi, _pairs(offsets), num_iter)
+
+
+@lcm_forward_op.register_fake
+def _lcm_forward_fake(aff, phi, offsets, num_iter):
+    _check_layout(aff, phi, _pairs(offsets))
+    return torch.empty_like(phi)
+
+
+@torch.library.custom_op('boxinstseg::lcm_adjoint', mutates_args=(),
+                         device_types='cuda')
+def lcm_adjoint_op(aff: torch.Tensor, g: torch.Tensor, offsets: List[int],
+                   num_iter: int) -> torch.Tensor:
+    """K3's adjoint as a torch op: ``num_iter`` transposed rounds of g."""
+    return lcm_adjoint_cuda(aff, g, _pairs(offsets), num_iter)
+
+
+@lcm_adjoint_op.register_kernel('cpu')
+def _lcm_adjoint_cpu(aff, g, offsets, num_iter):
+    _check_layout(aff, g, _pairs(offsets))
+    return lcm_adjoint_plain(aff, g, _pairs(offsets), num_iter)
+
+
+@lcm_adjoint_op.register_fake
+def _lcm_adjoint_fake(aff, g, offsets, num_iter):
+    _check_layout(aff, g, _pairs(offsets))
+    return torch.empty_like(g)
+
+
+def _lcm_setup_context(ctx, inputs, output):
+    aff, phi, offsets, num_iter = inputs
+    ctx.save_for_backward(aff)
+    ctx.cfg = (offsets, num_iter)
+
+
+def _lcm_backward_formula(ctx, grad):
+    """The gradient in phi is the adjoint op; aff is a constant."""
+    aff, = ctx.saved_tensors
+    return None, lcm_adjoint_op(aff, grad.contiguous(), *ctx.cfg), None, None
+
+
+lcm_forward_op.register_autograd(_lcm_backward_formula,
+                                 setup_context=_lcm_setup_context)
+
+
+def _lcm_flops(aff_shape, phi_shape, offsets, num_iter, out_shape=None,
+               **kwargs) -> int:
+    """A multiply-add per pixel, channel, offset and round."""
+    n = 1
+    for k in phi_shape:
+        n *= k
+    return 2 * n * (len(offsets) // 2) * num_iter
+
+
+register_flop_formula(torch.ops.boxinstseg.lcm_forward)(_lcm_flops)
+register_flop_formula(torch.ops.boxinstseg.lcm_adjoint)(_lcm_flops)
 
 
 def lcm_refine(aff: torch.Tensor, phi: torch.Tensor, offsets: Offsets,
                num_iter: int) -> torch.Tensor:
     """``num_iter`` LCM rounds of phi (B, C, H, W) with affinities aff
-    (B, K, H, W), differentiable in phi.
+    (B, K, H, W), differentiable in phi (aff is detached).
 
-    A CUDA tensor launches the kernels (and raises on what they do not
-    take); a CPU tensor takes the plain versions."""
-    args = (aff.detach().contiguous(), phi.contiguous(),
-            tuple(tuple(o) for o in offsets), num_iter)
-    if phi.is_cuda:
-        return LCMRefineFunction.apply(*args)
-    if phi.device.type == 'cpu':
-        return PlainLCMRefineFunction.apply(*args)
-    raise ValueError(f'no LCM refinement for device {phi.device}')
+    Calls the op ``boxinstseg::lcm_forward``: the kernels for CUDA tensors
+    (which raise on what they do not take), the plain versions for CPU
+    tensors. The kernels take fp32 (as the JAX wrapper casts): a bf16 or
+    fp16 phi, as autocast leaves it, runs in fp32 and comes back in its
+    own dtype, and so does its gradient."""
+    if phi.device.type not in ('cuda', 'cpu'):
+        raise ValueError(f'no LCM refinement for device {phi.device}')
+    flat = [int(v) for o in offsets for v in o]
+    return lcm_forward_op(as_fp32(aff.detach()).contiguous(),
+                          as_fp32(phi).contiguous(), flat,
+                          int(num_iter)).to(phi.dtype)

@@ -17,10 +17,11 @@ so that exactly tied costs resolve as they do there:
 - a search ends at a free column, or after m + 1 steps;
 - the back-walk then flips the path's columns.
 
-``solve_lsa`` dispatches on the device of ``cost``: a CUDA tensor goes
-through the kernel (one thread block a problem, no host sync: ``n_rows``
-is read on the device), a CPU tensor through ``solve_lsa_plain``. The
-cost takes no gradient.
+``solve_lsa`` calls the registered torch op ``boxinstseg::solve_lsa``,
+whose implementation the dispatcher picks by the device of ``cost``: the
+kernel on a CUDA tensor (one thread block a problem, no host sync:
+``n_rows`` is read on the device), ``solve_lsa_plain`` on a CPU tensor.
+The cost takes no gradient.
 """
 from __future__ import annotations
 
@@ -187,21 +188,58 @@ def solve_lsa_cuda(cost: torch.Tensor, n_rows: torch.Tensor,
 solve_lsa_cuda.launches = 0
 
 
+# --------------------------------------------------- registered torch op
+
+def _check_layout(cost, n_rows):
+    """The shapes and types the op takes; no device or stride check, so it
+    also runs on fake tensors."""
+    if cost.dtype != torch.float32 or cost.dim() != 3:
+        raise ValueError(f'cost must be a float32 (P, n, m), got '
+                         f'{cost.dtype} {tuple(cost.shape)}')
+    p, n, m = cost.shape
+    if n > m:
+        raise ValueError(f'{n} rows > {m} columns: every row is assigned')
+    if n_rows.dtype != torch.int32 or tuple(n_rows.shape) != (p,):
+        raise ValueError(f'n_rows must be a ({p},) int32 tensor')
+
+
+@torch.library.custom_op('boxinstseg::solve_lsa', mutates_args=(),
+                         device_types='cuda')
+def solve_lsa_op(cost: torch.Tensor, n_rows: torch.Tensor) -> torch.Tensor:
+    """The LSA kernel as a torch op: col4row (P, n) int64 of the fp32 cost
+    (P, n, m) with ``n_rows`` (P,) int32 live rows a problem, a tensor
+    read on the device. No gradient. No flop formula is registered: the
+    work is the augmenting steps, which depend on the costs, not on the
+    shapes."""
+    return solve_lsa_cuda(cost, n_rows)
+
+
+@solve_lsa_op.register_kernel('cpu')
+def _solve_lsa_cpu(cost, n_rows):
+    _check_layout(cost, n_rows)
+    return solve_lsa_plain(cost, n_rows)
+
+
+@solve_lsa_op.register_fake
+def _solve_lsa_fake(cost, n_rows):
+    _check_layout(cost, n_rows)
+    p, n, _ = cost.shape
+    return cost.new_empty((p, n), dtype=torch.int64)
+
+
 def solve_lsa(cost: torch.Tensor, n_rows=None) -> torch.Tensor:
     """Assign each of the first ``n_rows`` rows of every (n, m) problem of
     ``cost`` (P, n, m) (or one (n, m) problem) a distinct column at the
     least total cost. Returns col4row (P, n) (or (n,)) int64, 0 past
-    n_rows. A CUDA tensor launches the kernel (which raises on what it
-    does not take); a CPU tensor takes the plain version."""
+    n_rows. Calls the op ``boxinstseg::solve_lsa``: the kernel for a CUDA
+    tensor (which raises on what it does not take), the plain version for
+    a CPU tensor."""
     single = cost.dim() == 2
     c = cost.detach()[None] if single else cost.detach()
     p, n, m = c.shape
     assert n <= m, (n, m)
-    nr = _n_rows(n_rows, p, n, c.device).reshape(p)
-    if c.is_cuda:
-        out = solve_lsa_cuda(c.float().contiguous(), nr.contiguous())
-    elif c.device.type == 'cpu':
-        out = solve_lsa_plain(c, nr)
-    else:
+    if c.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'no LSA solver for device {c.device}')
+    nr = _n_rows(n_rows, p, n, c.device).reshape(p)
+    out = solve_lsa_op(c.float().contiguous(), nr.contiguous())
     return out[0] if single else out

@@ -13,6 +13,11 @@ raw weights would break ties differently.
 The tree is rooted at node 0 and every node gets its parent and depth
 (the root is its own parent at depth 0). Nodes deeper than ``max_depth``
 are detached: each becomes its own root at depth 0, as in the JAX package.
+
+``grid_mst`` calls the registered torch op ``boxinstseg::grid_mst``, so
+that a traced loss (``torch.export``) keeps the host solve as one node:
+the host solve is its implementation on every device, and its fake gives
+the (parent, depth) shapes. It is not a kernel.
 """
 from __future__ import annotations
 
@@ -61,10 +66,10 @@ def _mst_parent_depth(weights: np.ndarray, h: int, w: int, max_depth: int
     return parent, depth
 
 
-def grid_mst(w_right: torch.Tensor, w_down: torch.Tensor, max_depth: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """w_right (B, H, W-1), w_down (B, H-1, W) edge weights ->
-    (parent, depth), (B, H*W) int64 each, on the weights' device."""
+@torch.library.custom_op('boxinstseg::grid_mst', mutates_args=())
+def grid_mst_op(w_right: torch.Tensor, w_down: torch.Tensor, max_depth: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The host solve of ``grid_mst`` as a torch op."""
     b, h, wm1 = w_right.shape
     w = wm1 + 1
     weights = torch.cat([w_right.reshape(b, -1), w_down.reshape(b, -1)],
@@ -74,3 +79,21 @@ def grid_mst(w_right: torch.Tensor, w_down: torch.Tensor, max_depth: int
     dev = w_right.device
     return (torch.from_numpy(np.stack(parents)).to(dev),
             torch.from_numpy(np.stack(depths)).to(dev))
+
+
+@grid_mst_op.register_fake
+def _grid_mst_fake(w_right, w_down, max_depth):
+    b, h, wm1 = w_right.shape
+    if tuple(w_down.shape) != (b, h - 1, wm1 + 1):
+        raise ValueError(f'w_down {tuple(w_down.shape)} != '
+                         f'{(b, h - 1, wm1 + 1)}')
+    shape = (b, h * (wm1 + 1))
+    return (w_right.new_empty(shape, dtype=torch.int64),
+            w_right.new_empty(shape, dtype=torch.int64))
+
+
+def grid_mst(w_right: torch.Tensor, w_down: torch.Tensor, max_depth: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w_right (B, H, W-1), w_down (B, H-1, W) edge weights ->
+    (parent, depth), (B, H*W) int64 each, on the weights' device."""
+    return grid_mst_op(w_right.detach(), w_down.detach(), int(max_depth))

@@ -9,11 +9,15 @@ bitmask * valid, and normalised by max(sum of weights, 1), the sum over
 the global batch under a process group (``parallel.dist``). Out-of-image
 neighbours see zero log-probs, so their term vanishes.
 
-``boxinst_pairwise_loss`` dispatches on the device of the logits: a CUDA
-tensor goes through the kernels (``PairwiseLossFunction``), a CPU tensor
-through the plain version (``PlainPairwiseLossFunction``). Both have the
-same analytic backward (the dual of the reference's
-pairwise_nlog_backward, pairwise.cu:52-66).
+``boxinst_pairwise_loss`` calls the registered torch ops
+``boxinstseg::pairwise_forward`` (K1: the numerator, this process's
+denominator and K1's live map) and ``boxinstseg::pairwise_backward`` (K2,
+the forward op's gradient), whose implementation the dispatcher picks by
+the device of the inputs: the kernels on a CUDA tensor, the plain version
+(``pairwise_num_den_plain``, ``pairwise_grad_plain``) on a CPU tensor. Both
+have the same analytic backward (the dual of the reference's
+pairwise_nlog_backward, pairwise.cu:52-66). The denominator's reduction
+over a process group runs in ``boxinst_pairwise_loss``, outside the ops.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ..parallel import dist as pdist
 from ._native import as_fp32, check, load_library
@@ -94,29 +99,6 @@ def pairwise_grad_plain(mask_logits, color_sim, bitmasks, valid,
     return grad
 
 
-class PlainPairwiseLossFunction(torch.autograd.Function):
-    """Plain PyTorch forward with the analytic backward."""
-
-    @staticmethod
-    def forward(ctx, mask_logits, color_sim, bitmasks, valid, color_thresh,
-                kernel_size, dilation):
-        num, den = pairwise_num_den_plain(mask_logits, color_sim, bitmasks,
-                                          valid, color_thresh, kernel_size,
-                                          dilation)
-        den = pdist.reduce_mean_denominator(den, 1.0)
-        ctx.save_for_backward(mask_logits, color_sim, bitmasks, valid, den)
-        ctx.cfg = (color_thresh, kernel_size, dilation)
-        return num / den
-
-    @staticmethod
-    def backward(ctx, g):
-        mask_logits, color_sim, bitmasks, valid, den = ctx.saved_tensors
-        grad = pairwise_grad_plain(mask_logits, color_sim, bitmasks, valid,
-                                   *ctx.cfg)
-        return grad * (g / den), None, None, None, \
-            None, None, None
-
-
 # ----------------------------------------------------- the kernels' tiling
 
 # one tile of output pixels a block: csrc/pairwise.cu's TILE_H x TILE_W
@@ -173,6 +155,12 @@ def _check_inputs(mask_logits, color_sim, bitmasks, valid, kernel_size,
         if t.device != mask_logits.device:
             raise ValueError(f'{name} is on {t.device}, logits on '
                              f'{mask_logits.device}')
+    _check_layout(mask_logits, color_sim, bitmasks, valid, kernel_size)
+
+
+def _check_layout(mask_logits, color_sim, bitmasks, valid, kernel_size):
+    """The shapes and types the ops take; no device or stride check, so it
+    also runs on fake tensors."""
     for name, t in (('mask_logits', mask_logits), ('color_sim', color_sim),
                     ('bitmasks', bitmasks)):
         if t.dtype != torch.float32:
@@ -217,6 +205,18 @@ def pairwise_forward_cuda(mask_logits, color_sim, bitmasks, valid,
     """K1: (num, den) scalars of the weighted pairwise loss. With
     ``keep_live`` also the live map that ``pairwise_grad_cuda`` takes: one
     byte a (b, k, tile), whether K2 has work there."""
+    out, live = _forward_launch(mask_logits, color_sim, bitmasks, valid,
+                                color_thresh, kernel_size, dilation,
+                                keep_live)
+    if keep_live:
+        return out[0], out[1], live
+    return out[0], out[1]
+
+
+def _forward_launch(mask_logits, color_sim, bitmasks, valid, color_thresh,
+                    kernel_size, dilation, keep_live):
+    """K1's launch: ((num, den) as one (2,) tensor, the live map or an
+    empty one)."""
     _check_inputs(mask_logits, color_sim, bitmasks, valid, kernel_size,
                   dilation)
     lib = _lib()
@@ -236,9 +236,7 @@ def pairwise_forward_cuda(mask_logits, color_sim, bitmasks, valid,
             out.data_ptr(), live.data_ptr() if keep_live else None, *args)
     check(err, 'pairwise_forward')
     pairwise_forward_cuda.launches += 1
-    if keep_live:
-        return out[0], out[1], live
-    return out[0], out[1]
+    return out, live
 
 
 pairwise_forward_cuda.launches = 0
@@ -281,36 +279,130 @@ def pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid, scale,
 pairwise_grad_cuda.launches = 0
 
 
-class PairwiseLossFunction(torch.autograd.Function):
-    """K1 forward, K2 backward (with K1's live map: it reads no bitmask to
-    find its work). The kernels take fp32 (as the JAX wrapper
-    casts): bf16 or fp16 inputs, as autocast leaves them, run in fp32, and
-    the loss and the logits' gradient come back in the logits' dtype."""
+# --------------------------------------------------- registered torch ops
 
-    @staticmethod
-    def forward(ctx, mask_logits, color_sim, bitmasks, valid, color_thresh,
-                kernel_size, dilation):
-        ctx.dtype = mask_logits.dtype
-        mask_logits, color_sim, bitmasks = (
-            as_fp32(t).contiguous() for t in (mask_logits, color_sim,
-                                              bitmasks))
-        num, den, live = pairwise_forward_cuda(
-            mask_logits, color_sim, bitmasks, valid, color_thresh,
-            kernel_size, dilation, keep_live=True)
-        den = pdist.reduce_mean_denominator(den, 1.0)
-        ctx.save_for_backward(mask_logits, color_sim, bitmasks, valid, den,
-                              live)
-        ctx.cfg = (color_thresh, kernel_size, dilation)
-        return (num / den).to(ctx.dtype)
+def live_items(b: int, k: int, h: int, w: int) -> int:
+    """Bytes of K1's live map: one a (instance, tile)."""
+    return b * k * -(-h // TILE_H) * -(-w // TILE_W)
 
-    @staticmethod
-    def backward(ctx, g):
-        mask_logits, color_sim, bitmasks, valid, den, live = \
-            ctx.saved_tensors
-        scale = (as_fp32(g) / den).to(torch.float32)
-        grad = pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid,
-                                  scale.reshape(1), *ctx.cfg, live=live)
-        return grad.to(ctx.dtype), None, None, None, None, None, None
+
+@torch.library.custom_op('boxinstseg::pairwise_forward', mutates_args=(),
+                         device_types='cuda')
+def pairwise_forward_op(mask_logits: torch.Tensor, color_sim: torch.Tensor,
+                        bitmasks: torch.Tensor, valid: torch.Tensor,
+                        color_thresh: float, kernel_size: int, dilation: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as a torch op: (num_den, live). num_den (2,) float32 holds the
+    numerator and this process's denominator (the two are one buffer of
+    the kernel, and an op's outputs may not share one); live (B*K*tiles,)
+    uint8 is K1's live map, which the backward op takes. No collective
+    runs here: the caller reduces the denominator."""
+    return _forward_launch(mask_logits, color_sim, bitmasks, valid,
+                           color_thresh, kernel_size, dilation, True)
+
+
+@pairwise_forward_op.register_kernel('cpu')
+def _pairwise_forward_cpu(mask_logits, color_sim, bitmasks, valid,
+                          color_thresh, kernel_size, dilation):
+    _check_layout(mask_logits, color_sim, bitmasks, valid, kernel_size)
+    num, den = pairwise_num_den_plain(mask_logits, color_sim, bitmasks,
+                                      valid, color_thresh, kernel_size,
+                                      dilation)
+    r = kernel_size // 2 * dilation
+    live = live_tiles(bitmasks, valid, 0, r, r).to(torch.uint8).reshape(-1)
+    return torch.stack((num, den)), live
+
+
+@pairwise_forward_op.register_fake
+def _pairwise_forward_fake(mask_logits, color_sim, bitmasks, valid,
+                           color_thresh, kernel_size, dilation):
+    _check_layout(mask_logits, color_sim, bitmasks, valid, kernel_size)
+    return (mask_logits.new_empty((2,)),
+            mask_logits.new_empty((live_items(*mask_logits.shape),),
+                                  dtype=torch.uint8))
+
+
+@torch.library.custom_op('boxinstseg::pairwise_backward', mutates_args=(),
+                         device_types='cuda')
+def pairwise_backward_op(mask_logits: torch.Tensor, color_sim: torch.Tensor,
+                         bitmasks: torch.Tensor, valid: torch.Tensor,
+                         scale: torch.Tensor, live: torch.Tensor,
+                         color_thresh: float, kernel_size: int, dilation: int
+                         ) -> torch.Tensor:
+    """K2 as a torch op: d(num)/d(logits) * scale, ``scale`` a one-element
+    float32 tensor (read on the device), ``live`` the forward op's map."""
+    return pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid,
+                              scale, color_thresh, kernel_size, dilation,
+                              live=live)
+
+
+@pairwise_backward_op.register_kernel('cpu')
+def _pairwise_backward_cpu(mask_logits, color_sim, bitmasks, valid, scale,
+                           live, color_thresh, kernel_size, dilation):
+    _check_layout(mask_logits, color_sim, bitmasks, valid, kernel_size)
+    return pairwise_grad_plain(mask_logits, color_sim, bitmasks, valid,
+                               color_thresh, kernel_size, dilation) * scale
+
+
+@pairwise_backward_op.register_fake
+def _pairwise_backward_fake(mask_logits, color_sim, bitmasks, valid, scale,
+                            live, color_thresh, kernel_size, dilation):
+    _check_layout(mask_logits, color_sim, bitmasks, valid, kernel_size)
+    return torch.empty_like(mask_logits)
+
+
+def _pairwise_setup_context(ctx, inputs, output):
+    mask_logits, color_sim, bitmasks, valid, *cfg = inputs
+    ctx.save_for_backward(mask_logits, color_sim, bitmasks, valid, output[1])
+    ctx.cfg = cfg
+
+
+def _pairwise_backward_formula(ctx, grad_num_den, grad_live):
+    """The logits' gradient: K2 at scale d(loss)/d(num). The denominator
+    does not depend on the logits, so its gradient is dropped."""
+    mask_logits, color_sim, bitmasks, valid, live = ctx.saved_tensors
+    scale = grad_num_den[:1].contiguous()
+    return (pairwise_backward_op(mask_logits, color_sim, bitmasks, valid,
+                                 scale, live, *ctx.cfg),
+            None, None, None, None, None, None)
+
+
+pairwise_forward_op.register_autograd(
+    _pairwise_backward_formula, setup_context=_pairwise_setup_context)
+
+# operations a (pixel, instance), counted from csrc/pairwise.cu (a
+# transcendental counts as one): K1 the two log-sigmoids, then per offset a
+# pair log-prob, a logaddexp and the weighted sum; K2 adds the pair
+# probability and the gradient terms. At the main path's 8 offsets they
+# are 90 and 120.
+K1_OPS_BASE, K1_OPS_PER_OFFSET = 10, 10
+K2_OPS_BASE, K2_OPS_PER_OFFSET = 8, 14
+
+
+def _pixels_and_offsets(logits_shape, color_sim_shape):
+    n = 1
+    for k in logits_shape:
+        n *= k
+    return n, color_sim_shape[1]
+
+
+@register_flop_formula(torch.ops.boxinstseg.pairwise_forward)
+def _pairwise_forward_flops(logits_shape, color_sim_shape, bitmasks_shape,
+                            valid_shape, *args, out_shape=None,
+                            **kwargs) -> int:
+    """The dense count over every (pixel, instance); the kernel skips the
+    tiles without a box weight near them, so it does at most this."""
+    n, g = _pixels_and_offsets(logits_shape, color_sim_shape)
+    return n * (K1_OPS_BASE + K1_OPS_PER_OFFSET * g)
+
+
+@register_flop_formula(torch.ops.boxinstseg.pairwise_backward)
+def _pairwise_backward_flops(logits_shape, color_sim_shape, bitmasks_shape,
+                             valid_shape, *args, out_shape=None,
+                             **kwargs) -> int:
+    """The dense count, as the forward's."""
+    n, g = _pixels_and_offsets(logits_shape, color_sim_shape)
+    return n * (K2_OPS_BASE + K2_OPS_PER_OFFSET * g)
 
 
 def boxinst_pairwise_loss(mask_logits: torch.Tensor,
@@ -328,14 +420,20 @@ def boxinst_pairwise_loss(mask_logits: torch.Tensor,
       bitmasks: (B, K, H, W) GT box bitmasks of the sampled instances.
       valid: (B, K) bool sample validity.
 
-    A CUDA tensor launches the kernels (and raises on what they do not
-    take); a CPU tensor takes the plain version."""
-    args = (mask_logits, color_sim, bitmasks, valid, color_thresh,
-            kernel_size, dilation)
-    if mask_logits.is_cuda:
-        return PairwiseLossFunction.apply(
-            mask_logits.contiguous(), color_sim.contiguous(),
-            bitmasks.contiguous(), valid.contiguous(), *args[4:])
-    if mask_logits.device.type == 'cpu':
-        return PlainPairwiseLossFunction.apply(*args)
-    raise ValueError(f'no pairwise loss for device {mask_logits.device}')
+    Calls the op ``boxinstseg::pairwise_forward``: the kernels for CUDA
+    tensors (which raise on what they do not take), the plain version for
+    CPU tensors. The kernels take fp32 (as the JAX wrapper casts): bf16 or
+    fp16 inputs, as autocast leaves them, run in fp32, and the loss and
+    the logits' gradient come back in the logits' dtype. The denominator
+    is reduced over the process group here (``parallel.dist``), outside
+    the op."""
+    if mask_logits.device.type not in ('cuda', 'cpu'):
+        raise ValueError(f'no pairwise loss for device {mask_logits.device}')
+    dtype = mask_logits.dtype
+    mask_logits, color_sim, bitmasks = (
+        as_fp32(t).contiguous() for t in (mask_logits, color_sim, bitmasks))
+    num_den, _ = pairwise_forward_op(mask_logits, color_sim, bitmasks,
+                                     valid.contiguous(), float(color_thresh),
+                                     int(kernel_size), int(dilation))
+    den = pdist.reduce_mean_denominator(num_den[1].detach(), 1.0)
+    return (num_den[0] / den).to(dtype)

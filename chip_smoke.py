@@ -6,7 +6,9 @@
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. device    - card name and power limit (nvidia-smi), torch / CUDA
-               versions; TF32 off for matmuls and convolutions.
+               versions; TF32 off for matmuls and convolutions
+               (utils.env.set_tf32, as every entry point sets it from the
+               config's tf32 key, off by default).
 2. build     - compiles the hand-written kernels (csrc/*.cu), one nvcc per
                source, all started together.
 3. kernels   - each kernel against its plain PyTorch version on the card, at
@@ -228,6 +230,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                modules take the same CPU-drawn uniforms on both devices.
                Outputs within REF_ATOL x max(1, max |cpu|) + REF_RTOL x
                |cpu|, integer and boolean outputs equal; the card's ms.
+21f. ops     - the loss path's kernels as registered torch ops
+               (boxinstseg::pairwise_forward / pairwise_backward,
+               lcm_forward / lcm_adjoint, crf_mean_field, solve_lsa):
+               torch.library.opcheck of each on the card at small shapes;
+               each op against its plain version at the main path's
+               shapes (the kernels' tolerances), its time through the op
+               beside its wrapper's, in turns, and beside PERF.md's table;
+               the small CondInst's forward and loss exported on the card
+               (apis.export.export_loss), run and differentiated: one K1
+               and one K2 launch, losses equal to eager.
 
 Every training phase logs every step (log_config.interval=1), so that each
 step's logged time ends in a device sync, and runs without evaluation
@@ -241,8 +253,9 @@ and as its last line {"ok": true, "device": {...}}.
     python3 chip_smoke.py --cards 4
 
 runs only the device and build phases and then data parallelism over 4
-cards (nccl, one process a card): tools/train_torch.py --launcher pytorch
-over 1 and 4 ranks in turns (step time, images/s), 4 ranks at batch 1
+cards (nccl, one process a card): tools/dist_train_torch.sh (torchrun over
+tools/train_torch.py --launcher pytorch) over 1 and 4 ranks in turns (step
+time, images/s), 4 ranks at batch 1
 against one process at batch 4 (losses, gradient norm, BN statistics), and
 a 4-rank evaluation against one process; then each card's nvidia-smi line
 and the ok line.
@@ -648,23 +661,24 @@ def kernel_inputs(shape, gen):
 
 @contextlib.contextmanager
 def capture_pairwise_inputs():
-    """Keep the inputs of the last ``PairwiseLossFunction`` call, detached
-    (references: no copies in the timed steps; nothing writes them in
-    place), and its (color_thresh, kernel_size, dilation)."""
+    """Keep the inputs of the last ``boxinstseg::pairwise_forward`` call
+    of ``boxinst_pairwise_loss``, detached (references: no copies in the
+    timed steps; nothing writes them in place), and its (color_thresh,
+    kernel_size, dilation)."""
     from boxinstseg_tpu_torch.ops import pairwise as pw
-    forward = pw.PairwiseLossFunction.forward
+    forward = pw.pairwise_forward_op
     kept = {}
 
-    def recorded(ctx, mask_logits, color_sim, bitmasks, valid, *cfg):
+    def recorded(mask_logits, color_sim, bitmasks, valid, *cfg):
         kept['inputs'] = tuple(t.detach().float() for t in (
             mask_logits, color_sim, bitmasks)) + (valid.detach(),)
         kept['cfg'] = cfg
-        return forward(ctx, mask_logits, color_sim, bitmasks, valid, *cfg)
-    pw.PairwiseLossFunction.forward = staticmethod(recorded)
+        return forward(mask_logits, color_sim, bitmasks, valid, *cfg)
+    pw.pairwise_forward_op = recorded
     try:
         yield kept
     finally:
-        pw.PairwiseLossFunction.forward = staticmethod(forward)
+        pw.pairwise_forward_op = forward
 
 
 def pairwise_coverage(x, sim, bm, valid, thresh=0.3, kernel_size=3,
@@ -728,23 +742,23 @@ def box_inputs(shape, kernel_size, gen):
 
 
 def check_pairwise(tag, x, sim, bm, valid, cfg=(0.3, 3, 2)):
-    """K1/K2 against the plain version: through their autograd.Function,
-    K1's den exactly, K2 alone on the unnormalised gradient, and both
-    giving the same bits in a second call. Returns (value error, gradient
-    error)."""
+    """K1/K2 against the plain version: through ``boxinst_pairwise_loss``
+    (the registered ops) against the plain loss and its analytic gradient
+    through the normaliser, K1's den exactly, K2 alone on the unnormalised
+    gradient, and both giving the same bits in a second call. Returns
+    (value error, gradient error)."""
     import torch
     from boxinstseg_tpu_torch.ops import pairwise as pw
     one = torch.ones(1, device='cuda')
     xk = x.clone().requires_grad_(True)
-    vk = pw.PairwiseLossFunction.apply(xk, sim, bm, valid, *cfg)
+    vk = pw.boxinst_pairwise_loss(xk, sim, bm, valid, *cfg)
     vk.backward()
-    xp = x.clone().requires_grad_(True)
-    vp = pw.PlainPairwiseLossFunction.apply(xp, sim, bm, valid, *cfg)
-    vp.backward()
     sums = torch.stack(pw.pairwise_forward_cuda(x, sim, bm, valid, *cfg))
     g_kernel = pw.pairwise_grad_cuda(x, sim, bm, valid, one, *cfg)
     g_plain = pw.pairwise_grad_plain(x, sim, bm, valid, *cfg)
-    _, den = pw.pairwise_num_den_plain(x, sim, bm, valid, *cfg)
+    num, den = pw.pairwise_num_den_plain(x, sim, bm, valid, *cfg)
+    vp = num / den.clamp(min=1.0)
+    xp_grad = g_plain * (1.0 / den.clamp(min=1.0))
     same = (torch.equal(sums, torch.stack(pw.pairwise_forward_cuda(
         x, sim, bm, valid, *cfg))) and torch.equal(
         g_kernel, pw.pairwise_grad_cuda(x, sim, bm, valid, one, *cfg)))
@@ -757,7 +771,7 @@ def check_pairwise(tag, x, sim, bm, valid, cfg=(0.3, 3, 2)):
           f'err {v_err:.3g}; den {sums[1].item():.0f} plain '
           f'{den.item():.0f}; unnormalised grad max abs err {g_err:.3g} '
           f'(max |grad| {g_max:.3g}); through autograd '
-          f'{(xk.grad - xp.grad).abs().max().item():.3g} (x 1/den '
+          f'{(xk.grad - xp_grad).abs().max().item():.3g} (x 1/den '
           f'{inv_den:.3g}); same bits in a second call: {same}')
     if not math.isfinite(vk.item()) or v_err > VALUE_RTOL * abs(vp.item()):
         fail(f'K1 value {vk.item()} vs plain {vp.item()} at {tag}')
@@ -767,7 +781,7 @@ def check_pairwise(tag, x, sim, bm, valid, cfg=(0.3, 3, 2)):
         fail(f'plain gradient max {g_max} at {tag}: check is vacuous')
     if not torch.allclose(g_kernel, g_plain, atol=GRAD_ATOL, rtol=GRAD_RTOL):
         fail(f'K2 gradient differs from plain at {tag}: {g_err}')
-    if not torch.allclose(xk.grad, xp.grad, atol=GRAD_ATOL * inv_den,
+    if not torch.allclose(xk.grad, xp_grad, atol=GRAD_ATOL * inv_den,
                           rtol=GRAD_RTOL):
         fail(f'K2 through autograd differs from plain at {tag}')
     if not same:
@@ -1839,6 +1853,12 @@ def phase_reference():
     fp32."""
     print('fp32: the precision policy is off (no fp16 / bf16 key), so the '
           'card and the CPU compute the same function')
+    compare_loss_dicts(tiny_cfg(), reference_batch(), 50)
+
+
+def reference_batch():
+    """The small CondInst's seeded numpy batch (NCHW, 128x160, up to 5
+    boxes an image)."""
     import numpy as np
     rng = np.random.RandomState(0)
     b, h, w, g = 2, 128, 160, 5
@@ -1855,7 +1875,7 @@ def phase_reference():
                  pixels_removed=np.array([5] * b, np.int32),
                  gt_bboxes=boxes, gt_labels=rng.randint(0, 4, (b, g)),
                  gt_valid=valid)
-    compare_loss_dicts(tiny_cfg(), batch, 50)
+    return batch
 
 
 def tiny_box2mask_cfg():
@@ -3624,9 +3644,9 @@ def _child_main(target, rank, world, port, mode, results, args):
     try:
         sys.path.insert(0, ROOT)
         import torch
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         from boxinstseg_tpu_torch.parallel import dist as pdist
+        from boxinstseg_tpu_torch.utils.env import set_tf32
+        set_tf32(False)
         os.environ['LOCAL_RANK'] = str(rank)
         if mode == 'env':
             os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
@@ -3787,6 +3807,57 @@ def time_launches(work_dir, files, opts, device, plan):
     return medians, checkpoint
 
 
+def script_launches(work_dir, files, opts, device, plan):
+    """tools/dist_train_torch.sh (torchrun, ``--launcher pytorch``) over
+    BoxInst at batch 2 a card, DDP_STEPS steps from the JPEGs, in the
+    order of ``plan`` (worlds; fresh processes each run, card r for rank
+    r). Each step's time comes from rank 0's log (``Iter`` lines: time and
+    data_time in ms). Returns the medians of steps 2-DDP_STEPS by world and
+    the last run's checkpoint."""
+    import re
+    import socket
+    from boxinstseg_tpu_torch.engine.hooks import latest_checkpoint
+    script = os.path.join(ROOT, 'tools', 'dist_train_torch.sh')
+    medians, checkpoint = {}, None
+    line = re.compile(r'Iter \[(\d+)/\d+\].* time: ([0-9.]+)s/iter .*'
+                      r'data_time: ([0-9.]+),')
+    for world in plan:
+        wd = os.path.join(work_dir, f'script_{world}_{len(medians)}')
+        with socket.socket() as sock:
+            sock.bind(('127.0.0.1', 0))
+            port = sock.getsockname()[1]
+        try:
+            out = subprocess.run(
+                ['bash', script, CONFIG, str(world), '--device', device,
+                 '--seed', '0', '--no-validate', '--work-dir', wd,
+                 '--cfg-options', *opts, f'runner.max_iters={DDP_STEPS}',
+                 'data.samples_per_gpu=2', *file_opts(files, 'train')],
+                capture_output=True, text=True, timeout=DDP_LIMIT,
+                env=dict(os.environ, PORT=str(port)))
+        except subprocess.TimeoutExpired:
+            fail(f'tools/dist_train_torch.sh over {world}: no end within '
+                 f'{DDP_LIMIT} s')
+        if out.returncode != 0:
+            fail(f'tools/dist_train_torch.sh over {world} exited '
+                 f'{out.returncode}: {out.stderr[-3000:]}')
+        with open(os.path.join(wd, 'train.log')) as f:
+            steps = [(int(m[1]), 1e3 * (float(m[2]) - float(m[3])))
+                     for m in map(line.search, f) if m]
+        if [i for i, _ in steps] != list(range(1, DDP_STEPS + 1)):
+            fail(f'tools/dist_train_torch.sh over {world} logged steps '
+                 f'{[i for i, _ in steps]}')
+        step_ms = [t for _, t in steps]
+        median = statistics.median(step_ms[1:])
+        medians.setdefault(world, []).append(median)
+        print(f'tools/dist_train_torch.sh over {world} (torchrun, fresh '
+              f'processes, batch 2 a card, JPEGs): rank 0 step ms (its '
+              f'log, ms resolution) ' + ', '.join(f'{t:.0f}' for t in step_ms)
+              + f'; median of steps 2-{DDP_STEPS} {median:.0f} ms, '
+              f'{2 * world * 1e3 / median:.3f} images/s')
+        checkpoint = latest_checkpoint(wd)
+    return medians, checkpoint
+
+
 def check_ranks_against_one(ranks, one, what):
     """Each step's losses (DDP_LOSS_RTOL) and averaged gradient norm
     (DDP_GRAD_RTOL) of ``ranks`` (rank 0's logs, the mean over ranks)
@@ -3924,23 +3995,22 @@ def phase_ddp_swin(work_dir, pair, device='cuda', narrow=None):
 
 def phase_cards(work_dir, files, cards, device='cuda', narrow=None):
     """Data parallelism over ``cards`` cards (nccl, one process a card):
-    tools/train_torch.py --launcher pytorch over 1 and ``cards`` ranks in
-    turns (1, n, n, 1), batch 2 a card; ``cards`` ranks at batch 1 against
-    one process at batch ``cards`` on as many JPEGs with CARD_BOXES boxes
-    (losses, gradient norm, BN statistics); run_evaluation in ``cards``
-    ranks against one process."""
+    tools/dist_train_torch.sh (torchrun over tools/train_torch.py
+    --launcher pytorch) over 1 and ``cards`` ranks in turns (1, n, n, 1),
+    batch 2 a card; ``cards`` ranks at batch 1 against one process at batch
+    ``cards`` on as many JPEGs with CARD_BOXES boxes (losses, gradient
+    norm, BN statistics, each rank's K1/K2 launches); run_evaluation in
+    ``cards`` ranks against one process."""
     narrow = (narrow or {}).get(CONFIG, [])
     opts = ['runner.type=IterBasedRunner', 'log_config.interval=1',
             'model.mask_head.pairwise_warmup=1', *narrow]
-    medians, checkpoint = time_launches(work_dir, files, opts, device, (
-        ('pytorch', 1), ('pytorch', cards), ('pytorch', cards),
-        ('pytorch', 1)))
-    one_ms = statistics.median(medians[('pytorch', 1)])
-    many_ms = statistics.median(medians[('pytorch', cards)])
+    medians, checkpoint = script_launches(work_dir, files, opts, device,
+                                          (1, cards, cards, 1))
+    one_ms = statistics.median(medians[1])
+    many_ms = statistics.median(medians[cards])
     print(f'in turns (1, {cards}, {cards}, 1 cards): step ms at one card '
-          + ', '.join(f'{v:.3f}' for v in medians[('pytorch', 1)])
-          + f', at {cards} ' + ', '.join(
-              f'{v:.3f}' for v in medians[('pytorch', cards)])
+          + ', '.join(f'{v:.0f}' for v in medians[1])
+          + f', at {cards} ' + ', '.join(f'{v:.0f}' for v in medians[cards])
           + f'; images/s {2e3 / one_ms:.3f} and {2e3 * cards / many_ms:.3f}'
           f' ({one_ms / many_ms:.3f} of linear)')
 
@@ -3950,17 +4020,26 @@ def phase_cards(work_dir, files, cards, device='cuda', narrow=None):
                             boxes=boxes, seed=2)
     quad_opts = [*opts, f'runner.max_iters={DDP_STEPS // 2}',
                  *file_opts(quad, 'train')]
+    # each rank on its card (None); on the CPU, gloo ranks on the CPU
+    rank_device = None if device == 'cuda' else device
     ranks, one = run_children(
         ddp_pair_run, ([*quad_opts, 'data.samples_per_gpu=1'],
-                       os.path.join(work_dir, 'cards_ranks')), cards,
-        mode='cards', meanwhile=lambda: ddp_pair_run(
+                       os.path.join(work_dir, 'cards_ranks'), rank_device),
+        cards, mode='cards', meanwhile=lambda: ddp_pair_run(
             [*quad_opts, f'data.samples_per_gpu={cards}'],
             os.path.join(work_dir, 'cards_one'), device))
+    # the script's runs log no launches: these ranks, on the same path,
+    # show K1 and K2 launched in every step on every card
+    if device == 'cuda':
+        for run in (*ranks, one):
+            if min(run['launches'].values()) < DDP_STEPS // 2:
+                fail(f'K1 / K2 launches {run["launches"]} in '
+                     f'{DDP_STEPS // 2} steps over {cards} cards')
     check_ranks_against_one(
         ranks, one, f'{cards} ranks (nccl, one card each) at batch 1 vs one '
         f'process at batch {cards} ({boxes} boxes, {DDP_STEPS // 2} steps)')
-    check_eval_gather(work_dir, files, checkpoint, narrow, None, cards,
-                      'cards')
+    check_eval_gather(work_dir, files, checkpoint, narrow, rank_device,
+                      cards, 'cards')
 
 
 def load_script(rel):
@@ -4886,6 +4965,159 @@ def phase_zoo():
           f'{time.perf_counter() - t0:.1f} s')
 
 
+LSA_STEP = (20, 8, 100)            # a Box2Mask R-50 step's costs
+
+
+def loss_op_cases(gen, shapes):
+    """(op, arguments, plain version's output, check) for each of the loss
+    path's registered ops at ``shapes`` (pairwise, lcm, crf, lsa); the
+    check holds the op's output against the plain one at the kernels'
+    tolerances."""
+    import numpy as np
+    import torch
+    from boxinstseg_tpu_torch.ops import crf, lcm, lsa
+    from boxinstseg_tpu_torch.ops import pairwise as pw
+    x, sim, bm, valid = kernel_inputs(shapes['pairwise'], gen)
+    num, den = pw.pairwise_num_den_plain(x, sim, bm, valid)
+    _, live = pw.pairwise_forward_op(x, sim, bm, valid, 0.3, 3, 2)
+    scale = torch.full((1,), 1.0 / max(den.item(), 1.0), device='cuda')
+    offs, aff, phi, g = lcm_inputs(shapes['lcm'], gen)
+    flat = [v for o in offs for v in o]
+    ck = crf_inputs(shapes['crf'], gen, np.random.RandomState(11))
+    p, n, m = shapes['lsa']
+    cost = torch.rand((p, n, m), generator=gen, device='cuda')
+    n_rows = torch.randint(1, n + 1, (p,), generator=gen, device='cuda',
+                           dtype=torch.int32)
+
+    def sums(tag, got, want):
+        if abs(got[0].item() - want[0].item()) > VALUE_RTOL * abs(
+                want[0].item()) or abs(got[1].item() - want[1].item()) > \
+                VALUE_RTOL * want[1].item():
+            fail(f'{tag}: (num, den) {got.tolist()} vs plain '
+                 f'{[t.item() for t in want]}')
+        return abs(got[0].item() - want[0].item())
+
+    def grad(tag, got, want):
+        # the gradient at ``scale``: GRAD_ATOL scales with it, as in
+        # check_pairwise
+        if not torch.allclose(got, want, atol=GRAD_ATOL * scale.item(),
+                              rtol=GRAD_RTOL):
+            fail(f'{tag}: gradient differs from plain')
+        return (got - want).abs().max().item()
+
+    def equal(tag, got, want):
+        if not torch.equal(got, want):
+            fail(f'{tag}: differs from its plain version')
+        return 0.0
+
+    return {
+        'pairwise_forward': (
+            pw.pairwise_forward_op, (x, sim, bm, valid, 0.3, 3, 2),
+            (num, den), lambda tag, out, want: sums(tag, out[0], want)),
+        'pairwise_backward': (
+            pw.pairwise_backward_op, (x, sim, bm, valid, scale, live, 0.3,
+                                      3, 2),
+            pw.pairwise_grad_plain(x, sim, bm, valid) * scale, grad),
+        'lcm_forward': (lcm.lcm_forward_op, (aff, phi, flat, LCM_ITERS),
+                        lcm.lcm_forward_plain(aff, phi, offs, LCM_ITERS),
+                        compare),
+        'lcm_adjoint': (lcm.lcm_adjoint_op, (aff, g, flat, LCM_ITERS),
+                        lcm.lcm_adjoint_plain(aff, g, offs, LCM_ITERS),
+                        compare),
+        'crf_mean_field': (crf.crf_mean_field_op, (*ck, CRF_ITERS, 3),
+                           crf.crf_mean_field_plain(*ck, CRF_ITERS), equal),
+        'solve_lsa': (lsa.solve_lsa_op, (cost, n_rows),
+                      lsa.solve_lsa_plain(cost, n_rows), equal),
+    }
+
+
+def phase_ops():
+    """The loss path's kernels as registered torch ops on the card:
+    ``torch.library.opcheck`` of each op at small shapes; each op against
+    its plain version at the main path's shapes (the kernels'
+    tolerances), its time through the op beside its wrapper's in turns;
+    the small CondInst's forward and loss
+    exported on the card (``apis.export.export_loss``), run and
+    differentiated, with one K1 and one K2 launch."""
+    import torch
+    from boxinstseg_tpu_torch.apis import export as tex
+    from boxinstseg_tpu_torch.ops import crf, lcm, lsa
+    from boxinstseg_tpu_torch.ops import pairwise as pw
+    from boxinstseg_tpu_torch.registry import build_detector
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    small = dict(pairwise=(1, 3, 37, 53), lcm=(1, 3, 37, 53),
+                 crf=(1, 5, 37, 53), lsa=(3, 4, 6))
+    for name, (op, args, _, _) in loss_op_cases(gen, small).items():
+        result = torch.library.opcheck(op, args)
+        if set(result.values()) != {'SUCCESS'}:
+            fail(f'opcheck of boxinstseg::{name} on the card: {result}')
+    print('opcheck on the card (schema, autograd registration, fake '
+          'against real, AOT dispatch): pairwise_forward, '
+          'pairwise_backward, lcm_forward, lcm_adjoint, crf_mean_field, '
+          'solve_lsa: every test SUCCESS')
+
+    wrappers = {
+        'pairwise_forward': lambda x, s, b, v, *cfg: pw.pairwise_forward_cuda(
+            x, s, b, v, *cfg, keep_live=True),
+        'pairwise_backward': lambda x, s, b, v, sc, live, *cfg:
+            pw.pairwise_grad_cuda(x, s, b, v, sc, *cfg, live=live),
+        'lcm_forward': lambda a, p, flat, n: lcm.lcm_forward_cuda(
+            a, p, lcm._pairs(flat), n),
+        'lcm_adjoint': lambda a, g, flat, n: lcm.lcm_adjoint_cuda(
+            a, g, lcm._pairs(flat), n),
+        'crf_mean_field': crf.crf_mean_field_cuda,
+        'solve_lsa': lsa.solve_lsa_cuda}
+    main = dict(pairwise=MAIN_SHAPE, lcm=LCM_MAIN, crf=CRF_MAIN,
+                lsa=LSA_STEP)
+    for name, (op, args, want, check) in loss_op_cases(gen, main).items():
+        out = op(*args)
+        torch.cuda.synchronize()
+        err = check(f'boxinstseg::{name} at {main[name.split("_")[0]]}'
+                    if name != 'solve_lsa' else
+                    f'boxinstseg::solve_lsa at {LSA_STEP}', out, want)
+        t = [cuda_ms(fn) for fn in (
+            lambda: wrappers[name](*args), lambda: op(*args),
+            lambda: op(*args), lambda: wrappers[name](*args))]
+        print(f'boxinstseg::{name}: equal to its plain version (max abs '
+              f'err {err:.3g}); {t[1]:.4f} / {t[2]:.4f} ms through the op, '
+              f'{t[0]:.4f} / {t[3]:.4f} ms through its wrapper in turns')
+
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in reference_batch().items()}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_detector(tiny_cfg()).cuda()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    program = tex.export_loss(model, batch, 50)
+    export_s = time.perf_counter() - t0
+    ops = tex.count_ops(program)
+    if ops != {'pairwise_forward': 1}:
+        fail(f'the exported BoxInst loss holds {ops}')
+    model.load_state_dict(state)
+    before = (pw.pairwise_forward_cuda.launches,
+              pw.pairwise_grad_cuda.launches)
+    got = program.module()(batch)
+    sum(v for k, v in got.items() if 'loss' in k).backward()
+    torch.cuda.synchronize()
+    moved = (pw.pairwise_forward_cuda.launches - before[0],
+             pw.pairwise_grad_cuda.launches - before[1])
+    model.load_state_dict(state)
+    eager = model.loss(batch, 50)
+    for k, v in eager.items():
+        if not math.isfinite(got[k].item()) or abs(
+                got[k].item() - v.item()) > REF_RTOL * abs(v.item()):
+            fail(f'exported {k} {got[k].item()} vs eager {v.item()}')
+    if moved != (1, 1):
+        fail(f'the exported loss and its backward launched K1 / K2 '
+             f'{moved} times')
+    print(f'small CondInst forward and loss exported on the card in '
+          f'{export_s:.2f} s: ops {ops}; the program and its backward '
+          f'launched K1 / K2 {moved[0]} / {moved[1]} times; its losses '
+          f'equal eager within rtol {REF_RTOL}: ' + ', '.join(
+              f'{k} {got[k].item():.6g}' for k in eager))
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -4909,8 +5141,8 @@ def main(argv=None):
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
     print(smi[0])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from boxinstseg_tpu_torch.utils.env import set_tf32
+    set_tf32(False)
     print(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}, device '
           f'{torch.cuda.get_device_name(0)}; TF32 matmul '
@@ -5060,6 +5292,9 @@ def run_phases(tool, work_dir, report, smi, t_start):
 
     phase('zoo')
     phase_zoo()
+
+    phase('ops')
+    phase_ops()
 
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

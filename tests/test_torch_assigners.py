@@ -18,6 +18,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 import boxinstseg_tpu.core.targets.assigner_zoo as JZ
 import boxinstseg_tpu.core.targets.assigners as JA
 import boxinstseg_tpu.core.targets.samplers as JS

@@ -21,6 +21,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.registry import BACKBONES as J_BACKBONES
 
 from boxinstseg_tpu_torch.registry import BACKBONES

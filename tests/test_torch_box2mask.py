@@ -23,6 +23,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.config import Config as JConfig
 from boxinstseg_tpu.core.targets.hungarian import (
     box_matching_cost as j_box_cost, classification_cost as j_cls_cost,

@@ -28,6 +28,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.engine import (build_lr_schedule as j_schedule,
                                    build_optimizer as j_optimizer,
                                    create_train_state, init_variables,

@@ -27,6 +27,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.engine import init_variables
 from boxinstseg_tpu.models.dense_heads.condinst_head import \
     CondInstSegmHead as JSegmHead

@@ -15,6 +15,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.ops import correspondence as jc
 from boxinstseg_tpu.ops.roi_align import roi_align as j_roi_align
 from boxinstseg_tpu.ops.upsample import interpolate_bilinear as j_interp

@@ -38,6 +38,8 @@ import torch
 import torch.multiprocessing as mp
 import torch.nn.functional as F
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu_torch.engine.optimizers import build_optimizer
 from boxinstseg_tpu_torch.engine.schedules import build_lr_schedule
 from boxinstseg_tpu_torch.engine.train_state import (TSTrainStep,
@@ -414,11 +416,22 @@ def logs_match(got_logs, want_logs):
                for g, w in zip(got_logs, want_logs) for k in w if k != 'lr')
 
 
+def default_threads_run(family, state):
+    """The one process's run at torch's default thread count, as these
+    cases were written: the DiscoBox one moves its weights by up to 12.5
+    times PARAM_ATOL between 1 and 8 threads (another summation order),
+    and holds the ranks within its tolerance at 8 (this host's default)
+    but not at 1, 2 or 4."""
+    with test_torch_threads.default_threads():
+        return train_family(family, state)
+
+
 @pytest.mark.parametrize('family', list(FAMILIES))
 def test_two_ranks_equal_one_process_at_the_global_batch(family):
     state = initial_state(family)
     ranks, one = run_ranks(two_rank_runs, family, state,
-                           meanwhile=lambda: train_family(family, state))
+                           meanwhile=lambda: default_threads_run(family,
+                                                                 state))
     for r, runs in enumerate(ranks):
         got = runs['glob']
         assert_logs_match(got['logs'], one['logs'])

@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu_torch.apis import test as tapi
 from boxinstseg_tpu_torch.apis.train import (TrainResult, build_hooks,
                                              resolve_intervals,

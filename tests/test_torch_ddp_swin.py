@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from test_torch_ddp import (LR, PARAM_ATOL, PARAM_RTOL, SGD, assert_logs_match,
                             box2mask_cfg, boxinst_cfg, global_batch,
                             local_statistics, logs_match, run_ranks)

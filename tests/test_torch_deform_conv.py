@@ -21,6 +21,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.engine import init_variables
 from boxinstseg_tpu.models.deform_conv import DeformConv2d as JDeform
 from boxinstseg_tpu.registry import build_detector as j_build

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.core.visualization import \
     imshow_det_bboxes as j_imshow
 from test_torch_eval import eval_set  # noqa: F401  (fixture)

@@ -37,6 +37,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.core.targets import solo as jsolo
 from boxinstseg_tpu.engine import (build_optimizer as j_optimizer,
                                    create_train_state, init_variables,

@@ -31,6 +31,8 @@ import pytest
 import jax
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.apis import test as japi
 from boxinstseg_tpu.apis.inference import \
     inference_detector as j_inference_detector

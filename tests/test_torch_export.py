@@ -16,6 +16,16 @@
   ``boxinstseg::window_attention`` a Swin block, and its program equals
   eager within atol 1e-6.
 - A precision key raises naming the key.
+- The forward and loss of a tiny BoxInst, Box2Mask and DiscoBox (CRF gate
+  open), with the JAX package's weights, are exported by
+  ``apis.export.export_loss``: the graph holds the loss path's kernels as
+  ``boxinstseg`` ops (BoxInst one ``pairwise_forward``; Box2Mask one
+  ``lcm_forward``, one ``solve_lsa`` and one ``msda_forward`` an encoder
+  layer, with the host ``grid_mst``; DiscoBox one ``crf_mean_field``), and
+  the train step's graph of the program (``loss_grad_graph``) holds their
+  backward ops too (one ``pairwise_backward``, one ``lcm_adjoint``, one
+  ``msda_backward`` a layer). The program's loss dict equals eager within
+  rtol 1e-5 and the JAX package's within atol 1e-5 / rtol 1e-4.
 - ``tools/deployment/export_model_torch.py`` exports the evaluation set's
   checkpoint (``tests/test_torch_eval.py``), and
   ``tools/deployment/test_torch.py`` gives on 2 of its images exactly the
@@ -30,13 +40,19 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.engine import init_variables
 from boxinstseg_tpu.registry import build_detector as j_build
 from test_box2mask_model import synth_batch as b2m_batch
 from test_box2mask_model import tiny_cfg as tiny_b2m_cfg
+from test_discobox_model import synth_batch as disco_batch
+from test_discobox_model import tiny_cfg as tiny_disco_cfg
 from test_torch_eval import CANVASES, eval_set  # noqa: F401  (fixture)
 from test_torch_predict import compare_valid
 from test_torch_slice import make_batch, randomize_stats, tiny_cfg
+from test_torch_slice import pair as boxinst_pair  # noqa: F401  (fixture)
+from test_torch_slice import torch_batch
 from test_torch_swin import swin_box2mask_cfg
 from test_torch_tools import load_tool
 
@@ -205,3 +221,89 @@ def test_deployment_test_tool_gives_run_evaluations_metrics(
                           metrics=['bbox', 'segm'], max_images=2)
     assert got == want
     assert want['bbox_mAP'] > 0.3
+
+
+LOSS_RTOL = 1e-5
+
+
+def disco_gates():
+    """The JAX and the port's gates with the CRF and correspondence terms
+    open and no teacher (the detached student stands for it)."""
+    return (dict(teacher=jnp.float32(0.0), ts=jnp.float32(1.0),
+                 corr=jnp.float32(1.0)),
+            dict(ts=torch.tensor(1.0), corr=torch.tensor(1.0)))
+
+
+def loss_case(name, boxinst_pair, box2mask_pair):  # noqa: F811
+    """(port model, its batch, iteration, loss kwargs, the JAX loss dict,
+    the ops expected in the program and in its train step's graph)."""
+    if name == 'boxinst':
+        jm, v, tm = boxinst_pair
+        batch = make_batch(1)
+        want, _ = jax.jit(lambda vv, b: jm.apply(
+            vv, b, jnp.asarray(50, jnp.int32), method=jm.loss,
+            mutable=['batch_stats']))(v, {k: jnp.asarray(x)
+                                          for k, x in batch.items()})
+        ops = {'pairwise_forward': 1}
+        return (tm, torch_batch(batch), 50, {}, want, ops,
+                dict(ops, pairwise_backward=1))
+    if name == 'box2mask':
+        jm, v, tm, _ = box2mask_pair
+        batch = {k: np.asarray(x) for k, x in b2m_batch(
+            np.random.RandomState(1)).items()}
+        want = jax.jit(lambda vv, b: jm.apply(
+            vv, b, jnp.zeros((), jnp.int32), method=jm.loss))(
+            v, {k: jnp.asarray(x) for k, x in batch.items()})
+        layers = tiny_b2m_cfg()['panoptic_head']['pixel_decoder'][
+            'num_encoder_layers']
+        ops = {'msda_forward': layers, 'lcm_forward': 1, 'solve_lsa': 1,
+               'grid_mst': 1}
+        return (tm, torch_batch(batch), 0, {}, want, ops,
+                dict(ops, msda_backward=layers, lcm_adjoint=1))
+    cfg = tiny_disco_cfg()
+    jm = j_build(cfg)
+    batch = disco_batch(np.random.RandomState(0))
+    jg, tg = disco_gates()
+    v = init_variables(jm, {'params': jax.random.PRNGKey(0)}, batch,
+                       jnp.zeros((), jnp.int32), None, None, None,
+                       method=jm.loss)
+    v = jax.tree_util.tree_map(np.asarray, dict(v))
+    want = jax.jit(lambda vv, b: jm.apply(
+        vv, b, jnp.zeros((), jnp.int32), None, jg, None, method=jm.loss,
+        mutable=['batch_stats'])[0])(v, batch)
+    tm = build_detector(cfg)
+    tm.load_state_dict(params_from_jax(v['params'], v.get('batch_stats')),
+                       strict=True)
+    ops = {'crf_mean_field': 1}
+    tb = {k: torch.from_numpy(np.array(x)) for k, x in batch.items()}
+    tb['image'] = tb['image'].permute(0, 3, 1, 2).contiguous()
+    return tm.train(), tb, 0, dict(gates=tg), want, ops, ops
+
+
+@pytest.mark.parametrize('name', ['boxinst', 'box2mask', 'discobox'])
+def test_loss_program_holds_the_kernels_and_matches_eager_and_jax(
+        name, boxinst_pair, box2mask_pair):  # noqa: F811
+    tm, tb, iteration, kwargs, want, ops, step_ops = loss_case(
+        name, boxinst_pair, box2mask_pair)
+    state = {k: x.clone() for k, x in tm.state_dict().items()}
+    mode = tm.training
+    program = tex.export_loss(tm, tb, iteration, **kwargs)
+    assert tex.count_ops(program) == ops
+    assert tex.count_ops(tex.loss_grad_graph(program, tb)) == step_ops
+    tm.load_state_dict(state)
+    with torch.no_grad():
+        got = program.module()(tb)
+        tm.load_state_dict(state)
+        eager = tm.loss(tb, iteration, **kwargs)
+    tm.load_state_dict(state)
+    tm.train(mode)
+    assert set(got) == set(eager) == set(want)
+    for k in want:
+        assert got[k].item() == pytest.approx(eager[k].item(),
+                                              rel=LOSS_RTOL), k
+        np.testing.assert_allclose(got[k].item(), float(want[k]),
+                                   atol=ATOL, rtol=RTOL, err_msg=k)
+    if name == 'discobox':
+        assert float(want['loss_ts']) > 0
+    else:
+        assert all(float(want[k]) > 0 for k in want)

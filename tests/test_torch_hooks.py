@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.apis.train import resolve_intervals as j_resolve
 from boxinstseg_tpu.engine import hooks as jhooks
 from test_torch_slice import ROOT, _TinyBoxDataset, tiny_cfg

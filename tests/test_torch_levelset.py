@@ -19,6 +19,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.models.losses import levelset_loss as jls
 from boxinstseg_tpu.ops.pallas_kernels import lcm_refine_pallas
 

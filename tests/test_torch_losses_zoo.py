@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import torch
 import torch.nn.functional as F
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 import boxinstseg_tpu.models.losses as JL
 from boxinstseg_tpu.registry import LOSSES as J_LOSSES
 

@@ -16,6 +16,8 @@ import jax.numpy as jnp
 import torch
 from scipy.optimize import linear_sum_assignment
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.core.targets.hungarian import \
     hungarian_match as j_hungarian_match
 from boxinstseg_tpu.ops.lsa import solve_lsa as j_solve_lsa

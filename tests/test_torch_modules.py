@@ -14,6 +14,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.core.targets import fcos as jfcos
 from boxinstseg_tpu.models.backbones.resnet import ResNet as JResNet
 from boxinstseg_tpu.models.dense_heads import condinst_head as jhead

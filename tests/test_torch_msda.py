@@ -19,6 +19,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.models.plugins.msdeformattn_pixel_decoder import \
     MSDeformAttnPixelDecoder as JPixelDecoder
 from boxinstseg_tpu.models.utils.positional_encoding import \

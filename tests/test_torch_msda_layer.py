@@ -20,6 +20,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.models.utils.transformer import \
     MultiScaleDeformableAttention as JMSDA
 from boxinstseg_tpu.ops.msda_pallas import msda_sample_psum_pm as j_msda

@@ -16,6 +16,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.ops.carafe import carafe_reassemble as j_reassemble
 from boxinstseg_tpu.registry import NECKS as J_NECKS
 

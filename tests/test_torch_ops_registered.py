@@ -1,12 +1,24 @@
-"""The MSDA and Swin window-attention kernels as registered torch ops, on
-the CPU (their plain implementations; the card's are the kernels, held to
-the same plain versions by ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``).
+"""The hand-written kernels as registered torch ops, on the CPU (their
+plain implementations; the card's are the kernels, held to the same plain
+versions by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``): MSDA and
+Swin window attention, and the loss path's BoxInst pairwise pair (K1/K2),
+LCM (K3), CRF (K7) and LSA, with the host MST solve as an op beside them.
 
 - ``torch.library.opcheck`` (schema, autograd registration, the fake
   implementation against the real one, AOT dispatch with dynamic shapes)
-  on ``boxinstseg::msda_forward``, ``msda_backward``, ``window_attention``
-  and ``window_attention_backward`` at small shapes;
+  on ``boxinstseg::msda_forward``, ``msda_backward``, ``window_attention``,
+  ``window_attention_backward``, ``pairwise_forward``,
+  ``pairwise_backward``, ``lcm_forward``, ``lcm_adjoint``,
+  ``crf_mean_field``, ``solve_lsa`` and ``grid_mst`` at small shapes;
+- ``boxinst_pairwise_loss`` and ``lcm_refine`` against autograd through
+  their plain versions, value and gradient within atol 1e-6;
+  ``crf_mean_field`` and ``solve_lsa`` element for element against theirs;
+  the pairwise op's denominator is this process's (no collective in the
+  op);
+- their flop formulas against a hand count (pairwise 90 and 120
+  operations a (pixel, instance) at 8 offsets, LCM 2 a pixel, offset and
+  round, CRF 18 a pixel and round), and no formula for the LSA;
+- their fakes' output shapes under ``FakeTensorMode``;
 - ``ms_deform_attn`` and ``window_attention_qkv`` (the callers' entries,
   now through the ops) against autograd through the plain versions:
   forward and every gradient within atol 1e-6 (the same arithmetic; the
@@ -26,7 +38,10 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.flop_counter import FlopCounterMode
 
-from boxinstseg_tpu_torch.ops import msda
+import test_torch_threads  # noqa: F401  (one torch thread)
+
+from boxinstseg_tpu_torch.ops import crf, lcm, lsa, msda, mst
+from boxinstseg_tpu_torch.ops import pairwise as pw
 from boxinstseg_tpu_torch.ops import swin_attention as swa
 
 ATOL = 1e-6
@@ -60,11 +75,93 @@ def flat(levels):
     return [n for sh in levels for n in sh]
 
 
+def pairwise_inputs(seed, b=2, k=3, h=13, w=37):
+    """logits, colour similarity, box bitmasks and validity; one sample
+    invalid."""
+    rng = np.random.RandomState(seed)
+    valid = torch.from_numpy(rng.rand(b, k) > 0.2)
+    valid[0, -1] = False
+    bm = np.zeros((b, k, h, w), np.float32)
+    bm[:, :, 2:h - 3, 4:w - 9] = 1
+    bm[:, 1] = rng.rand(h, w) > 0.5
+    return (torch.from_numpy((rng.randn(b, k, h, w) * 2).astype(np.float32)),
+            torch.from_numpy(rng.rand(b, 8, h, w).astype(np.float32)),
+            torch.from_numpy(bm), valid)
+
+
+LCM_OFFSETS = [(dy, dx) for dy in (-2, 0, 2) for dx in (-2, 0, 2)
+               if dy or dx]
+
+
+def lcm_inputs(seed, b=2, c=3, h=9, w=11):
+    rng = np.random.RandomState(seed)
+    aff = rng.rand(b, len(LCM_OFFSETS), h, w).astype(np.float32)
+    aff /= aff.sum(1, keepdims=True)
+    return (torch.from_numpy(aff),
+            torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)),
+            torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)))
+
+
+def crf_inputs(seed, b=2, k=5, h=12, w=20):
+    rng = np.random.RandomState(seed)
+    kern = torch.from_numpy(rng.rand(b, 9, h, w).astype(np.float32))
+    targets = np.zeros((b, k, h, w), np.float32)
+    targets[:, :, 1:h - 2, 2:w - 3] = 1
+    bin0 = (rng.rand(b, k, h, w) > 0.5).astype(np.float32) * targets
+    return (kern, 0.5 * crf.kernel_sum(kern), torch.from_numpy(bin0),
+            torch.from_numpy(targets))
+
+
+def lsa_inputs(seed, p=3, n=4, m=6):
+    rng = np.random.RandomState(seed)
+    cost = rng.rand(p, n, m).astype(np.float32)
+    cost[1] = np.round(cost[1] * 3)              # ties
+    return (torch.from_numpy(cost),
+            torch.tensor([n, n - 2, 0], dtype=torch.int32)[:p])
+
+
+def mst_inputs(seed, b=2, h=5, w=6):
+    rng = np.random.RandomState(seed)
+    return (torch.from_numpy(np.round(rng.rand(b, h, w - 1) * 4).astype(
+        np.float32)), torch.from_numpy(np.round(rng.rand(
+            b, h - 1, w) * 4).astype(np.float32)))
+
+
+def loss_op_args(op, seed=0):
+    """(the op, its arguments) at small shapes."""
+    if op.startswith('pairwise'):
+        x, sim, bm, valid = pairwise_inputs(seed)
+        if op == 'pairwise_forward':
+            return pw.pairwise_forward_op, (x, sim, bm, valid, 0.3, 3, 2)
+        _, live = pw.pairwise_forward_op(x, sim, bm, valid, 0.3, 3, 2)
+        return pw.pairwise_backward_op, (x, sim, bm, valid,
+                                         torch.full((1,), 0.25), live, 0.3,
+                                         3, 2)
+    if op.startswith('lcm'):
+        aff, phi, g = lcm_inputs(seed)
+        flat = [v for o in LCM_OFFSETS for v in o]
+        return ((lcm.lcm_forward_op, (aff, phi, flat, 4))
+                if op == 'lcm_forward' else
+                (lcm.lcm_adjoint_op, (aff, g, flat, 4)))
+    if op == 'crf_mean_field':
+        return crf.crf_mean_field_op, (*crf_inputs(seed), 5, 3)
+    if op == 'solve_lsa':
+        return lsa.solve_lsa_op, lsa_inputs(seed)
+    assert op == 'grid_mst'
+    return mst.grid_mst_op, (*mst_inputs(seed), 6)
+
+
+LOSS_OPS = ['pairwise_forward', 'pairwise_backward', 'lcm_forward',
+            'lcm_adjoint', 'crf_mean_field', 'solve_lsa', 'grid_mst']
+
+
 @pytest.mark.parametrize('op', ['msda_forward', 'msda_backward',
                                 'window_attention',
-                                'window_attention_backward'])
+                                'window_attention_backward'] + LOSS_OPS)
 def test_opcheck(op):
-    if op.startswith('msda'):
+    if op in LOSS_OPS:
+        target, args = loss_op_args(op)
+    elif op.startswith('msda'):
         value, ref, offsets, attn, g = msda_inputs(0)
         args = (value, flat(LEVELS), ref, offsets, attn)
         target = msda.msda_forward
@@ -79,6 +176,55 @@ def test_opcheck(op):
     assert target._qualname == f'boxinstseg::{op}'
     result = torch.library.opcheck(target, args)
     assert set(result.values()) == {'SUCCESS'}, result
+
+
+def pairwise_case():
+    x, sim, bm, valid = pairwise_inputs(1)
+    got = x.clone().requires_grad_(True)
+    want = x.clone().requires_grad_(True)
+    out = pw.boxinst_pairwise_loss(got, sim, bm, valid)
+    num, den = pw.pairwise_num_den_plain(want, sim, bm, valid)
+    ref = num / den.clamp(min=1.0)
+    # the op's den is this process's, the caller's reduction outside it
+    num_den, live = pw.pairwise_forward_op(x, sim, bm, valid, 0.3, 3, 2)
+    torch.testing.assert_close(num_den, torch.stack((num, den)).detach(),
+                               atol=ATOL, rtol=0)
+    assert live.dtype == torch.uint8 and 0 < live.sum() < live.numel()
+    return out, ref, (got,), (want,), torch.ones(())
+
+
+def lcm_case():
+    aff, phi, g = lcm_inputs(2)
+    got = phi.clone().requires_grad_(True)
+    want = phi.clone().requires_grad_(True)
+    out = lcm.lcm_refine(aff, got, LCM_OFFSETS, 4)
+    ref = lcm.lcm_forward_plain(aff, want, LCM_OFFSETS, 4)
+    return out, ref, (got,), (want,), g
+
+
+@pytest.mark.parametrize('caller', ['boxinst_pairwise_loss', 'lcm_refine',
+                                    'crf_mean_field', 'solve_lsa'])
+def test_loss_path_callers_match_their_plain_versions(caller):
+    if caller == 'crf_mean_field':
+        args = crf_inputs(3)
+        got = crf.crf_mean_field(*args, 5)
+        want = crf.crf_mean_field_plain(*args, 5)
+        assert torch.equal(got, want)
+        assert not torch.equal(want, args[2])          # the rounds moved
+        return
+    if caller == 'solve_lsa':
+        cost, n_rows = lsa_inputs(3)
+        got = lsa.solve_lsa(cost, n_rows)
+        assert got.dtype == torch.int64
+        assert torch.equal(got, lsa.solve_lsa_plain(cost, n_rows))
+        return
+    out, ref, got, want, g = (pairwise_case() if caller ==
+                              'boxinst_pairwise_loss' else lcm_case())
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+    for a, b in zip(torch.autograd.grad(out, got, g),
+                    torch.autograd.grad(ref, want, g)):
+        assert b.abs().max() > 1e-3
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize('seed', [0, 1])
@@ -206,3 +352,69 @@ def test_callers_still_refuse_what_the_ops_do_not_take():
                                  regions.to('meta'), 0.5)
     with pytest.raises(ValueError, match='int32'):
         swa.window_attention_qkv(qkv, bias, regions.long(), 0.5)
+
+
+@pytest.mark.parametrize('op', ['pairwise', 'lcm', 'crf', 'solve_lsa'])
+def test_loss_path_flop_formulas_match_a_hand_count(op):
+    with FlopCounterMode(display=False) as counter:
+        if op == 'pairwise':
+            x, sim, bm, valid = pairwise_inputs(4)
+            pw.boxinst_pairwise_loss(x.requires_grad_(True), sim, bm,
+                                     valid).backward()
+            b, k, h, w = x.shape
+            want = {'boxinstseg.pairwise_forward': 90 * b * k * h * w,
+                    'boxinstseg.pairwise_backward': 120 * b * k * h * w}
+        elif op == 'lcm':
+            aff, phi, g = lcm_inputs(4)
+            lcm.lcm_refine(aff, phi.requires_grad_(True), LCM_OFFSETS,
+                           4).backward(g)
+            n = 2 * len(LCM_OFFSETS) * phi.numel() * 4
+            want = {'boxinstseg.lcm_forward': n, 'boxinstseg.lcm_adjoint': n}
+        elif op == 'crf':
+            args = crf_inputs(4)
+            crf.crf_mean_field(*args, 5)
+            want = {'boxinstseg.crf_mean_field': 2 * 9 * args[2].numel() * 5}
+        else:
+            lsa.solve_lsa(*lsa_inputs(4))
+            want = {}                 # the work depends on the costs
+    counts = {str(k): n for k, n in
+              counter.get_flop_counts().get('Global', {}).items()}
+    assert counts == want
+
+
+@pytest.mark.parametrize('op', LOSS_OPS)
+def test_loss_path_fakes_give_the_output_shapes(op):
+    target, args = loss_op_args(op, seed=5)
+    want = target(*args)
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                for a in args]
+        got = target(*fake)
+    if isinstance(want, torch.Tensor):
+        got, want = (got,), (want,)
+    assert [(tuple(t.shape), t.dtype) for t in got] == [
+        (tuple(t.shape), t.dtype) for t in want]
+
+
+def test_loss_path_callers_still_refuse_what_the_ops_do_not_take():
+    x, sim, bm, valid = pairwise_inputs(6)
+    with pytest.raises(ValueError, match='no pairwise loss'):
+        pw.boxinst_pairwise_loss(x.to('meta'), sim.to('meta'),
+                                 bm.to('meta'), valid.to('meta'))
+    with pytest.raises(ValueError, match='color_sim'):
+        pw.boxinst_pairwise_loss(x, sim[:, :3], bm, valid)
+    aff, phi, _ = lcm_inputs(6)
+    with pytest.raises(ValueError, match='no LCM refinement'):
+        lcm.lcm_refine(aff.to('meta'), phi.to('meta'), LCM_OFFSETS, 2)
+    with pytest.raises(ValueError, match='aff'):
+        lcm.lcm_refine(aff[:, :4], phi, LCM_OFFSETS, 2)
+    args = crf_inputs(6)
+    with pytest.raises(ValueError, match='3x3'):
+        crf.crf_mean_field(*args, 5, kernel_size=5)
+    with pytest.raises(ValueError, match='no CRF fixed point'):
+        crf.crf_mean_field(*(a.to('meta') for a in args), 5)
+    cost, n_rows = lsa_inputs(6)
+    with pytest.raises(AssertionError):
+        lsa.solve_lsa(cost.transpose(1, 2), n_rows)
+    with pytest.raises(ValueError, match='no LSA solver'):
+        lsa.solve_lsa(cost.to('meta'), n_rows.to('meta'))

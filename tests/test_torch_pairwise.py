@@ -16,6 +16,8 @@ import jax.numpy as jnp
 import torch
 import torch.nn.functional as F
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.ops.pairwise import boxinst_pairwise_loss as jax_loss
 from boxinstseg_tpu.ops.pallas_kernels import boxinst_pairwise_loss_pallas
 from boxinstseg_tpu_torch.ops import pairwise as pw

@@ -17,6 +17,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu_torch.ops import pairwise as pw
 from boxinstseg_tpu_torch.ops.color import neighbor_offsets, shift2d
 

@@ -26,6 +26,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.apis.train import \
     apply_precision_policy as j_apply_precision_policy
 from boxinstseg_tpu.engine import init_variables

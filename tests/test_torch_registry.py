@@ -6,6 +6,8 @@ smallest arguments it takes."""
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 import boxinstseg_tpu  # noqa: F401  (registers the JAX modules)
 import boxinstseg_tpu.registry as J
 

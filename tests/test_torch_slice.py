@@ -31,6 +31,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.engine import (build_lr_schedule as j_schedule,
                                    build_optimizer as j_optimizer,
                                    create_train_state, init_variables,
@@ -429,7 +431,8 @@ def test_port_never_imports_jax_or_cv2():
         assert not bad and sys.modules['cv2'] is None, bad
         print('OK')
     ''')
-    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    env = {k: v for k, v in test_torch_threads.TEST_ENV.items()
+           if k != 'PYTHONPATH'}
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -34,6 +34,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.models.backbones.swin import \
     SwinTransformer as JSwinTransformer
 from boxinstseg_tpu.models.detectors.maskformer import \

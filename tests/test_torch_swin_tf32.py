@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu_torch.ops import swin_attention as swa
 
 ATOL, RTOL = 1e-5, 1e-4        # KERNEL_ATOL / KERNEL_RTOL of chip_smoke.py

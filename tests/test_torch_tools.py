@@ -43,6 +43,8 @@ import pytest
 import jax
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.config import Config as JConfig
 from boxinstseg_tpu.engine import init_variables
 from boxinstseg_tpu.registry import build_dataset as j_build_dataset

@@ -34,6 +34,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.apis.train import (build_hooks as j_build_hooks,
                                        resolve_intervals as j_intervals)
 from boxinstseg_tpu.config import Config as JConfig

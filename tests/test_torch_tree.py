@@ -17,6 +17,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 from boxinstseg_tpu.ops.mst import grid_mst_device
 from boxinstseg_tpu.ops.tree_filter import (grid_mst_pair as j_pair,
                                             tree_filter2d as j_filter)

@@ -21,6 +21,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_torch_threads  # noqa: F401  (one torch thread)
+
 import boxinstseg_tpu.models.plugins.dropblock as JD
 import boxinstseg_tpu.models.utils.bricks as JB
 import boxinstseg_tpu.models.utils.gaussian_target as JG

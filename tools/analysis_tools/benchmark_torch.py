@@ -144,6 +144,7 @@ def main(argv=None):
     import torch
     from boxinstseg_tpu_torch.apis.inference import select_device
     from boxinstseg_tpu_torch.engine.train_state import autocast_bf16
+    from boxinstseg_tpu_torch.utils.env import set_tf32, tf32_from_cfg
 
     device = select_device(args.device)
     if device.type == 'cuda':
@@ -154,6 +155,7 @@ def main(argv=None):
                                  seed=SEED)
     if args.bf16:
         cfg.bf16 = True
+    set_tf32(tf32_from_cfg(cfg))
     model = train_tool.build_model(cfg, SEED).to(device)
     b, h, w = args.batch_size, args.height, args.width
 

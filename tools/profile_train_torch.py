@@ -134,8 +134,6 @@ def main():
     from torch.profiler import ProfilerActivity, profile, record_function
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     tool = load_train_tool()
     from boxinstseg_tpu_torch.apis.train import (apply_precision_policy,
                                                  batch_to_device,
@@ -145,12 +143,14 @@ def main():
     from boxinstseg_tpu_torch.engine.optimizers import build_optimizer
     from boxinstseg_tpu_torch.engine.train_state import (TSTrainStep,
                                                          make_train_step)
+    from boxinstseg_tpu_torch.utils.env import set_tf32, tf32_from_cfg
     from boxinstseg_tpu_torch.models.detectors.single_stage_boxseg import \
         SingleStageBoxInsDetector
     from boxinstseg_tpu_torch.models.detectors.single_stage_ts import \
         SingleStageWSInsTSDetector
 
     cfg = tool.load_config(args.config, args.cfg_options, seed=args.seed)
+    set_tf32(tf32_from_cfg(cfg))
     model = tool.build_model(cfg, args.seed).cuda()
     rng = np.random.RandomState(args.seed)
     bs = cfg.data.get('samples_per_gpu', 2)

@@ -1,0 +1,28 @@
+#!/usr/bin/env bash
+# SLURM training of the PyTorch port: srun starts one task a card, each a
+# rank of tools/train_torch.py with --launcher slurm, which maps
+# SLURM_PROCID, SLURM_NTASKS and SLURM_LOCALID onto RANK, WORLD_SIZE and
+# LOCAL_RANK. The first node of the job is the rendezvous (MASTER_ADDR).
+#
+# Usage: tools/slurm_train_torch.sh PARTITION JOB_NAME CONFIG [train_torch.py args...]
+#   GPUS            cards in all (8)
+#   GPUS_PER_NODE   cards a node (8)
+#   PORT            the rendezvous port (29500)
+set -euo pipefail
+PARTITION=$1
+JOB_NAME=$2
+CONFIG=$3
+shift 3
+GPUS=${GPUS:-8}
+GPUS_PER_NODE=${GPUS_PER_NODE:-8}
+PORT=${PORT:-29500}
+SCRIPT_DIR=$(cd "$(dirname "$0")" && pwd)
+
+srun -p "$PARTITION" --job-name="$JOB_NAME" --ntasks="$GPUS" \
+    --ntasks-per-node="$GPUS_PER_NODE" --gres=gpu:"$GPUS_PER_NODE" \
+    --kill-on-bad-exit=1 \
+    bash -c 'export MASTER_ADDR=$(scontrol show hostnames \
+                 "$SLURM_JOB_NODELIST" | head -n1)
+             export MASTER_PORT='"$PORT"'
+             exec "$0" "$@"' \
+    python "$SCRIPT_DIR/train_torch.py" "$CONFIG" --launcher slurm "$@"

@@ -10,14 +10,16 @@ host without a GPU). The weights are initialised from the seed. Without
 ``evaluation`` interval.
 
 One process on one device, or, with ``--launcher pytorch``, one rank of a
-data-parallel run that ``torchrun`` launched: nccl and the card
-``cuda:{LOCAL_RANK}`` with ``--device cuda``, gloo on the CPU with
-``--device cpu``.
+data-parallel run that ``torchrun`` launched (``tools/dist_train_torch.sh``)
+or, with ``--launcher slurm``, one task of an ``srun`` launch
+(``tools/slurm_train_torch.sh``): nccl and the card ``cuda:{LOCAL_RANK}``
+with ``--device cuda``, gloo on the CPU with ``--device cpu``.
 
     python tools/train_torch.py configs/boxinst/boxinst_r50_fpn_1x_coco.py \
         --work-dir work_dirs/boxinst_torch --cfg-options runner.max_iters=5
-    torchrun --nproc_per_node 8 tools/train_torch.py \
-        configs/boxinst/boxinst_r50_fpn_1x_coco.py --launcher pytorch
+    tools/dist_train_torch.sh configs/boxinst/boxinst_r50_fpn_1x_coco.py 8
+    GPUS=16 tools/slurm_train_torch.sh PARTITION JOB \
+        configs/boxinst/boxinst_r50_fpn_1x_coco.py
 """
 import argparse
 import os
@@ -52,24 +54,52 @@ def parse_args(argv=None):
 
 
 def add_launcher_args(p):
-    p.add_argument('--launcher', default='none', choices=('none', 'pytorch'),
+    p.add_argument('--launcher', default='none',
+                   choices=('none', 'pytorch', 'slurm'),
                    help='pytorch: one rank of a torchrun launch (RANK, '
-                        'WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT)')
+                        'WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); '
+                        'slurm: one task of an srun launch (SLURM_PROCID, '
+                        'SLURM_NTASKS, SLURM_LOCALID, with MASTER_ADDR and '
+                        'MASTER_PORT exported)')
     p.add_argument('--local_rank', '--local-rank', type=int, default=None,
                    help='this rank\'s card, when the launcher passes it '
                         'instead of LOCAL_RANK')
 
 
+# --launcher slurm: the variable srun sets for each one that
+# parallel/dist.py reads
+SLURM_VARS = (('SLURM_PROCID', 'RANK'), ('SLURM_NTASKS', 'WORLD_SIZE'),
+              ('SLURM_LOCALID', 'LOCAL_RANK'))
+
+
+def slurm_environment(env=None):
+    """Map an srun task's ``SLURM_PROCID``, ``SLURM_NTASKS`` and
+    ``SLURM_LOCALID`` onto ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` in
+    ``env`` (``os.environ`` by default). Raises ``SystemExit`` naming the
+    first of these, or ``MASTER_ADDR``, that is not set: a rank is never
+    guessed."""
+    env = os.environ if env is None else env
+    for name in ('MASTER_ADDR',) + tuple(s for s, _ in SLURM_VARS):
+        if not env.get(name):
+            raise SystemExit(f'--launcher slurm: {name} is not set')
+    for slurm, torch_name in SLURM_VARS:
+        env[torch_name] = env[slurm]
+    env.setdefault('MASTER_PORT', '29500')
+    return env
+
+
 def launch(args):
-    """Join the process group for ``--launcher pytorch`` (nccl for
-    ``--device cuda``, gloo for ``--device cpu``); returns the device this
-    process runs on."""
+    """Join the process group for ``--launcher pytorch`` or ``slurm``
+    (nccl for ``--device cuda``, gloo for ``--device cpu``); returns the
+    device this process runs on."""
     import torch
     if args.device == 'cuda' and not torch.cuda.is_available():
         raise SystemExit('--device cuda: no CUDA device is available')
     if args.launcher == 'none':
         return torch.device(args.device)
     from boxinstseg_tpu_torch.parallel import dist as pdist
+    if args.launcher == 'slurm':
+        slurm_environment()
     if args.local_rank is not None:
         os.environ['LOCAL_RANK'] = str(args.local_rank)
     if 'WORLD_SIZE' not in os.environ:
