@@ -13,8 +13,10 @@ plain version by the device of the inputs. A program exported on the card
 holds CUDA weights and runs there; one exported on the CPU runs there.
 
 A config with a precision key (``fp16`` or ``bf16``) predicts under bf16
-autocast in ``predict_batch``; its export raises naming the key (autocast
-regions do not export as the eager policy runs them).
+autocast in ``predict_batch`` (``run_evaluation``, ``inference_detector``),
+but its export is of predict in fp32, as the JAX package's
+``tools/deployment/export_model.py`` exports it (that tool never applies
+the precision policy); the log says so once an export.
 
 ``ExportedDetector`` wraps a loaded program with ``predict(batch)``, so
 that ``apis.test.run_evaluation`` drives it as it drives the model.
@@ -35,7 +37,7 @@ import torch
 
 from ..ops import (crf, lcm, lsa, msda, mst, pairwise,  # noqa: F401
                    swin_attention)                      # (register the ops)
-from .train import apply_precision_policy
+from .train import apply_precision_policy, get_logger
 
 OP_NAMESPACE = 'boxinstseg'
 
@@ -65,13 +67,13 @@ def export_predict(model: torch.nn.Module, cfg, shape: Tuple[int, int],
                    batch: int = 1) -> torch.export.ExportedProgram:
     """``torch.export.export`` of ``model.predict`` (in ``eval()``, on its
     own device) at the static canvas ``shape`` (h, w) and ``batch``, under
-    ``torch.no_grad()``."""
+    ``torch.no_grad()``, in fp32 whatever the config's precision key."""
     if apply_precision_policy(cfg):
         key = 'fp16' if cfg.get('fp16') is not None else 'bf16'
-        raise NotImplementedError(
-            f'the config\'s precision key {key!r} runs predict under bf16 '
-            f'autocast, which the export does not trace; export with the '
-            f'key removed (fp32)')
+        get_logger().warning(
+            f'the config\'s precision key {key!r} is not applied to the '
+            f'export: predict is exported in fp32, as the JAX package '
+            f'exports it (evaluation predicts under bf16 autocast)')
     device = next(model.parameters()).device
     model.eval()
     with torch.no_grad():

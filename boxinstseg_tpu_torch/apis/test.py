@@ -160,11 +160,35 @@ def format_detection(out: Dict, i: int, img_shape, ori_shape,
                         labels=labels.astype(np.int64), masks=masks)
 
 
+def test_scale_canvases(cfg) -> list:
+    """The canvases that fit the test pipeline's images: a keep-ratio
+    ``Resize`` to ``MultiScaleFlipAug``'s largest ``img_scale`` (long,
+    short) gives at most short x long, padded by ``Pad``'s
+    ``size_divisor``; both orientations. Empty without such a pipeline."""
+    pipeline = (cfg.get('data', {}).get('test', {}) or {}).get('pipeline', [])
+    for t in pipeline:
+        if t.get('type') != 'MultiScaleFlipAug' or not t.get('img_scale'):
+            continue
+        scales = t['img_scale']
+        scales = [scales] if isinstance(scales[0], int) else scales
+        div = next((u.get('size_divisor') for u in t.get('transforms', [])
+                    if u.get('type') == 'Pad'), None) or 1
+        up = lambda v: -(-int(v) // div) * div          # noqa: E731
+        short = up(max(min(s) for s in scales))
+        long = up(max(max(s) for s in scales))
+        return [(short, long), (long, short)]
+    return []
+
+
 def eval_batcher(cfg) -> StaticBatcher:
-    """The test-time batcher of ``cfg``: its canvases, no annotations."""
-    return StaticBatcher(canvases=cfg.get('canvases', [(800, 1344),
-                                                       (1344, 800)]),
-                         max_gts=1)
+    """The test-time batcher of ``cfg``: its canvases, then those of its
+    test pipeline's scale that it lacks (``test_scale_canvases``; the
+    smallest canvas that fits an image is taken, so these serve only
+    images that fit none of the config's, such as Box2Mask's 800x1333
+    test images beside its 1024x1024 training canvas), no annotations."""
+    canvases = list(cfg.get('canvases', [(800, 1344), (1344, 800)]))
+    canvases += [c for c in test_scale_canvases(cfg) if c not in canvases]
+    return StaticBatcher(canvases=canvases, max_gts=1)
 
 
 def predict_batch(model: torch.nn.Module, batch: Dict[str, np.ndarray],

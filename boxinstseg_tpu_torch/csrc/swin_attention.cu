@@ -68,7 +68,17 @@
 //   bits from run to run. The accumulator, four staged operands and the
 //   statistics fill the shared memory at N = 144, so the backward reads the
 //   bias from L2 there.
-// Whether the bias is kept in shared memory is chosen by the wrapper,
+// - Past N = 144 at D = 32 the whole-block accumulator (NR x (NR + 8)
+//   floats) no longer fits beside the staged operands. Such a block adds dS
+//   straight into its own (group, head) slice of the partial instead: the
+//   slice is the block's alone, and within it each element belongs to one
+//   thread (the warp's strip row, the lane's columns) in every window, so
+//   the read-add-write needs no atomics and the sums keep their order.
+//   Where even then the four staged operands do not fit (N > 144 at D = 64,
+//   N > 64 at D = 128), g is read from a zero-padded (BW, NR, H, D32) copy
+//   in L2 that the wrapper makes, and only q, k and v are staged: the
+//   backward then takes every shape the forward takes.
+// The plan (which of these apply) is chosen by the wrapper,
 // ops/swin_attention.py, which repeats the sizes below.
 
 #include <cuda_runtime.h>
@@ -81,9 +91,42 @@ constexpr float NEG = -100.f;
 constexpr int MAX_N = 256;
 constexpr int MAX_D = 128;
 
+// <plan>: the shapes' arithmetic, in plain C++ (tests/
+// test_torch_kernel_plans.py compiles this block with a host compiler and
+// holds it to ops/swin_attention.py).
+
+// The plan's flags (the forward reads only the first).
+constexpr int PLAN_BIAS_SMEM = 1;     // the head's bias in shared memory
+constexpr int PLAN_DBIAS_GLOBAL = 2;  // dS added into the partial slice
+constexpr int PLAN_G_GLOBAL = 4;      // g read from the padded copy in L2
+
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
+
+// Columns of a staged row: D padded to whole 32-column chunks (the
+// products' fixed width); rows are staged 4 floats wider, so that fragment
+// loads are free of bank conflicts and rows stay 16-byte aligned.
+__host__ __device__ inline int padded_width(int D) { return round_up(D, 32); }
+
+// Key tiles of 8 that a strip holds: the kernels' template argument.
+inline int key_tiles(int N) {
+  return N <= 16 ? 2 : N <= 32 ? 4 : N <= 64 ? 8 : N <= 144 ? 18 : 32;
+}
+
+// Shared-memory floats (ops/swin_attention.py repeats these): [bias NR x
+// BS if in shared memory][backward: dbias NR x BS unless it goes to the
+// partial, row max, 1 / sum and D, NR each][q, k, v (, g unless read from
+// L2) tiles NR x DS, regions NR].
+inline size_t plan_floats(int NR, int D, bool backward, int plan) {
+  const size_t bias = (size_t)NR * (NR + 8);
+  const int tiles = backward && !(plan & PLAN_G_GLOBAL) ? 4 : 3;
+  return ((plan & PLAN_BIAS_SMEM) ? bias : 0) +
+         (backward ? ((plan & PLAN_DBIAS_GLOBAL) ? 0 : bias) + 3 * (size_t)NR
+                   : 0) +
+         (size_t)tiles * NR * (padded_width(D) + 4) + NR;
+}
+// </plan>
 
 // ------------------------------------------------------------ primitives
 
@@ -240,19 +283,20 @@ __device__ __forceinline__ void zero(float acc[KT][4]) {
 }
 
 // acc[jt] += (mult A[r0 .. r0+16)) B[8 jt .. 8 jt + 8)^T over the dw
-// columns: a strip of one staged matrix against all rows of another.
+// columns: a strip of one staged matrix (row stride dsa) against all rows
+// of another (row stride dsb).
 template <int KT>
 __device__ __forceinline__ void strip_products(float acc[KT][4],
-                                               const float* sa,
-                                               const float* sb, int r0,
-                                               int dw, int ds, float mult,
+                                               const float* sa, int dsa,
+                                               const float* sb, int dsb,
+                                               int r0, int dw, float mult,
                                                int g, int t) {
   for (int k0 = 0; k0 < dw; k0 += 8) {
-    const FragA a = load_a(sa, r0, k0, ds, mult, g, t);
+    const FragA a = load_a(sa, r0, k0, dsa, mult, g, t);
 #pragma unroll
     for (int jt = 0; jt < KT; jt += 2) {
-      const FragB b[2] = {load_bt(sb, 8 * jt, k0, ds, g, t),
-                          load_bt(sb, 8 * jt + 8, k0, ds, g, t)};
+      const FragB b[2] = {load_bt(sb, 8 * jt, k0, dsb, g, t),
+                          load_bt(sb, 8 * jt + 8, k0, dsb, g, t)};
       mma3<2>(acc + jt, a, b);
     }
   }
@@ -391,22 +435,6 @@ __device__ __forceinline__ void softmax_rows(float s[KT][4], float stats[4]) {
   stats[3] = invb;
 }
 
-// Columns of a staged row: D padded to whole 32-column chunks (the
-// products' fixed width), plus 4 so that fragment loads are free of bank
-// conflicts and rows stay 16-byte aligned.
-__host__ __device__ __forceinline__ int padded_width(int D) {
-  return round_up(D, 32);
-}
-
-// Shared-memory floats (ops/swin_attention.py repeats these): [bias NR x
-// BS if in shared memory][backward: dbias NR x BS, row max, 1 / sum and D,
-// NR each][q, k, v (, g) tiles NR x DS, regions NR].
-size_t plan_floats(int NR, int D, bool backward, bool bias_smem) {
-  const size_t bias = (size_t)NR * (NR + 8);
-  return (bias_smem ? bias : 0) + (backward ? bias + 3 * (size_t)NR : 0) +
-         (size_t)(backward ? 4 : 3) * NR * (padded_width(D) + 4) + NR;
-}
-
 // ------------------------------------------------------------------ K5
 
 template <int KT>
@@ -455,7 +483,7 @@ swin_attention_forward_kernel(const float* __restrict__ q,
     __syncthreads();
     float s[KT][4], stats[4];
     init_rows<KT>(s, sreg, sb, bh, bias_smem, N, i0, g, t);
-    strip_products<KT>(s, sq, sk, i0, dw, ds, scale, g, t);
+    strip_products<KT>(s, sq, ds, sk, ds, i0, dw, scale, g, t);
     softmax_rows<KT>(s, stats);
     strip_times<KT>(s, sv, out + (size_t)bw * N * C + (size_t)h * D, C, i0,
                     N, D, dw, ds, 1.f, g, t);
@@ -466,7 +494,11 @@ swin_attention_forward_kernel(const float* __restrict__ q,
 
 // ------------------------------------------------------------------ K6
 
-template <int KT>
+// DG: dS is added straight into the block's partial slice instead of a
+// shared-memory accumulator (PLAN_DBIAS_GLOBAL). GG: g is read from its
+// zero-padded copy (BW, NR, H, D32) in L2 instead of being staged
+// (PLAN_G_GLOBAL). <KT, false, false> is the plan of N <= 144 at D <= 32.
+template <int KT, bool DG, bool GG>
 __global__ void __launch_bounds__(KT * 16, 1)
 swin_attention_backward_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
@@ -487,7 +519,7 @@ swin_attention_backward_kernel(const float* __restrict__ q,
   const int r0 = (threadIdx.x >> 5) * 16;     // query strip, then key strip
   float* sb = smem;
   float* sdb = sb + (bias_smem ? NR * BS : 0);  // dbias of the block's windows
-  float* smax = sdb + NR * BS;
+  float* smax = sdb + (DG ? 0 : NR * BS);
   float* sinv = smax + NR;
   float* sdd = sinv + NR;
   const float* bh = bias + (size_t)h * N * N;
@@ -502,15 +534,17 @@ swin_attention_backward_kernel(const float* __restrict__ q,
   float* sq = sdd + NR;                        // this window's tiles
   float* sk = sq + NR * ds;
   float* sv = sk + NR * ds;
-  float* sg = sv + NR * ds;
-  int* sreg = reinterpret_cast<int*>(sg + NR * ds);
+  float* sg = sv + NR * ds;                    // unless GG
+  int* sreg = reinterpret_cast<int*>(sg + (GG ? 0 : NR * ds));
+  const int dsg = GG ? H * dw : ds;            // g's row stride
   auto load = [&](int bw) {
     const size_t base = (size_t)bw * N * ld + (size_t)h * D;
     stage_tile(sq, q + base, ld, N, D, ds, vec);
     stage_tile(sk, k + base, ld, N, D, ds, vec);
     stage_tile(sv, v + base, ld, N, D, ds, vec);
-    stage_tile(sg, gout + (size_t)bw * N * C + (size_t)h * D, C, N, D, ds,
-               vec);
+    if constexpr (!GG)
+      stage_tile(sg, gout + (size_t)bw * N * C + (size_t)h * D, C, N, D, ds,
+                 vec);
     stage_ints(sreg, regions + (size_t)(bw % nW) * N, N);
     cp_async_commit();
   };
@@ -520,15 +554,17 @@ swin_attention_backward_kernel(const float* __restrict__ q,
     cp_async_wait();
     __syncthreads();
     float* drow = dqkv + (size_t)bw * N * 3 * C + (size_t)h * D;
+    const float* gw =
+        GG ? gout + (size_t)bw * NR * H * dw + (size_t)h * dw : sg;
 
     // query-major pass: rows i of the strip r0
     {
       float p[KT][4], dp[KT][4], stats[4];
       init_rows<KT>(p, sreg, sb, bh, bias_smem, N, r0, g, t);
-      strip_products<KT>(p, sq, sk, r0, dw, ds, scale, g, t);
+      strip_products<KT>(p, sq, ds, sk, ds, r0, dw, scale, g, t);
       softmax_rows<KT>(p, stats);
       zero<KT>(dp);
-      strip_products<KT>(dp, sg, sv, r0, dw, ds, 1.f, g, t);  // g V^T
+      strip_products<KT>(dp, gw, dsg, sv, ds, r0, dw, 1.f, g, t);  // g V^T
       float da = 0.f, db = 0.f;
 #pragma unroll
       for (int jt = 0; jt < KT; ++jt) {
@@ -552,15 +588,36 @@ swin_attention_backward_kernel(const float* __restrict__ q,
         p[jt][1] *= dp[jt][1] - da;
         p[jt][2] *= dp[jt][2] - db;
         p[jt][3] *= dp[jt][3] - db;
-        float2* xa = reinterpret_cast<float2*>(sdb + ia * BS + 8 * jt + 2 * t);
-        float2* xb = reinterpret_cast<float2*>(sdb + ib * BS + 8 * jt + 2 * t);
-        float2 ya = *xa, yb = *xb;
-        ya.x += p[jt][0];
-        ya.y += p[jt][1];
-        yb.x += p[jt][2];
-        yb.y += p[jt][3];
-        *xa = ya;
-        *xb = yb;
+        if constexpr (!DG) {
+          float2* xa =
+              reinterpret_cast<float2*>(sdb + ia * BS + 8 * jt + 2 * t);
+          float2* xb =
+              reinterpret_cast<float2*>(sdb + ib * BS + 8 * jt + 2 * t);
+          float2 ya = *xa, yb = *xb;
+          ya.x += p[jt][0];
+          ya.y += p[jt][1];
+          yb.x += p[jt][2];
+          yb.y += p[jt][3];
+          *xa = ya;
+          *xb = yb;
+        }
+      }
+      if constexpr (DG) {
+        // this thread's elements of the block's own slice, in every
+        // window: the first window stores, the later ones add in order
+        float* part = partial + ((size_t)grp * H + h) * N * N;
+        const bool first = bw == grp;
+#pragma unroll
+        for (int jt = 0; jt < KT; ++jt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e < 2 ? ia : ib, j = 8 * jt + 2 * t + (e & 1);
+            if (i < N && j < N) {
+              float* x = part + (size_t)i * N + j;
+              *x = first ? p[jt][e] : *x + p[jt][e];
+            }
+          }
+        }
       }
       strip_times<KT>(p, sk, drow, 3 * C, r0, N, D, dw, ds, scale, g, t);
     }
@@ -570,7 +627,7 @@ swin_attention_backward_kernel(const float* __restrict__ q,
     {
       float p[KT][4], dp[KT][4];
       init_cols<KT>(p, sreg, sb, bh, bias_smem, N, r0, g, t);
-      strip_products<KT>(p, sk, sq, r0, dw, ds, scale, g, t);  // S^T
+      strip_products<KT>(p, sk, ds, sq, ds, r0, dw, scale, g, t);  // S^T
 #pragma unroll
       for (int qt = 0; qt < KT; ++qt) {
 #pragma unroll
@@ -579,10 +636,10 @@ swin_attention_backward_kernel(const float* __restrict__ q,
           p[qt][e] = expf(p[qt][e] - smax[i]) * sinv[i];     // P^T
         }
       }
-      strip_times<KT>(p, sg, drow + 2 * C, 3 * C, r0, N, D, dw, ds, 1.f, g,
-                      t);                                  // dV = P^T g
+      strip_times<KT>(p, gw, drow + 2 * C, 3 * C, r0, N, D, dw, dsg, 1.f,
+                      g, t);                               // dV = P^T g
       zero<KT>(dp);
-      strip_products<KT>(dp, sv, sg, r0, dw, ds, 1.f, g, t);  // dP^T
+      strip_products<KT>(dp, sv, ds, gw, dsg, r0, dw, 1.f, g, t);  // dP^T
 #pragma unroll
       for (int qt = 0; qt < KT; ++qt) {
 #pragma unroll
@@ -597,10 +654,12 @@ swin_attention_backward_kernel(const float* __restrict__ q,
   }
 
   // the block's windows, summed in a fixed order, into its own slice
-  float* part = partial + ((size_t)grp * H + h) * N * N;
-  for (int idx = threadIdx.x; idx < N * N; idx += blockDim.x) {
-    const int i = idx / N;
-    part[idx] = sdb[i * BS + idx - i * N];
+  if constexpr (!DG) {
+    float* part = partial + ((size_t)grp * H + h) * N * N;
+    for (int idx = threadIdx.x; idx < N * N; idx += blockDim.x) {
+      const int i = idx / N;
+      part[idx] = sdb[i * BS + idx - i * N];
+    }
   }
 }
 
@@ -616,11 +675,6 @@ swin_dbias_reduce_kernel(const float* __restrict__ partial,
 }
 
 // ------------------------------------------------------------------ host
-
-// Key tiles of 8 that a strip holds: the kernels' template argument.
-int key_tiles(int N) {
-  return N <= 16 ? 2 : N <= 32 ? 4 : N <= 64 ? 8 : N <= 144 ? 18 : 32;
-}
 
 bool shape_ok(int BW, int N, int H, int D, int nW, int ld, int G) {
   return BW > 0 && N > 0 && N <= MAX_N && H > 0 && D > 0 && D <= MAX_D &&
@@ -652,17 +706,19 @@ cudaError_t forward(const float* q, const float* k, const float* v, int ld,
   return cudaGetLastError();
 }
 
-template <int KT>
+template <int KT, bool DG, bool GG>
 cudaError_t backward(const float* q, const float* k, const float* v, int ld,
                      const float* bias, const int* regions, const float* g,
                      float* dqkv, float* partial, int BW, int N, int H, int D,
                      int nW, float scale, int G, int bias_smem, int vec,
                      cudaStream_t stream) {
-  const size_t floats = plan_floats(8 * KT, D, true, bias_smem);
-  cudaError_t err =
-      prepare(swin_attention_backward_kernel<KT>, floats * sizeof(float));
+  const int plan = bias_smem * PLAN_BIAS_SMEM + DG * PLAN_DBIAS_GLOBAL +
+                   GG * PLAN_G_GLOBAL;
+  const size_t floats = plan_floats(8 * KT, D, true, plan);
+  cudaError_t err = prepare(swin_attention_backward_kernel<KT, DG, GG>,
+                            floats * sizeof(float));
   if (err != cudaSuccess) return err;
-  swin_attention_backward_kernel<KT>
+  swin_attention_backward_kernel<KT, DG, GG>
       <<<G * H, (N + 15) / 16 * 32, floats * sizeof(float), stream>>>(
           q, k, v, ld, bias, regions, g, dqkv, partial, BW, N, H, D, nW,
           scale, G, bias_smem, vec, (int)floats);
@@ -696,27 +752,38 @@ int swin_attention_forward(const float* q, const float* k, const float* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// g: (BW, N, C) contiguous; dqkv: (BW, N, 3C) contiguous (dq | dk | dv);
-// partial: (G, H, N, N) scratch; dbias: (H, N, N).
+// g: (BW, N, C) contiguous, or under PLAN_G_GLOBAL its zero-padded copy
+// (BW, NR, H, D32), NR = 8 * key_tiles(N), D32 = D rounded up to 32;
+// dqkv: (BW, N, 3C) contiguous (dq | dk | dv); partial: (G, H, N, N)
+// scratch; dbias: (H, N, N). plan: the PLAN_* flags of the wrapper's plan
+// (PLAN_G_GLOBAL only where N > 64).
 int swin_attention_backward(const float* q, const float* k, const float* v,
                             int ld, const float* bias, const int* regions,
                             const float* g, float* dqkv, float* partial,
                             float* dbias, int BW, int N, int H, int D,
-                            int nW, float scale, int G, int bias_smem,
+                            int nW, float scale, int G, int plan,
                             void* stream) {
   if (!shape_ok(BW, N, H, D, nW, ld, G))
     return (int)cudaErrorInvalidValue;
   const int vec = D % 4 == 0 && ld % 4 == 0 && aligned16(q) &&
                   aligned16(k) && aligned16(v) && aligned16(g);
+  const int bias_smem = (plan & PLAN_BIAS_SMEM) != 0;
+  const int dg = (plan & PLAN_DBIAS_GLOBAL) != 0;
+  const int gg = (plan & PLAN_G_GLOBAL) != 0;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;
-  switch (key_tiles(N)) {
-#define SWIN_BWD(KT)                                                         \
-  case KT:                                                                   \
-    err = backward<KT>(q, k, v, ld, bias, regions, g, dqkv, partial, BW, N,  \
-                       H, D, nW, scale, G, bias_smem, vec, s);               \
+  // the (key tiles, DG, GG) that a plan of ops/swin_attention.py takes
+  switch (key_tiles(N) * 4 + dg * 2 + gg) {
+#define SWIN_BWD(KT, DG, GG)                                                 \
+  case KT * 4 + DG * 2 + GG:                                                 \
+    err = backward<KT, DG, GG>(q, k, v, ld, bias, regions, g, dqkv, partial, \
+                               BW, N, H, D, nW, scale, G, bias_smem, vec,    \
+                               s);                                           \
     break;
-    SWIN_BWD(2) SWIN_BWD(4) SWIN_BWD(8) SWIN_BWD(18) SWIN_BWD(32)
+    SWIN_BWD(2, false, false) SWIN_BWD(4, false, false)
+    SWIN_BWD(8, false, false) SWIN_BWD(18, false, false)
+    SWIN_BWD(18, true, false) SWIN_BWD(18, true, true)
+    SWIN_BWD(32, true, false) SWIN_BWD(32, true, true)
 #undef SWIN_BWD
   }
   if (err != cudaSuccess) return (int)err;

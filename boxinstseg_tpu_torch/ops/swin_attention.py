@@ -47,6 +47,14 @@ MAX_N, MAX_D = 256, 128      # the kernels' limits (csrc/swin_attention.cu)
 SMEM_LIMIT = 232448          # dynamic shared memory a block may use (H100)
 SM_SMEM = 233472             # shared memory of one SM (H100)
 KEY_TILES = (2, 4, 8, 18, 32)    # the kernels' template sizes, 8 keys a tile
+# a plan's flags (PLAN_* in the source): the head's bias in shared memory;
+# the backward's dS added straight into the block's partial slice (no dbias
+# accumulator in shared memory); g read from a zero-padded copy in L2 (not
+# staged)
+BIAS_SMEM, DBIAS_GLOBAL, G_GLOBAL = 1, 2, 4
+# the plans in the order tried: the forward's, then the backward's
+FORWARD_PLANS = (BIAS_SMEM, 0)
+BACKWARD_PLANS = (BIAS_SMEM, 0, DBIAS_GLOBAL, DBIAS_GLOBAL | G_GLOBAL)
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,27 +146,32 @@ def key_tiles(n: int) -> int:
     return next(kt for kt in KEY_TILES if 8 * kt >= n)
 
 
-def plan_bytes(n: int, d: int, backward: bool, bias_smem: bool) -> int:
+def plan_bytes(n: int, d: int, backward: bool, plan: int) -> int:
     """Dynamic shared memory of the kernels (``plan_floats`` in the
-    source): the head's bias (NR x (NR + 8)) if it is kept there, for the
-    backward the dbias accumulator of that size and three row statistics,
-    and the q, k, v (and g) tiles (NR x (D32 + 4)) and a region row, NR = 8
-    * key_tiles(n) rows, D32 = d rounded up to 32."""
+    source) under the ``plan`` flags: the head's bias (NR x (NR + 8)) if it
+    is kept there; for the backward the dbias accumulator of that size
+    (unless DBIAS_GLOBAL) and three row statistics; the q, k, v (and, for
+    the backward unless G_GLOBAL, g) tiles (NR x (D32 + 4)) and a region
+    row. NR = 8 * key_tiles(n) rows, D32 = d rounded up to 32."""
     nr = 8 * key_tiles(n)
     bias = nr * (nr + 8)
-    tiles = (4 if backward else 3) * nr * (-(-d // 32) * 32 + 4) + nr
-    return 4 * ((bias if bias_smem else 0)
-                + (bias + 3 * nr if backward else 0) + tiles)
+    staged = 4 if backward and not plan & G_GLOBAL else 3
+    tiles = staged * nr * (-(-d // 32) * 32 + 4) + nr
+    acc = (0 if plan & DBIAS_GLOBAL else bias) + 3 * nr if backward else 0
+    return 4 * ((bias if plan & BIAS_SMEM else 0) + acc + tiles)
 
 
 def smem_plan(n: int, d: int, backward: bool):
-    """(bias_smem, bytes): the bias in shared memory when it fits a block
-    (it saves the L2 reads of every window), else read from L2; None when
-    neither fits."""
-    for bias_smem in (True, False):
-        need = plan_bytes(n, d, backward, bias_smem)
+    """(plan flags, bytes) of the first plan that fits a block: the bias in
+    shared memory (it saves the L2 reads of every window), else read from
+    L2; for the backward then dS added into the block's own partial slice
+    (past N = 144 at head dim 32), then also g read from L2 (past N = 144
+    at 64, N = 64 at 128). None when no plan fits (K5 and K6 refuse the
+    same shapes: N = 256 at head dim 128)."""
+    for plan in BACKWARD_PLANS if backward else FORWARD_PLANS:
+        need = plan_bytes(n, d, backward, plan)
         if need <= SMEM_LIMIT:
-            return bias_smem, need
+            return plan, need
     return None
 
 
@@ -227,7 +240,7 @@ def _check_layout(q, k, v, bias_hnn, regions, g=None):
 
 def _check_inputs(q, k, v, bias_hnn, regions, g=None):
     """What the kernels take: ``_check_layout``, CUDA tensors and the
-    kernels' limits; returns (BW, N, H, D, nW, ld, (bias_smem,
+    kernels' limits; returns (BW, N, H, D, nW, ld, (plan flags,
     shared-memory bytes))."""
     for t in (q, k, v, bias_hnn, regions) + ((g,) if g is not None else ()):
         if not t.is_cuda:
@@ -240,7 +253,8 @@ def _check_inputs(q, k, v, bias_hnn, regions, g=None):
                          f'{MAX_N} / {MAX_D}')
     plan = smem_plan(n, d, g is not None)
     if plan is None:
-        need = plan_bytes(n, d, g is not None, False)
+        need = plan_bytes(n, d, g is not None,
+                          BACKWARD_PLANS[-1] if g is not None else 0)
         raise ValueError(f'N {n}, head dim {d} need {need} bytes of shared '
                          f'memory, more than a block has ({SMEM_LIMIT})')
     if bw * n * ld >= 2 ** 31 or bw * n * 3 * c >= 2 ** 31:
@@ -274,6 +288,17 @@ def window_attention_forward_cuda(q, k, v, bias_hnn, regions, scale):
 window_attention_forward_cuda.launches = 0
 
 
+def padded_heads(g, h):
+    """(BW, N, C) -> the zero-padded (BW, NR, H, D32) copy that K6 reads g
+    from under G_GLOBAL: rows to NR = 8 * key_tiles(N), a head's columns to
+    D32 = D rounded up to 32."""
+    bw, n, c = g.shape
+    d = c // h
+    out = g.new_zeros((bw, 8 * key_tiles(n), h, -(-d // 32) * 32))
+    out[:, :n, :, :d] = g.view(bw, n, h, d)
+    return out
+
+
 def window_attention_backward_cuda(q, k, v, bias_hnn, regions, scale, g):
     """K6 backward kernel: (dqkv (BW, N, 3C) = dq | dk | dv, dbias (H, N,
     N) summed over the windows)."""
@@ -285,6 +310,8 @@ def window_attention_backward_cuda(q, k, v, bias_hnn, regions, scale, g):
     partial = torch.empty((groups, h, n, n), dtype=torch.float32,
                           device=q.device)
     dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
+    if plan[0] & G_GLOBAL:
+        g = padded_heads(g, h)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.swin_attention_backward(

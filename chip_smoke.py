@@ -54,8 +54,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 8. swin kernels - the Swin window attention pair K5/K6 against its plain
                versions (alone, through its registered torch op, and K6
                against autograd through the plain forward) at Swin-L's
-               stage-0 (shifted) and stage-2 shapes, Swin-T's window 7 and a
-               ragged small case; times at both Swin-L shapes beside the
+               stage-0 (shifted) and stage-2 shapes, Swin-T's stage 0 and 2
+               at 1024x1024 and batch 4 (N = 49, padded maps, shifted),
+               windows 14 and 16 at Swin-L's stage 2 (N = 196 and 256: K6
+               adds dS into its partial slice), Swin-T's window 7 at 224 and
+               a ragged small case; times at the timed shapes beside the
                bound (at the fp32 rate, and with the products in 3xTF32 on
                the tensor cores) and beside torch's
                scaled_dot_product_attention as a yardstick. The kernels
@@ -162,8 +165,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                the BN running statistics (1e-4); run_evaluation of the
                files phase's checkpoint at batch 1 (score_thr 0: 100
                detections an image) in two gloo ranks and in one fresh
-               process: rank 0's gathered per-image results and metrics
-               equal the one process's, rank 1 returns {}.
+               process, cuDNN off in both (its algorithm choice follows
+               each process's free cache): rank 0's gathered per-image
+               results and metrics equal the one process's, rank 1
+               returns {}. The phase first returns this process's cached
+               memory to the card and prints the card's memory.
 21b. ddp swin-l - Box2Mask Swin-L at full width, two gloo ranks on the one
                card at batch 1 against one process at batch 2 on the two
                JPEGs, 2 SGD steps: losses (rtol 1e-4) and grad norm (1e-3),
@@ -188,7 +194,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                Swin-L, one boxinstseg::window_attention a block (24); the
                loaded program launches K4f and K5 that many times, and its
                outputs (and BoxInst's) equal the eager model's within the
-               kernels' tolerance; export seconds and .pt2 MB.
+               kernels' tolerance; export seconds and .pt2 MB. DiscoBox
+               R-50 exported from seed 0 at 800x1344 under its fp16 key,
+               which the export does not apply: the loaded program equals
+               eager fp32 predict.
                tools/analysis_tools/benchmark_torch.py (BoxInst and
                Box2Mask R-50 predict, BoxInst --train at batch 2: medians,
                min, max, peak GiB, the card) and get_flops_torch.py (the
@@ -240,15 +249,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                the small CondInst's forward and loss exported on the card
                (apis.export.export_loss), run and differentiated: one K1
                and one K2 launch, losses equal to eager.
+21g. configs - every shipped config not run as shipped before (the 17 of
+               SHIPPED_UNRUN: BoxInst R-101 1x / 3x, R-50 3x and the three
+               VOC configs; BoxLevelset R-101 and the three VOC configs;
+               DiscoBox R-101 and the two VOC configs; Box2Mask R-101, the
+               two VOC configs and Swin-T window 7) at full width and depth
+               from random init (seed 0), in its own precision, built from
+               its shipped file with only the runner (2 iterations), the
+               log interval (1) and the seeded synthetic dataset at its
+               train pipeline's size and its own samples_per_gpu: each
+               step's ms, peak GiB, live GT count and hand-kernel launches
+               (exactly config_kernels': K1/K2 for BoxInst, K7 for
+               DiscoBox, MSDA, LCM and LSA for Box2Mask, K5/K6 once a block
+               on Swin-T, none for BoxLevelset), the losses finite; then
+               predict at batch 1 on its test canvas, outputs finite.
+21h. voc cli - BoxInst R-50 1x VOC and Box2Mask R-50 VOC through
+               tools/train_torch.py (2 steps) and tools/test_torch.py
+               --eval segm (batch 1) on the files phase's JPEGs relabelled
+               into PascalVOCDataset's 20 classes in a cocostyle json:
+               finite metrics.
 
 Every training phase logs every step (log_config.interval=1), so that each
 step's logged time ends in a device sync, and runs without evaluation
 (--no-validate). The device phase also says which of PIL, imageio and
-libnvjpeg the machine has. Phases 1-19 never import cv2; 20-21c read
-the JPEGs with it.
+libnvjpeg the machine has. Phases 1-19 never import cv2; 20-21c and 21h
+read the JPEGs with it.
 
-Prints a JSON line with one entry per kernel, the card's nvidia-smi line,
-and as its last line {"ok": true, "device": {...}}.
+Prints the LSA report line, the configs line (each config's step ms and
+the hand kernels' launches over the configs phase), a JSON line with one
+entry per kernel, the card's nvidia-smi line, and as its last line
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --cards 4
 
@@ -333,11 +363,20 @@ KERNEL_ATOL, KERNEL_RTOL = 1e-5, 1e-4
 # Swin window attention (K5/K6) at (hp, wp, window, shift, images, heads,
 # head dim, random region ids): Swin-L at 1024x1024, stage 0 (a shifted
 # block, 484 windows of 144 tokens, 6 heads) and stage 2 (36 windows, 24
-# heads); Swin-T's window 7; a ragged small case with three region ids. K5
-# and K6 are held to KERNEL_ATOL / KERNEL_RTOL; dbias sums the windows in a
-# fixed order (no atomics).
+# heads); Swin-T (the configs phase's box2mask_swin-t) at 1024x1024 and its
+# batch of 4, stage 0 (256 tokens a side padded to 259: 4 x 37 x 37 windows
+# of 49, 3 heads) and stage 2 (64 padded to 70: 4 x 100 windows, 12 heads),
+# both shifted; windows 14 and 16 at Swin-L's stage-2 map and heads (N =
+# 196 and 256, where K6 adds dS straight into its partial slice); Swin-T's
+# window 7 at 224x224; a ragged small case with three region ids. K5 and K6
+# are held to KERNEL_ATOL / KERNEL_RTOL; dbias sums the windows in a fixed
+# order (no atomics).
 SWIN_MAIN = {'stage 0': (264, 264, 12, 6, 1, 6, 32, 0),
-             'stage 2': (72, 72, 12, 0, 1, 24, 32, 0)}
+             'stage 2': (72, 72, 12, 0, 1, 24, 32, 0),
+             'Swin-T stage 0': (259, 259, 7, 3, 4, 3, 32, 0),
+             'Swin-T stage 2': (70, 70, 7, 3, 4, 12, 32, 0),
+             'window 14': (70, 70, 14, 7, 1, 24, 32, 0),
+             'window 16': (64, 64, 16, 8, 1, 24, 32, 0)}
 SWIN_RAGGED = {'Swin-T window 7': (56, 56, 7, 3, 2, 3, 32, 0),
                'ragged': (8, 12, 4, 0, 2, 2, 8, 3)}
 SWIN_REF_RTOL = 1e-3   # backbone gradients card vs CPU, relative L2 error
@@ -376,6 +415,8 @@ DDP_LOSS_RTOL = 1e-4               # 2 gloo ranks vs one process, the card
 DDP_GRAD_RTOL = 1e-3
 DDP_BN_RTOL, DDP_BN_ATOL = 1e-4, 1e-6
 DDP_LIMIT = 900                    # seconds for one set of child processes
+EVAL_FLIP_SHARE = 1e-6             # 2 ranks vs one process: mask pixels that
+                                   # may differ, a share of all compared
 CARD_BOXES = (1, 6, 3, 8, 2, 5, 4, 7)  # the cards phase's images, a rank each
 ADJOINT_RTOL = 1e-5                # <A x, y> vs <x, A^T y>, float64 sums
 # the public surface phase: the demos on the files phase's landscape JPEGs
@@ -3311,6 +3352,20 @@ def time_p3_heads(model):
           '2): ' + ', '.join(out))
 
 
+def card_memory(where):
+    """Print the card's free memory, this process's reserved memory and
+    each process's use by nvidia-smi."""
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    apps = subprocess.run(['nvidia-smi', '--query-compute-apps=pid,used_memory',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True).stdout.strip().replace('\n', '; ')
+    print(f'card memory {where}: {free / 2**30:.3f} of {total / 2**30:.3f} '
+          f'GiB free, this process (pid {os.getpid()}) reserves '
+          f'{torch.cuda.memory_reserved() / 2**30:.3f} GiB; nvidia-smi: '
+          f'{apps}', flush=True)
+
+
 def release_cache():
     """Return this process's cached, unused device memory to the card
     (the child processes of the data-parallel phases need it) and print
@@ -3891,6 +3946,24 @@ def check_ranks_against_one(ranks, one, what):
         f'rank {ranks[-1]["launches"]}')
 
 
+def result_gaps(want, got):
+    """Where two lists of per-image result dicts differ: (image, key,
+    largest difference or 'length') for each differing entry."""
+    import numpy as np
+    gaps = [('images', len(want), len(got))] if len(want) != len(got) else []
+    for i, (w, g) in enumerate(zip(want, got)):
+        for k in sorted(set(w) | set(g)):
+            if w.get(k) == g.get(k):
+                continue
+            try:
+                d = float(np.abs(np.asarray(w[k], float)
+                                 - np.asarray(g[k], float)).max())
+            except (KeyError, TypeError, ValueError):
+                d = 'length'
+            gaps.append((i, k, d))
+    return gaps[:12]
+
+
 def check_eval_gather(work_dir, files, checkpoint, narrow, device, world,
                       mode):
     """run_evaluation of ``checkpoint`` at batch 1 (score_thr 0) over the
@@ -3912,15 +3985,55 @@ def check_eval_gather(work_dir, files, checkpoint, narrow, device, world,
              f'{one}')
     with open(outs[0]) as f, open(outs[1]) as g:
         results = [json.load(f), json.load(g)]
-    if results[0] != results[1]:
-        fail(f'the {world} ranks\' gathered per-image results differ from '
-             f'one process\'s')
+    flips = mask_flips(*results, world)
+    off, total = pixels_apart(flips, results[0])
+    if off > EVAL_FLIP_SHARE * total:
+        fail(f'the {world} ranks\' masks differ from one process\'s in {off} '
+             f'of {total} pixels (images {sorted(flips)}), more than '
+             f'EVAL_FLIP_SHARE {EVAL_FLIP_SHARE}')
     n_det = sum(len(r['bboxes']) for r in results[0])
     print(f'run_evaluation in {world} ranks ({mode}; {len(results[0])} JPEGs, '
           f'batch 1, rank 0 gathers) against one fresh process: the same '
-          f'{n_det} detections image by image, the same metrics (bbox mAP '
-          f'{one["bbox_mAP"]}, segm mAP {one["segm_mAP"]}); the other ranks '
-          f'{{}}')
+          f'{n_det} detections image by image (boxes, scores, labels), the '
+          f'same metrics (bbox mAP {one["bbox_mAP"]}, segm mAP '
+          f'{one["segm_mAP"]}); masks equal but {off} of {total} pixels in '
+          f'{sum(len(v) for v in flips.values())} masks of images '
+          f'{sorted(flips)} (at most {EVAL_FLIP_SHARE} of them may differ); '
+          f'the other ranks {{}}')
+
+
+def mask_flips(want, got, world):
+    """One process's per-image results against the ranks' gathered ones:
+    every field but the masks equal, as many masks; returns {image: [(the
+    detection, its mask from one process, from the ranks)]} for the masks
+    that differ."""
+    if len(want) != len(got):
+        fail(f'the {world} ranks gathered {len(got)} images, one process '
+             f'{len(want)}')
+    flips = {}
+    for i, (w, g) in enumerate(zip(want, got)):
+        rest = [k for k in set(w) | set(g) if k != 'masks'
+                and w.get(k) != g.get(k)]
+        if rest or len(w['masks']) != len(g['masks']):
+            fail(f'the {world} ranks\' gathered per-image results differ '
+                 f'from one process\'s: {result_gaps(want, got)}')
+        apart = [(j, a, b) for j, (a, b) in enumerate(zip(w['masks'],
+                                                          g['masks']))
+                 if a != b]
+        if apart:
+            flips[i] = apart
+    return flips
+
+
+def pixels_apart(flips, results):
+    """The pixels where the masks of ``mask_flips`` differ, and the pixels
+    of every mask of ``results``."""
+    import numpy as np
+    from boxinstseg_tpu_torch.data.coco_api import rle_decode
+    off = sum(int(np.count_nonzero(rle_decode(a) != rle_decode(b)))
+              for apart in flips.values() for _, a, b in apart)
+    total = sum(int(np.prod(m['size'])) for r in results for m in r['masks'])
+    return off, total
 
 
 def phase_ddp(work_dir, files, pair, slice_ms, checkpoint, device='cuda',
@@ -3939,6 +4052,9 @@ def phase_ddp(work_dir, files, pair, slice_ms, checkpoint, device='cuda',
     narrow = (narrow or {}).get(CONFIG, [])
     opts = ['runner.type=IterBasedRunner', 'log_config.interval=1',
             'model.mask_head.pairwise_warmup=1', *narrow]
+    if device == 'cuda':
+        card_memory('before the ddp children')
+        release_cache()      # the files phase's cache: the children need it
     medians, _ = time_launches(work_dir, files, opts, device, (
         ('none', 1), ('pytorch', 1), ('pytorch', 1), ('none', 1)))
     print('in turns (none, pytorch, pytorch, none): medians one process '
@@ -4283,7 +4399,8 @@ def phase_public_surface(work_dir, files, files_checkpoint, checkpoint,
     del plain, accel, model
 
     # 3. BoxInst from the slice's checkpoint, evaluated as the eval phase;
-    # 4. Box2Mask R-50 and Swin-L from seed 0
+    # 4. Box2Mask R-50, Swin-L and DiscoBox R-50 from seed 0 (DiscoBox
+    # under its fp16 key, exported in fp32: against eager fp32 predict)
     export = load_script('tools/deployment/export_model_torch.py')
     gen = torch.Generator(device=device).manual_seed(0)
     counters = {'msda_forward': msda.msda_forward_cuda,
@@ -4291,8 +4408,10 @@ def phase_public_surface(work_dir, files, files_checkpoint, checkpoint,
     params = {}
     for name, config, ckpt, opts in (
             ('boxinst', CONFIG, [checkpoint], EVAL_OPTS),
-            ('box2mask', B2M_CONFIG, [], ()), ('swin-l', SWIN_CONFIG, [], ())):
-        h, w = canvases.get(config, BOXINST_CANVAS if config == CONFIG
+            ('box2mask', B2M_CONFIG, [], ()), ('swin-l', SWIN_CONFIG, [], ()),
+            ('discobox', DISCO_CONFIG, [], ())):
+        h, w = canvases.get(config, BOXINST_CANVAS
+                            if config in (CONFIG, DISCO_CONFIG)
                             else B2M_CANVAS)
         pt2 = os.path.join(work_dir, f'{name}.pt2')
         res = export.main([config, *ckpt, '--output-file', pt2, '--shape',
@@ -4330,6 +4449,8 @@ def phase_public_surface(work_dir, files, files_checkpoint, checkpoint,
             fail(f'{name}: outputs {sorted(got)} vs {sorted(want)}')
         diffs = {k: check_close(f'{name} {k}', got[k], want[k])
                  for k in want}
+        if name == 'discobox' and load_config(config).get('fp16') is None:
+            fail('the DiscoBox config lost its fp16 key')
         print(f'{name} exported in {res["seconds"]:.3f} s at {h}x{w}, batch '
               f'1 ({res["bytes"] / 1e6:.3f} MB .pt2): boxinstseg ops '
               f'{res["ops"] or "none"}; launches while the loaded program '
@@ -5118,6 +5239,309 @@ def phase_ops():
               f'{k} {got[k].item():.6g}' for k in eager))
 
 
+# ------------------------------------------------------------- configs
+
+# every shipped config that ran on the card only under options (or not at
+# all) before, in this order; each trains CONFIGS_STEPS steps as shipped
+# (the runner, the log interval and the synthetic dataset apart) and
+# predicts once. Their hand kernels a step follow from the model
+# (``config_kernels``).
+SHIPPED_UNRUN = (
+    'boxinst/boxinst_r101_fpn_1x_coco.py',
+    'boxinst/boxinst_r101_fpn_3x_coco.py',
+    'boxinst/boxinst_r50_fpn_3x_coco.py',
+    'boxinst/boxinst_r50_fpn_3x_voc.py',
+    'boxinst/boxinst_r50_fpn_1x_voc.py',
+    'boxinst/boxinst_r101_fpn_3x_voc.py',
+    'boxlevelset/box_levelset_coco_r101_fpn_3x.py',
+    'boxlevelset/box_levelset_voc_r50_fpn_3x.py',
+    'boxlevelset/box_levelset_voc_r101_fpn_3x.py',
+    'boxlevelset/box_levelset_voc_r50_fpn_1x_640.py',
+    'discobox/discobox_solov2_coco_r101_fpn_3x.py',
+    'discobox/discobox_solov2_voc_r50_fpn_3x.py',
+    'discobox/discobox_solov2_voc_r101_fpn_3x.py',
+    'box2mask/box2mask_r101_lsj_8x2_50e_coco.py',
+    'box2mask/box2mask_r50_lsj_8x2_50e_voc.py',
+    'box2mask/box2mask_r101_lsj_8x2_50e_voc.py',
+    'box2mask/box2mask_swin-t-p4-w7-224_lsj_8x2_50e_coco.py')
+CONFIGS_STEPS = 2
+# the VOC configs that also run end to end through the CLIs, on the files
+# phase's JPEGs relabelled into PascalVOCDataset's classes
+VOC_CLI = ('boxinst/boxinst_r50_fpn_1x_voc.py',
+           'box2mask/box2mask_r50_lsj_8x2_50e_voc.py')
+
+
+def kernel_counters():
+    """Every hand kernel's wrapper by the name of its launch count."""
+    from boxinstseg_tpu_torch.ops import crf, lcm, lsa, msda
+    from boxinstseg_tpu_torch.ops import pairwise as pw
+    from boxinstseg_tpu_torch.ops import swin_attention as swa
+    return {'pairwise_forward': pw.pairwise_forward_cuda,
+            'pairwise_backward': pw.pairwise_grad_cuda,
+            'msda_forward': msda.msda_forward_cuda,
+            'msda_backward': msda.msda_backward_cuda,
+            'lcm_forward': lcm.lcm_forward_cuda,
+            'lcm_adjoint': lcm.lcm_adjoint_cuda,
+            'swin_attention_forward': swa.window_attention_forward_cuda,
+            'swin_attention_backward': swa.window_attention_backward_cuda,
+            'crf_mean_field': crf.crf_mean_field_cuda,
+            'lsa_solve': lsa.solve_lsa_cuda}
+
+
+def config_kernels(cfg):
+    """The hand kernels' launches a training step of ``cfg``'s model (the
+    rest launch 0 times): BoxInst's pairwise pair; DiscoBox's CRF;
+    Box2Mask's MSDA pair (one launch an encoder layer each way), the LCM
+    pair, the LSA solve and, on a Swin, K5 and K6 once a block;
+    BoxLevelset none."""
+    m = cfg.model
+    if m.type == 'CondInst':
+        return {'pairwise_forward': 1, 'pairwise_backward': 1}
+    if m.type in ('DiscoBoxSOLOv2', 'SingleStageWSInsTSDetector'):
+        return {'crf_mean_field': 1}
+    if 'panoptic_head' in m:
+        layers = m.panoptic_head.pixel_decoder.num_encoder_layers
+        out = {'msda_forward': layers, 'msda_backward': layers,
+               'lcm_forward': 1, 'lcm_adjoint': 1, 'lsa_solve': 1}
+        if m.backbone.type == 'SwinTransformer':
+            blocks = sum(m.backbone.depths)
+            out.update(swin_attention_forward=blocks,
+                       swin_attention_backward=blocks)
+        return out
+    return {}
+
+
+def model_classes(cfg):
+    head = cfg.model.get('panoptic_head') or cfg.model.bbox_head
+    return head.get('num_things_classes') or head.num_classes
+
+
+def synthetic_size(cfg):
+    """(h, w) of the synthetic train images: the largest image the train
+    pipeline's Resize gives (its longest side and largest short side), or
+    Box2Mask's LSJ crop (1024x1024)."""
+    for t in cfg.data.train.pipeline:
+        if t['type'] == 'RandomCrop':
+            return tuple(t['crop_size'])
+    for t in cfg.data.train.pipeline:
+        if t['type'] == 'Resize':
+            scales = t['img_scale']
+            scales = [scales] if isinstance(scales[0], int) else scales
+            return (max(min(s) for s in scales), max(max(s) for s in scales))
+    fail('no Resize in the train pipeline')
+
+
+@contextlib.contextmanager
+def per_step(counters):
+    """Each training step's hand-kernel launches, peak memory and live GT
+    count: a snapshot at every step's batch copy (the step before it has
+    synced in its log) and one on exit; the counts start at 0."""
+    import torch
+    from boxinstseg_tpu_torch.apis import train
+    to_device = train.batch_to_device
+    marks, gts, peaks = [], [], []
+
+    def snapshot():
+        marks.append({name: fn.launches for name, fn in counters.items()})
+
+    def counted(batch, device):
+        if marks:
+            peaks.append(torch.cuda.max_memory_allocated())
+        snapshot()
+        torch.cuda.reset_peak_memory_stats()
+        gts.append(int(batch['gt_valid'].sum()))
+        return to_device(batch, device)
+    for fn in counters.values():
+        fn.launches = 0
+    train.batch_to_device = counted
+    steps = []
+    try:
+        yield steps
+    finally:
+        train.batch_to_device = to_device
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated())
+    snapshot()
+    for i, gt in enumerate(gts):
+        steps.append(dict(gts=gt, peak=peaks[i], launches={
+            k: marks[i + 1][k] - marks[i][k] for k in counters}))
+
+
+def predict_once(cfg, model):
+    """``predict_batch`` (the config's precision) on one synthetic image
+    at batch 1 on the test canvas, a host batch as ``eval_batcher`` gives
+    it: the outputs' shapes, all finite, and the call's ms (host clock,
+    the copy to the card included, ending in a device sync); the kernels'
+    launches within."""
+    import numpy as np
+    import torch
+    from boxinstseg_tpu_torch.apis.test import predict_batch
+    from boxinstseg_tpu_torch.apis.train import apply_precision_policy
+    h, w = cfg.canvases[0]
+    rng = np.random.RandomState(1)
+    img, _ = synthetic_image(rng, h, w)
+    mean = np.array(cfg.img_norm_cfg['mean'], np.float32)
+    std = np.array(cfg.img_norm_cfg['std'], np.float32)
+    x = (img[..., ::-1].astype(np.float32) - mean) / std
+    batch = dict(image=x[None], img_shape=np.array([[h, w]], np.int32),
+                 scale_factor=np.ones((1, 4), np.float32))
+    model.eval()
+    with launches_of(kernel_counters()) as launches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = predict_batch(model, batch, apply_precision_policy(cfg))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    for k, v in out.items():
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            fail(f'predict: non-finite {k}')
+    return ms, {k: tuple(v.shape) for k, v in out.items()}, {
+        k: n for k, n in launches.items() if n}
+
+
+def phase_configs(tool, work_dir):
+    """Each config of SHIPPED_UNRUN at full width and depth from random
+    init (seed 0), in its own precision, as shipped but for the runner
+    (CONFIGS_STEPS iterations), log_config.interval=1 and the seeded
+    synthetic dataset at the train pipeline's size and the config's own
+    samples_per_gpu: each step's ms, peak GiB, live GT count and
+    hand-kernel launches (which must be ``config_kernels``'), the loss
+    dict finite; then one predict at batch 1. Returns the launches summed
+    over the phase and each config's step ms."""
+    import torch
+    from boxinstseg_tpu_torch.apis.train import default_canvases
+    register_dataset()
+    counters = kernel_counters()
+    total = dict.fromkeys(counters, 0)
+    summary = {}
+    built = []
+    build_model = tool.build_model
+
+    def keep(cfg, seed):
+        built.append(build_model(cfg, seed))
+        return built[-1]
+    tool.build_model = keep
+    try:
+        with no_scipy_lsa():
+            for rel in SHIPPED_UNRUN:
+                config = os.path.join(ROOT, 'configs', rel)
+                name = os.path.basename(rel)[:-3]
+                base = tool.load_config(config)
+                h, w = synthetic_size(base)
+                opts = ['runner.type=IterBasedRunner',
+                        f'runner.max_iters={CONFIGS_STEPS}',
+                        'log_config.interval=1',
+                        'data.train.type=SyntheticBoxDataset',
+                        f'data.train.img_h={h}', f'data.train.img_w={w}',
+                        f'data.train.num_classes={model_classes(base)}']
+                wd = os.path.join(work_dir, f'configs_{name}')
+                cfg = tool.load_config(config, opts, wd, 0)
+                want = config_kernels(cfg)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with per_step(counters) as steps:
+                    result = train_tool(tool, config, wd, 0, opts)
+                seconds = time.perf_counter() - t0
+                check_history(result, CONFIGS_STEPS)
+                model = built[-1]
+                del built[:]
+                step_ms = [1e3 * (hh['time'] - hh['data_time'])
+                           for hh in result.history]
+                print(f'{name}: {describe_backbone(cfg.model.backbone)}, '
+                      f'{cfg.model.type}, {model_classes(cfg)} classes, '
+                      f'batch {cfg.data.samples_per_gpu} '
+                      f'at {h}x{w} (canvases '
+                      f'{cfg.get("canvases", default_canvases(cfg))}), '
+                      f'{cfg.optimizer.type} lr {cfg.optimizer.lr}, '
+                      f'precision '
+                      f'{"bf16" if cfg.get("fp16") or cfg.get("bf16") else "fp32"}'
+                      f'; {seconds:.1f} s with the build')
+                for i, (st, ms) in enumerate(zip(steps, step_ms)):
+                    got = {k: n for k, n in st['launches'].items() if n}
+                    if got != want:
+                        fail(f'{name} step {i + 1}: launches {got}, '
+                             f'expected {want}')
+                    print(f'  step {i + 1}: {ms:.3f} ms, peak '
+                          f'{st["peak"] / 2**30:.3f} GiB, {st["gts"]} GTs, '
+                          f'launches {got or "none"}')
+                    for k, n in st['launches'].items():
+                        total[k] += n
+                print('  losses at step 2: ' + ', '.join(
+                    f'{k} {v:.5f}' for k, v in result.history[-1].items()
+                    if k.startswith('loss')))
+                ms, shapes, launches = predict_once(cfg, model)
+                print(f'  predict at batch 1: {ms:.3f} ms, outputs {shapes}'
+                      f', launches {launches or "none"}')
+                summary[name] = step_ms
+                del model, result
+                shutil.rmtree(wd, ignore_errors=True)
+                release_cache()
+    finally:
+        tool.build_model = build_model
+    return total, summary
+
+
+def voc_files(files, root):
+    """The files phase's JPEGs with their annotations relabelled into
+    PascalVOCDataset's 20 classes, in a cocostyle json under ``root``:
+    (ann_file, img_prefix)."""
+    from boxinstseg_tpu_torch.data.coco import PascalVOCDataset
+    classes = PascalVOCDataset.CLASSES
+    with open(files[0]) as f:
+        coco = json.load(f)
+    for a in coco['annotations']:
+        a['category_id'] = (a['category_id'] - 1) % len(classes) + 1
+    coco['categories'] = [dict(id=i + 1, name=n)
+                          for i, n in enumerate(classes)]
+    os.makedirs(root, exist_ok=True)
+    ann_file = os.path.join(root, 'voc_cocostyle.json')
+    with open(ann_file, 'w') as f:
+        json.dump(coco, f)
+    return ann_file, files[1]
+
+
+def phase_voc_cli(tool, work_dir, files):
+    """The VOC_CLI configs end to end through the CLIs on the JPEGs as
+    PascalVOCDataset: tools/train_torch.py for CONFIGS_STEPS steps (the
+    hand kernels of ``config_kernels`` each step), then
+    tools/test_torch.py --eval segm at batch 1 on the same images: finite
+    metrics."""
+    voc = voc_files(files, os.path.join(work_dir, 'voc'))
+    for rel in VOC_CLI:
+        config = os.path.join(ROOT, 'configs', rel)
+        name = os.path.basename(rel)[:-3]
+        wd = os.path.join(work_dir, f'voc_{name}')
+        opts = ['runner.type=IterBasedRunner',
+                f'runner.max_iters={CONFIGS_STEPS}', 'log_config.interval=1',
+                *file_opts(voc, 'train')]
+        with launches_of(kernel_counters()) as launches:
+            result = train_tool(tool, config, wd, 0, opts)
+        check_history(result, CONFIGS_STEPS)
+        want = {k: n * CONFIGS_STEPS for k, n in config_kernels(
+            tool.load_config(config)).items()}
+        if {k: n for k, n in launches.items() if n} != want:
+            fail(f'{name}: launches {launches}, expected {want}')
+        print(f'{name} through tools/train_torch.py on {len(FILE_SHAPES)} '
+              f'JPEGs as PascalVOCDataset: step ms ' + ', '.join(
+                  f'{1e3 * (h["time"] - h["data_time"]):.3f}'
+                  for h in result.history) + '; losses at step 2: ' +
+              ', '.join(f'{k} {v:.5f}' for k, v in
+                        result.history[-1].items() if k.startswith('loss'))
+              + f'; launches {dict((k, n) for k, n in launches.items() if n)}')
+        t0 = time.perf_counter()
+        metrics = load_tool('test_torch').main([
+            config, result.checkpoint, '--device', 'cuda', '--eval', 'segm',
+            '--cfg-options', 'data.samples_per_gpu=1',
+            *file_opts(voc, 'test')])
+        if not metrics or not all(math.isfinite(v)
+                                  for v in metrics.values()):
+            fail(f'{name}: metrics {metrics}')
+        print(f'{name} through tools/test_torch.py --eval segm in '
+              f'{time.perf_counter() - t0:.3f} s: segm mAP '
+              f'{metrics.get("segm_mAP")}')
+        shutil.rmtree(wd, ignore_errors=True)
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -5296,11 +5720,18 @@ def run_phases(tool, work_dir, report, smi, t_start):
     phase('ops')
     phase_ops()
 
+    phase('configs')
+    config_launches, config_ms = phase_configs(tool, work_dir)
+    phase('voc cli')
+    phase_voc_cli(tool, work_dir, files)
+
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     **report[name]) for name in REPLACES]
     print(f'smoke wall time {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'lsa': lsa_report}))
+    print(json.dumps({'configs': {'step_ms': config_ms,
+                                  'launches': config_launches}}))
     print(json.dumps({'kernels': kernels}))
     print(smi[0])
     print(json.dumps({'ok': True, 'device': {

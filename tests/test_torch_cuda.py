@@ -370,7 +370,12 @@ def _swin_inputs(seed, device, hp, wp, ws, shift, images, heads, d,
 # padded to 32 columns), Swin-T's stage 0 at 224x224 (128 windows of 49
 # tokens), Swin-L's stage 1 (121 windows, 12 heads: blocks walk 11 windows)
 # and stage 2 (36 windows over 5 groups: some walk 8, some 7), window 12
-# with random region ids, and head dim 6 (rows copied 4 bytes at a time)
+# with random region ids, and head dim 6 (rows copied 4 bytes at a time);
+# past window 12, where the backward adds dS into its partial slice: window
+# 14 (N = 196) shifted, window 16 (N = 256, Swin-L's stage-2 width) and
+# window 15 (N = 225, odd rows); window 12 at head dim 64 (N = 144, dS into
+# the partial, every operand staged); where it also reads g from L2: window
+# 16 at head dim 64 and window 12 at head dim 128
 @pytest.mark.parametrize('case', [(14, 21, 7, 3, 1, 6, 32, 0),
                                   (8, 12, 4, 0, 2, 2, 8, 3),
                                   (36, 36, 12, 6, 1, 48, 32, 0),
@@ -380,7 +385,13 @@ def _swin_inputs(seed, device, hp, wp, ws, shift, images, heads, d,
                                   (132, 132, 12, 6, 1, 12, 32, 0),
                                   (72, 72, 12, 0, 1, 24, 32, 0),
                                   (24, 36, 12, 0, 2, 4, 32, 5),
-                                  (8, 12, 4, 0, 1, 2, 6, 0)])
+                                  (8, 12, 4, 0, 1, 2, 6, 0),
+                                  (28, 42, 14, 7, 1, 4, 32, 0),
+                                  (32, 32, 16, 8, 1, 3, 32, 0),
+                                  (15, 30, 15, 0, 1, 2, 32, 3),
+                                  (24, 24, 12, 6, 1, 2, 64, 0),
+                                  (32, 16, 16, 0, 2, 2, 64, 0),
+                                  (24, 24, 12, 6, 1, 2, 128, 0)])
 def test_swin_attention_kernels_match_plain(cuda, case):
     qkv, bias, regions, g = _swin_inputs(0, cuda, *case)
     scale = case[6] ** -0.5
@@ -431,12 +442,13 @@ def test_swin_attention_wrappers_reject_what_they_do_not_take(cuda):
                                           regions, 1.0)
     with pytest.raises(ValueError, match='CUDA'):
         swa.window_attention_forward_cuda(q, k, v, bias.cpu(), regions, 1.0)
-    # window 15: N = 225 fits the forward (bias read from L2); the
-    # backward's dbias accumulator does not fit beside its staged operands
-    big = _swin_inputs(3, cuda, 15, 15, 15, 0, 1, 1, 32)
+    # window 16 at head dim 128: N = 256 fits neither kernel's shared
+    # memory (three staged 256 x 132 operands); both refuse it
+    big = _swin_inputs(3, cuda, 16, 16, 16, 0, 1, 1, 128)
     c = big[0].shape[-1] // 3
     qb, kb, vb = big[0][..., :c], big[0][..., c:2 * c], big[0][..., 2 * c:]
-    swa.window_attention_forward_cuda(qb, kb, vb, big[1], big[2], 1.0)
+    with pytest.raises(ValueError, match='shared memory'):
+        swa.window_attention_forward_cuda(qb, kb, vb, big[1], big[2], 1.0)
     with pytest.raises(ValueError, match='shared memory'):
         swa.window_attention_backward_cuda(qb, kb, vb, big[1], big[2], 1.0,
                                            big[3])

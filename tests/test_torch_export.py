@@ -15,7 +15,11 @@
   encoder layer; a tiny Swin Box2Mask's also one
   ``boxinstseg::window_attention`` a Swin block, and its program equals
   eager within atol 1e-6.
-- A precision key raises naming the key.
+- A precision key is not applied to the export, and the log names it
+  once. A tiny DiscoBox exported under the shipped configs' ``fp16`` key
+  gives the program exported with the key removed (fp32, atol 1e-6) and
+  the JAX package's fp32 predict (valid slots as above), as the JAX
+  ``tools/deployment/export_model.py`` exports such a config.
 - The forward and loss of a tiny BoxInst, Box2Mask and DiscoBox (CRF gate
   open), with the JAX package's weights, are exported by
   ``apis.export.export_loss``: the graph holds the loss path's kernels as
@@ -31,6 +35,7 @@
   ``tools/deployment/test_torch.py`` gives on 2 of its images exactly the
   metrics of ``run_evaluation`` with the eager model.
 """
+import logging
 import os
 
 import numpy as np
@@ -49,7 +54,7 @@ from test_box2mask_model import tiny_cfg as tiny_b2m_cfg
 from test_discobox_model import synth_batch as disco_batch
 from test_discobox_model import tiny_cfg as tiny_disco_cfg
 from test_torch_eval import CANVASES, eval_set  # noqa: F401  (fixture)
-from test_torch_predict import compare_valid
+from test_torch_predict import compare_valid, tiny_discobox
 from test_torch_slice import make_batch, randomize_stats, tiny_cfg
 from test_torch_slice import pair as boxinst_pair  # noqa: F401  (fixture)
 from test_torch_slice import torch_batch
@@ -188,13 +193,43 @@ def test_swin_program_holds_the_window_attention_ops(tmp_path):
     assert type(eager['masks_logit']) is torch.Tensor
 
 
-def test_precision_key_raises_naming_it():
+def test_precision_key_raises_naming_it(caplog):
+    """The key no longer stops the export: it is exported in fp32, and one
+    warning names the key."""
     torch.manual_seed(0)
     tm = build_detector(tiny_cfg(1))
-    with pytest.raises(NotImplementedError, match="'fp16'"):
-        tex.export_predict(tm, Config(dict(model=tiny_cfg(1),
-                                           fp16=dict(loss_scale=512.0))),
-                           (128, 160), 1)
+    with caplog.at_level(logging.INFO, logger='boxinstseg_tpu_torch'):
+        program = tex.export_predict(tm, Config(dict(
+            model=tiny_cfg(1), fp16=dict(loss_scale=512.0))), (128, 160), 1)
+    said = [r.getMessage() for r in caplog.records
+            if r.levelno >= logging.WARNING]
+    assert len(said) == 1 and "'fp16'" in said[0] and 'fp32' in said[0]
+    assert isinstance(program, torch.export.ExportedProgram)
+
+
+def test_discobox_exports_under_its_precision_key_in_fp32(tmp_path):
+    jm, v, tm, image = tiny_discobox()
+    b, h, w, _ = image.shape
+    programs = {}
+    for name, keys in (('fp16', dict(fp16=dict(loss_scale=512.0))),
+                       ('fp32', {})):
+        program = tex.export_predict(tm, Config(keys), (h, w), b)
+        path = str(tmp_path / f'discobox_{name}.pt2')
+        torch.export.save(program, path)
+        programs[name] = tex.ExportedDetector(torch.export.load(path))
+    x = torch.from_numpy(np.array(image)).permute(0, 3, 1, 2).contiguous()
+    tb = dict(image=x, img_shape=torch.tensor([[h, w]] * b,
+                                              dtype=torch.int32),
+              scale_factor=torch.ones((b, 4)))
+    with torch.inference_mode():
+        got = programs['fp16'].predict(tb)
+        assert_equal_eager(got, programs['fp32'].predict(tb))
+        assert_equal_eager(got, tm.predict(tb))
+    assert got['masks'].dtype == torch.float32
+    want = jax.device_get(jax.jit(lambda vv, im: jm.apply(
+        vv, {'image': im}, method=jm.predict))(v, image))
+    compare_valid({k: t.numpy() for k, t in got.items()}, want,
+                  ('scores', 'masks'))
 
 
 def test_deployment_test_tool_gives_run_evaluations_metrics(

@@ -3,8 +3,9 @@ Box2Mask predict against the JAX package, on the CPU.
 
 - ``window_attention`` (the plain forward and its explicit backward)
   against the JAX ``window_attention`` with its Pallas kernels K5/K6 run
-  in interpret mode: shifted regions, all-zero regions, N = 16 and 49, and
-  two images a call (BW = 2 nW, the ``bw % nW`` region rows). Forward
+  in interpret mode: shifted regions, all-zero regions, N = 16, 49, 196
+  and 256 (the last two shifted, at head dim 32), and two images a call
+  (BW = 2 nW, the ``bw % nW`` region rows). Forward
   atol/rtol 1e-5 / 1e-4; the four gradients 3e-4, the bound the JAX
   package's own interpret-mode test uses.
 - ``SwinTransformer`` against the JAX one with the same weights
@@ -91,11 +92,16 @@ def _attention_inputs(seed, hp, wp, ws, shift, images, heads, d):
     return arrays, bias, regions
 
 
-# (hp, wp, window, shift, images, heads, head dim)
+# (hp, wp, window, shift, images, heads, head dim); windows 14 and 16 at
+# head dim 32 (N = 196, which the JAX package computes in XLA, and 256, in
+# its kernel) are where K6 adds dS into its partial slice on the card
 @pytest.mark.parametrize('case', [(8, 8, 4, 2, 2, 2, 8),     # shifted
                                   (8, 12, 4, 0, 2, 2, 8),    # regions 0
-                                  (14, 14, 7, 3, 2, 3, 8)],  # N = 49
-                         ids=['shifted', 'unshifted', 'window7'])
+                                  (14, 14, 7, 3, 2, 3, 8),   # N = 49
+                                  (28, 28, 14, 7, 1, 2, 32),  # N = 196
+                                  (32, 32, 16, 8, 1, 2, 32)],  # N = 256
+                         ids=['shifted', 'unshifted', 'window7', 'window14',
+                              'window16'])
 def test_window_attention_matches_interpret_kernel(interpret, case):
     (q, k, v, g), bias, regions = _attention_inputs(0, *case)
     assert (regions.max() > 0) == (case[3] > 0)

@@ -15,8 +15,9 @@ kernels stay in the graph as the ops ``boxinstseg::msda_forward`` and
 kernels there. Load it with ``torch.export.load`` after importing
 ``boxinstseg_tpu_torch`` (which registers the ops);
 ``tools/deployment/test_torch.py`` evaluates it. A config with a precision
-key (bf16 autocast) raises naming the key. ``--device`` is ``cuda`` by
-default (and raises without a card).
+key (bf16 autocast in evaluation) is exported in fp32, as
+``tools/deployment/export_model.py`` exports it; the log names the key.
+``--device`` is ``cuda`` by default (and raises without a card).
 """
 import argparse
 import os
