@@ -26,7 +26,8 @@ iteration)``, in ``train()``) at one batch into a program that takes the
 batch dict and returns the loss dict. The loss path's kernels stay single
 nodes there too: ``boxinstseg::pairwise_forward`` / ``pairwise_backward``
 (BoxInst), ``lcm_forward``, ``solve_lsa`` and ``msda_forward`` (Box2Mask),
-``crf_mean_field`` (DiscoBox), and the host MST solve ``grid_mst``.
+``crf_mean_field`` (DiscoBox), and the grid MST ``grid_mst`` (BoxLevelset,
+Box2Mask).
 """
 from __future__ import annotations
 

@@ -207,7 +207,8 @@ class Box2MaskHead(nn.Module):
         mask_preds = [torch.einsum('bqc,bchw->bqhw', me, mask_feature)
                       for me in outs['mask_embeds']]
 
-        # the Hungarian match of all decoder outputs: one host solve
+        # the Hungarian match of all decoder outputs: one LSA solve on the
+        # costs' device (the LSA kernel on the card)
         with torch.no_grad():
             costs = torch.stack([
                 cls_cost_w * classification_cost(cp, k_labels)

@@ -5,7 +5,9 @@
     w_e = exp(-||g_a - g_b||^2 / sigma) (sigma only for the low-level tree),
     Z_i the same aggregation of ones,
 
-over the minimum spanning tree of the guide (``ops.mst``). Both tree passes
+over the minimum spanning tree of the guide (``ops.mst``: on the card the
+CUDA kernel of ``csrc/mst.cu``, with no copy to the host; ``grid_mst_pair``
+solves both guides' trees in one launch). Both tree passes
 run in ``ceil(log2(max(max_depth, 2))) + 1`` pointer-doubling rounds, as in
 the JAX package, so a depth cap that binds gives the same numbers. The
 indices are plain int64 (the JAX package's int32 bit-packed pointer tables

@@ -47,8 +47,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                backward an encoder layer) times the step count. The
                Hungarian match goes through the LSA kernel (csrc/lsa.cu),
                one launch a step for all 10 x 2 problems, with scipy's
-               linear_sum_assignment replaced by a function that raises.
-               Each step's time is printed beside its live GT count.
+               linear_sum_assignment replaced by a function that raises;
+               the tree filter's two trees an image through the grid MST
+               kernel (csrc/mst.cu), one launch a step. Each step's time is
+               printed beside its live GT count.
 7. box2mask reference - a small Box2Mask's loss dict on the card against the
                CPU.
 8. swin kernels - the Swin window attention pair K5/K6 against its plain
@@ -129,11 +131,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                on seeded synthetic 800x1333 images, batch 2, fp32, a
                checkpoint every 2 steps with the newest 2 kept (steps 4 and
                5 must be left); a resume from step 4 must run one step and
-               leave _iter 5. Then the checkpoint through init_detector and
+               leave _iter 5; the grid MST kernel once a step in both runs.
+               Then the checkpoint through init_detector and
                predict on one 800x1333 image, format_detection and RLE,
                times as in 14, the card's formatting against the CPU's.
 19. boxlevelset reference - a small BoxLevelSet's loss dict and predict on
                the card against the CPU.
+19b. mst kernel - the grid MST kernel (no pl.pallas_call: it replaces
+               boxinstseg_tpu/ops/mst.py:501 grid_mst_device, which the JAX
+               BoxLevelset and Box2Mask steps run on the device) against its
+               plain version on the card and scipy's MST on the host
+               (tests/mst_witness.py), parent and depth equal element for
+               element, at the Box2Mask R-50 and BoxLevelset R-50 steps' own
+               weights (2 x 2 trees of 96x96 each), flat-block ties at 8
+               trees (Swin-T's batch 4) and distinct random weights under a
+               binding depth cap; Boruvka rounds and tree heights; the
+               kernel's, the plain version's and the old host path's (copy,
+               scipy, copy back) times in turns, the bound. Its report is a
+               JSON line of its own before the kernels line.
 20. files    - 8 JPEGs (cv2.imwrite, synthetic_image scenes at 800x1333
                and 1333x800) and a COCO json with polygon ground truth:
                BoxInst R-50 1x and BoxLevelset R-50 3x at full width, each
@@ -165,10 +180,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                the BN running statistics (1e-4); run_evaluation of the
                files phase's checkpoint at batch 1 (score_thr 0: 100
                detections an image) in two gloo ranks and in one fresh
-               process, cuDNN off in both (its algorithm choice follows
-               each process's free cache): rank 0's gathered per-image
-               results and metrics equal the one process's, rank 1
-               returns {}. The phase first returns this process's cached
+               process, each allowed EVAL_MEMORY_FRACTION of the card (so
+               that cuDNN keeps the same engines in all three): rank 0's
+               gathered per-image results (masks too) and metrics equal
+               the one process's, rank 1 returns {}. The phase first returns this process's cached
                memory to the card and prints the card's memory.
 21b. ddp swin-l - Box2Mask Swin-L at full width, two gloo ranks on the one
                card at batch 1 against one process at batch 2 on the two
@@ -241,7 +256,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                |cpu|, integer and boolean outputs equal; the card's ms.
 21f. ops     - the loss path's kernels as registered torch ops
                (boxinstseg::pairwise_forward / pairwise_backward,
-               lcm_forward / lcm_adjoint, crf_mean_field, solve_lsa):
+               lcm_forward / lcm_adjoint, crf_mean_field, solve_lsa,
+               grid_mst):
                torch.library.opcheck of each on the card at small shapes;
                each op against its plain version at the main path's
                shapes (the kernels' tolerances), its time through the op
@@ -260,8 +276,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                train pipeline's size and its own samples_per_gpu: each
                step's ms, peak GiB, live GT count and hand-kernel launches
                (exactly config_kernels': K1/K2 for BoxInst, K7 for
-               DiscoBox, MSDA, LCM and LSA for Box2Mask, K5/K6 once a block
-               on Swin-T, none for BoxLevelset), the losses finite; then
+               DiscoBox, MSDA, LCM, LSA and the MST for Box2Mask, K5/K6 once
+               a block on Swin-T, the MST for BoxLevelset), the losses
+               finite; then
                predict at batch 1 on its test canvas, outputs finite.
 21h. voc cli - BoxInst R-50 1x VOC and Box2Mask R-50 VOC through
                tools/train_torch.py (2 steps) and tools/test_torch.py
@@ -275,10 +292,17 @@ step's logged time ends in a device sync, and runs without evaluation
 libnvjpeg the machine has. Phases 1-19 never import cv2; 20-21c and 21h
 read the JPEGs with it.
 
-Prints the LSA report line, the configs line (each config's step ms and
-the hand kernels' launches over the configs phase), a JSON line with one
-entry per kernel, the card's nvidia-smi line, and as its last line
+Prints the LSA and MST report lines, the configs line (each config's step
+ms and the hand kernels' launches over the configs phase), a JSON line with
+one entry per kernel, the card's nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --cudnn-log DIR
+
+runs every phase as above and has cuDNN log its API calls (level 3) in the
+ddp phase's evaluation processes, one gzip file a process under DIR, each
+side's name in it (one process, or rank r of 2), beside each process's
+free card memory before and after its evaluation.
 
     python3 chip_smoke.py --cards 4
 
@@ -303,6 +327,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CUDNN_LOG_DIR = None               # --cudnn-log
+CUDNN_LOG_BYTES = 200 * 2**20      # of each process's cuDNN log, kept
 CONFIG = os.path.join(ROOT, 'configs/boxinst/boxinst_r50_fpn_1x_coco.py')
 B2M_CONFIG = os.path.join(ROOT,
                           'configs/box2mask/box2mask_r50_lsj_8x2_50e_coco.py')
@@ -415,8 +441,14 @@ DDP_LOSS_RTOL = 1e-4               # 2 gloo ranks vs one process, the card
 DDP_GRAD_RTOL = 1e-3
 DDP_BN_RTOL, DDP_BN_ATOL = 1e-4, 1e-6
 DDP_LIMIT = 900                    # seconds for one set of child processes
-EVAL_FLIP_SHARE = 1e-6             # 2 ranks vs one process: mask pixels that
-                                   # may differ, a share of all compared
+# each evaluation process of the ddp and cards phases may hold this share
+# of its card (T3): the 2 gloo ranks share the one card, and without a cap
+# one rank and the lone process each reserved 31.2 GiB at their peak (the
+# workspace of the engine cuDNN's heuristics put first) while the other
+# rank, left less free memory, ran another engine for one convolution and
+# its masks moved; PyTorch keeps only the engines whose workspace it can
+# allocate, so under one cap every side keeps the same ones
+EVAL_MEMORY_FRACTION = 0.25
 CARD_BOXES = (1, 6, 3, 8, 2, 5, 4, 7)  # the cards phase's images, a rank each
 ADJOINT_RTOL = 1e-5                # <A x, y> vs <x, A^T y>, float64 sums
 # the public surface phase: the demos on the files phase's landscape JPEGs
@@ -1663,16 +1695,18 @@ def describe_backbone(bb):
             f'heads {list(bb.num_heads)}, window {bb.window_size}')
 
 
-def phase_box2mask(tool, config, samples, parts, lsa_kept=None):
+def phase_box2mask(tool, config, samples, parts, lsa_kept=None,
+                   mst_kept=None):
     """5 AdamW steps of a Box2Mask config through the train entry point on
     1024x1024 synthetic images, ``samples`` a batch, with scipy's
     linear_sum_assignment refusing every call (the Hungarian match goes
-    through the LSA kernel, once a step). Returns the launches of the
-    kernels over the run, the config and the trained model (on the CPU).
-    Fails unless a tensor of each of ``parts`` changed. ``lsa_kept``, a
-    dict, receives the last LSA call's inputs."""
+    through the LSA kernel, once a step; the tree filter's trees through
+    the MST kernel, once a step). Returns the launches of the kernels over
+    the run, the config and the trained model (on the CPU). Fails unless a
+    tensor of each of ``parts`` changed. ``lsa_kept`` and ``mst_kept``,
+    dicts, receive the last LSA and MST calls' inputs."""
     import torch
-    from boxinstseg_tpu_torch.ops import lcm, lsa, msda
+    from boxinstseg_tpu_torch.ops import lcm, lsa, msda, mst
     from boxinstseg_tpu_torch.ops import swin_attention as swa
     register_dataset()
     work_dir = tempfile.mkdtemp(prefix='chip_smoke_b2m_')
@@ -1685,7 +1719,8 @@ def phase_box2mask(tool, config, samples, parts, lsa_kept=None):
                 'msda_backward': msda.msda_backward_cuda,
                 'lcm_forward': lcm.lcm_forward_cuda,
                 'lcm_adjoint': lcm.lcm_adjoint_cuda,
-                'lsa_solve': lsa.solve_lsa_cuda}
+                'lsa_solve': lsa.solve_lsa_cuda,
+                'grid_mst': mst.grid_mst_cuda}
     try:
         cfg = tool.load_config(config, opts, work_dir, seed)
         head = cfg.model.panoptic_head
@@ -1702,11 +1737,13 @@ def phase_box2mask(tool, config, samples, parts, lsa_kept=None):
               f'{cfg.optimizer.type}, grad clip '
               f'{cfg.optimizer_config.grad_clip.max_norm}')
         # one MSDA launch per encoder layer (all levels); one LCM
-        # refinement; one LSA solve of every decoder output's match; one K5
-        # and one K6 per Swin block
+        # refinement; one LSA solve of every decoder output's match; one MST
+        # launch for both trees of every image; one K5 and one K6 per Swin
+        # block
         per_step = {'msda_forward': pd.num_encoder_layers,
                     'msda_backward': pd.num_encoder_layers,
-                    'lcm_forward': 1, 'lcm_adjoint': 1, 'lsa_solve': 1}
+                    'lcm_forward': 1, 'lcm_adjoint': 1, 'lsa_solve': 1,
+                    'grid_mst': 1}
         if bb.type == 'SwinTransformer':
             counters['swin_attention_forward'] = \
                 swa.window_attention_forward_cuda
@@ -1719,7 +1756,8 @@ def phase_box2mask(tool, config, samples, parts, lsa_kept=None):
             fn.launches = 0
         kept = {} if lsa_kept is None else lsa_kept
         with live_gt_counts() as gts, no_scipy_lsa(), \
-                capture_lsa_inputs(kept):
+                capture_lsa_inputs(kept), \
+                capture_mst_inputs({} if mst_kept is None else mst_kept):
             result = train_tool(tool, config, work_dir, seed, opts)
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in counters.items()}
@@ -2897,12 +2935,15 @@ def tiny_boxlevelset_cfg():
                       max_per_img=20))
 
 
-def phase_boxlevelset(tool, work_dir):
+def phase_boxlevelset(tool, work_dir, mst_kept=None):
     """5 AdamW steps of BoxLevelset R-50 3x through the train entry point,
     a checkpoint every 2 steps, the newest 2 kept: the files left must be
     those of steps 4 and 5; then a resume from step 4 must run one step and
-    leave _iter 5. Returns the config and the last checkpoint's path."""
+    leave _iter 5. The MST kernel must launch once a step in both runs;
+    ``mst_kept``, a dict, receives the last MST call's inputs. Returns the
+    config, the last checkpoint's path and the MST launches a step."""
     import torch
+    from boxinstseg_tpu_torch.ops import mst
     register_dataset()
     seed = 0
     opts = [*TRAIN_OPTS, 'data.samples_per_gpu=2',
@@ -2921,12 +2962,17 @@ def phase_boxlevelset(tool, work_dir):
           f'{cfg.canvases[0]}; precision fp32 (no fp16 / bf16 key), TF32 '
           f'off')
     torch.cuda.reset_peak_memory_stats()
-    with live_gt_counts() as gts:
+    with live_gt_counts() as gts, \
+            launches_of({'grid_mst': mst.grid_mst_cuda}) as launches, \
+            capture_mst_inputs({} if mst_kept is None else mst_kept):
         result = train_tool(tool, BOXLS_CONFIG, work_dir, seed, opts)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     check_history(result, STEPS, required=('loss_cate', 'loss_boxpro',
                                            'loss_levelset'))
+    if launches['grid_mst'] != STEPS:
+        fail(f'the MST kernel launched {launches["grid_mst"]} times in '
+             f'{STEPS} steps, expected once a step')
     if len(result.history) != STEPS:
         fail(f'{len(result.history)} logged steps at log interval 1')
     from boxinstseg_tpu_torch.engine.hooks import checkpoint_steps
@@ -2941,10 +2987,17 @@ def phase_boxlevelset(tool, work_dir):
     print(f'{len(changed)} tensors changed; checkpoints left at steps '
           f'{kept}')
     print_steps(result, peak, gts)
-    resumed = train_tool(tool, BOXLS_CONFIG, work_dir, seed, opts,
-                         '--resume-from',
-                         os.path.join(work_dir, 'iter_4.pth'))
+    print(f'MST kernel launches a step: {launches["grid_mst"] / STEPS:g} '
+          f'(the image\'s and the level-set feature\'s trees of both images '
+          f'in one launch)')
+    with launches_of({'grid_mst': mst.grid_mst_cuda}) as resumed_launches:
+        resumed = train_tool(tool, BOXLS_CONFIG, work_dir, seed, opts,
+                             '--resume-from',
+                             os.path.join(work_dir, 'iter_4.pth'))
     torch.cuda.synchronize()
+    if resumed_launches['grid_mst'] != 1:
+        fail(f'the resumed step launched the MST kernel '
+             f'{resumed_launches["grid_mst"]} times')
     ckpt = torch.load(resumed.checkpoint, map_location='cpu',
                       weights_only=False)
     if (resumed.step, len(resumed.history), ckpt['_iter']) != (5, 1, 5):
@@ -2954,7 +3007,7 @@ def phase_boxlevelset(tool, work_dir):
     print(f'resumed from iter_4.pth: one step, _iter {ckpt["_iter"]}, '
           f'{1e3 * (h["time"] - h["data_time"]):.3f} ms (compute + sync), '
           f'loss {h["loss"]:.5f}')
-    return cfg, resumed.checkpoint
+    return cfg, resumed.checkpoint, launches['grid_mst'] / STEPS
 
 
 def phase_boxlevelset_predict(cfg, checkpoint):
@@ -3817,11 +3870,76 @@ def ddp_evaluate(opts, checkpoint, out, device=None):
     from boxinstseg_tpu_torch.parallel import dist as pdist
     from boxinstseg_tpu_torch.registry import build_dataset
     device = device or pdist.local_device()
+    side = (f'rank {pdist.rank()} of {pdist.world_size()}'
+            if pdist.world_size() > 1 else 'one process')
+    free = card_free_gib(device)
+    if free is not None:
+        import torch
+        card = torch.device(device).index
+        torch.cuda.set_per_process_memory_fraction(
+            EVAL_MEMORY_FRACTION,
+            torch.cuda.current_device() if card is None else card)
     cfg = load_tool('train_torch').load_config(CONFIG, opts)
     model, cfg = init_detector(cfg, checkpoint, device=device)
     dataset = build_dataset({**cfg.data['test'], 'test_mode': True})
-    return run_evaluation(model, dataset, cfg, metrics=['bbox', 'segm'],
-                          save_results=out if pdist.rank() == 0 else None)
+    result = run_evaluation(model, dataset, cfg, metrics=['bbox', 'segm'],
+                            save_results=out if pdist.rank() == 0 else None)
+    print(f'evaluation, {side} (pid {os.getpid()}): card memory free '
+          f'{free} GiB before, {card_free_gib(device)} after; this '
+          f'process\'s peak reserved {card_peak_reserved_gib(device)} GiB',
+          flush=True)
+    return result
+
+
+def card_free_gib(device):
+    """The card's free memory in GiB (None on the CPU)."""
+    import torch
+    if torch.device(device).type != 'cuda':
+        return None
+    return round(torch.cuda.mem_get_info(device)[0] / 2**30, 3)
+
+
+def card_peak_reserved_gib(device):
+    import torch
+    if torch.device(device).type != 'cuda':
+        return None
+    return round(torch.cuda.max_memory_reserved(device) / 2**30, 3)
+
+
+@contextlib.contextmanager
+def cudnn_log(side):
+    """With --cudnn-log: cuDNN's API log (level 3) of the child processes
+    started within, a file a process named by ``side`` and its pid,
+    gzipped on exit."""
+    if CUDNN_LOG_DIR is None:
+        yield
+        return
+    import glob
+    import gzip
+    os.makedirs(CUDNN_LOG_DIR, exist_ok=True)
+    keys = ('CUDNN_LOGLEVEL_DBG', 'CUDNN_LOGINFO_DBG', 'CUDNN_LOGDEST_DBG')
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(CUDNN_LOGLEVEL_DBG='3', CUDNN_LOGINFO_DBG='1',
+                      CUDNN_LOGDEST_DBG=os.path.join(
+                          CUDNN_LOG_DIR, f'cudnn_{side}_%i.log'))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for path in glob.glob(os.path.join(CUDNN_LOG_DIR,
+                                           f'cudnn_{side}_*.log')):
+            size = os.path.getsize(path)
+            with open(path, 'rb') as f, gzip.open(f'{path}.gz', 'wb') as g:
+                g.write(f.read(CUDNN_LOG_BYTES))
+            os.remove(path)
+            print(f'cuDNN log {os.path.basename(path)}: {size / 2**20:.1f} '
+                  f'MiB, the first {min(size, CUDNN_LOG_BYTES) / 2**20:.1f} '
+                  f'MiB kept gzipped '
+                  f'({os.path.getsize(path + ".gz") / 2**20:.1f} MiB)')
 
 
 def time_launches(work_dir, files, opts, device, plan):
@@ -3974,10 +4092,13 @@ def check_eval_gather(work_dir, files, checkpoint, narrow, device, world,
                  *narrow, *file_opts(files, 'test')]
     outs = [os.path.join(work_dir, f'eval_{world}_{w}.json')
             for w in (1, world)]
-    (one,), _ = run_children(ddp_evaluate, (eval_opts, checkpoint, outs[0],
-                                            device), mode=None)
-    ranks, _ = run_children(ddp_evaluate, (eval_opts, checkpoint, outs[1],
-                                           device), world, mode=mode)
+    with cudnn_log('one'):
+        (one,), _ = run_children(ddp_evaluate, (eval_opts, checkpoint,
+                                                outs[0], device), mode=None)
+    with cudnn_log(f'ranks{world}'):
+        ranks, _ = run_children(ddp_evaluate, (eval_opts, checkpoint,
+                                               outs[1], device), world,
+                                mode=mode)
     if any(r != {} for r in ranks[1:]):
         fail(f'ranks 1-{world - 1} returned {ranks[1:]}')
     if ranks[0] != one:
@@ -3987,19 +4108,17 @@ def check_eval_gather(work_dir, files, checkpoint, narrow, device, world,
         results = [json.load(f), json.load(g)]
     flips = mask_flips(*results, world)
     off, total = pixels_apart(flips, results[0])
-    if off > EVAL_FLIP_SHARE * total:
+    if flips:
         fail(f'the {world} ranks\' masks differ from one process\'s in {off} '
-             f'of {total} pixels (images {sorted(flips)}), more than '
-             f'EVAL_FLIP_SHARE {EVAL_FLIP_SHARE}')
+             f'of {total} pixels, in {sum(len(v) for v in flips.values())} '
+             f'masks of images {sorted(flips)}')
     n_det = sum(len(r['bboxes']) for r in results[0])
     print(f'run_evaluation in {world} ranks ({mode}; {len(results[0])} JPEGs, '
           f'batch 1, rank 0 gathers) against one fresh process: the same '
-          f'{n_det} detections image by image (boxes, scores, labels), the '
-          f'same metrics (bbox mAP {one["bbox_mAP"]}, segm mAP '
-          f'{one["segm_mAP"]}); masks equal but {off} of {total} pixels in '
-          f'{sum(len(v) for v in flips.values())} masks of images '
-          f'{sorted(flips)} (at most {EVAL_FLIP_SHARE} of them may differ); '
-          f'the other ranks {{}}')
+          f'{n_det} detections image by image (boxes, scores, labels, masks '
+          f'of {total} pixels), the same metrics (bbox mAP '
+          f'{one["bbox_mAP"]}, segm mAP {one["segm_mAP"]}); the other ranks '
+          f'{{}}')
 
 
 def mask_flips(want, got, world):
@@ -4656,6 +4775,139 @@ def phase_lsa_kernel(b2m, launches_a_step):
     return report
 
 
+# ---------------------------------------------------------------- MST
+
+MST_TIES = (8, 96, 96)         # Swin-T's batch 4: 2 x 4 trees of tf_size
+MST_RANDOM = (4, 96, 96)
+MST_CAP = 64                   # a depth cap that binds on every tree
+
+
+@contextlib.contextmanager
+def capture_mst_inputs(kept):
+    """Keep the last tree filter's grid MST inputs (w_right, w_down,
+    max_depth) in ``kept`` (references, no copies)."""
+    from boxinstseg_tpu_torch.ops import tree_filter
+    inner = tree_filter.grid_mst
+
+    def recorded(w_right, w_down, max_depth):
+        kept['w_right'], kept['w_down'] = w_right, w_down
+        kept['max_depth'] = max_depth
+        return inner(w_right, w_down, max_depth)
+    tree_filter.grid_mst = recorded
+    try:
+        yield
+    finally:
+        tree_filter.grid_mst = inner
+
+
+def flat_block_weights(shape, gen):
+    """Squared-difference edge weights of ``shape`` (B, H, W) trees over a
+    guide of flat 3x3 colour blocks from 3 levels: most weights are 0 or
+    repeat exactly, so the tree rests on the (weight, edge index) order."""
+    import torch
+    b, h, w = shape
+    g = torch.randint(0, 3, (b, h // 3 + 1, w // 3 + 1, 3), generator=gen,
+                      device='cuda').float() * 0.5
+    g = g.repeat_interleave(3, 1).repeat_interleave(3, 2)[:, :h, :w]
+    return (((g[:, :, 1:] - g[:, :, :-1]) ** 2).sum(-1),
+            ((g[:, 1:] - g[:, :-1]) ** 2).sum(-1))
+
+
+def mst_cases(b2m, boxls, gen):
+    """The MST kernel's input sets: the Box2Mask R-50 and BoxLevelset R-50
+    steps' own weights with their depth caps (none binds: H x W); flat-block
+    ties at Swin-T's 8 trees; distinct random weights under a binding cap."""
+    import torch
+    b, h, w = MST_RANDOM
+    return {'box2mask r-50 step': (b2m['w_right'], b2m['w_down'],
+                                   b2m['max_depth']),
+            'boxlevelset r-50 step': (boxls['w_right'], boxls['w_down'],
+                                      boxls['max_depth']),
+            f'flat-block ties {MST_TIES}': (
+                *flat_block_weights(MST_TIES, gen),
+                MST_TIES[1] * MST_TIES[2]),
+            f'distinct random {MST_RANDOM}, cap {MST_CAP}': (
+                torch.rand((b, h, w - 1), generator=gen, device='cuda'),
+                torch.rand((b, h - 1, w), generator=gen, device='cuda'),
+                MST_CAP)}
+
+
+def phase_mst_kernel(b2m, boxls, launches_a_step):
+    """The grid MST kernel against its plain version on the card and
+    scipy's MST on the host (tests/mst_witness.py), parent and depth equal
+    element for element on each input set; its time, the bound, the plain
+    version's time and, in turns with the kernel, the host path's (copy,
+    scipy, copy back) at the two steps' inputs. Returns the report line's
+    fields."""
+    import torch
+    from boxinstseg_tpu_torch.ops import mst
+    witness = load_script('tests/mst_witness.py')
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    report = {}
+    for name, (wr, wd, md) in mst_cases(b2m, boxls, gen).items():
+        b, h, wm1 = wr.shape
+        n = h * (wm1 + 1)
+        stats = torch.zeros((b, 2), dtype=torch.int32, device='cuda')
+        got = mst.grid_mst_cuda(wr, wd, md, stats)
+        plain = mst.grid_mst_plain(wr, wd, md)
+        host = witness.host_grid_mst(wr, wd, md)
+        torch.cuda.synchronize()
+        for what, want in (('the plain version on the card', plain),
+                           ('scipy\'s MST', host)):
+            for i, part in enumerate(('parent', 'depth')):
+                if not torch.equal(got[i], want[i]):
+                    bad = int((got[i] != want[i]).sum())
+                    fail(f'mst kernel, {name}: {bad} of {got[i].numel()} '
+                         f'{part} entries differ from {what}')
+        rounds, levels = stats[:, 0].tolist(), stats[:, 1].tolist()
+        if levels != plain[1].max(dim=1).values.tolist():
+            fail(f'mst kernel, {name}: BFS levels {levels}, tree heights '
+                 f'{plain[1].max(dim=1).values.tolist()}')
+        detached = int(((plain[0] == torch.arange(n, device='cuda'))
+                        .sum() - b))
+        ms = cuda_ms(lambda: mst.grid_mst_cuda(wr, wd, md))
+        e = wr[0].numel() + wd[0].numel()
+        # bytes: the weights read once, parent and depth written once;
+        # operations: a round compares the labels of every edge and hooks
+        # and jumps every node; the BFS visits every node once
+        b_ms = bound(nbytes(wr, wd) + 2 * b * n * 8,
+                     sum(r * (e + 2 * n) + n for r in rounds))
+        ties = (wr == 0).float().mean().item()
+        print(f'mst kernel, {name}: {b} trees of {h}x{wm1 + 1}, depth cap '
+              f'{md}, {100 * ties:.1f}% of right weights 0; parent and '
+              f'depth equal to the plain version on the card and to '
+              f'scipy\'s MST; Boruvka rounds {rounds}, BFS levels {levels}, '
+              f'{detached} nodes past the cap; {ms:.4f} ms, bound '
+              f'{b_ms["bound_ms"]:.6f} ms ({b_ms["bound_by"]})')
+        if len(report) < 2:
+            plain_ms = cuda_ms(lambda: mst.grid_mst_plain(wr, wd, md),
+                               iters=3)
+            turns = [cuda_ms(lambda: mst.grid_mst_cuda(wr, wd, md)),
+                     cuda_ms(lambda: witness.host_grid_mst(wr, wd, md),
+                             iters=10),
+                     cuda_ms(lambda: witness.host_grid_mst(wr, wd, md),
+                             iters=10),
+                     cuda_ms(lambda: mst.grid_mst_cuda(wr, wd, md))]
+            print(f'mst kernel, {name}: in turns (CUDA events): kernel '
+                  f'{turns[0]:.4f}, host path (copy, scipy, copy back) '
+                  f'{turns[1]:.4f}, {turns[2]:.4f}, kernel {turns[3]:.4f} '
+                  f'ms; the plain version on the card {plain_ms:.3f} ms')
+            key = name.split(' ')[0]
+            report[key] = dict(ms=ms, plain_ms=plain_ms, **b_ms,
+                               host_ms=min(turns[1], turns[2]),
+                               kernel_turns_ms=min(turns[0], turns[3]),
+                               rounds=rounds, levels=levels)
+    main = report['box2mask']
+    return dict(name='grid_mst', route='cuda',
+                source='boxinstseg_tpu_torch/csrc/mst.cu',
+                replaces='boxinstseg_tpu/ops/mst.py:501 grid_mst_device '
+                         '(not a pl.pallas_call)',
+                launches_a_step=launches_a_step, max_abs_err=0.0,
+                ms=main['ms'], plain_ms=main['plain_ms'],
+                bound_ms=main['bound_ms'], bound_by=main['bound_by'],
+                library_ms=None, host_ms=main['host_ms'], sets=report)
+
+
 # ---------------------------------------------------------------- zoo
 
 # RetinaNet R-50 at 800x1344: strides 8-128, 3 ratios x 3 octave scales
@@ -5091,12 +5343,12 @@ LSA_STEP = (20, 8, 100)            # a Box2Mask R-50 step's costs
 
 def loss_op_cases(gen, shapes):
     """(op, arguments, plain version's output, check) for each of the loss
-    path's registered ops at ``shapes`` (pairwise, lcm, crf, lsa); the
+    path's registered ops at ``shapes`` (pairwise, lcm, crf, lsa, mst); the
     check holds the op's output against the plain one at the kernels'
     tolerances."""
     import numpy as np
     import torch
-    from boxinstseg_tpu_torch.ops import crf, lcm, lsa
+    from boxinstseg_tpu_torch.ops import crf, lcm, lsa, mst
     from boxinstseg_tpu_torch.ops import pairwise as pw
     x, sim, bm, valid = kernel_inputs(shapes['pairwise'], gen)
     num, den = pw.pairwise_num_den_plain(x, sim, bm, valid)
@@ -5109,6 +5361,8 @@ def loss_op_cases(gen, shapes):
     cost = torch.rand((p, n, m), generator=gen, device='cuda')
     n_rows = torch.randint(1, n + 1, (p,), generator=gen, device='cuda',
                            dtype=torch.int32)
+    wr, wd = flat_block_weights(shapes['mst'], gen)
+    md = shapes['mst'][1] * shapes['mst'][2]
 
     def sums(tag, got, want):
         if abs(got[0].item() - want[0].item()) > VALUE_RTOL * abs(
@@ -5149,6 +5403,10 @@ def loss_op_cases(gen, shapes):
                            crf.crf_mean_field_plain(*ck, CRF_ITERS), equal),
         'solve_lsa': (lsa.solve_lsa_op, (cost, n_rows),
                       lsa.solve_lsa_plain(cost, n_rows), equal),
+        'grid_mst': (mst.grid_mst_op, (wr, wd, md),
+                     mst.grid_mst_plain(wr, wd, md),
+                     lambda tag, out, want: max(
+                         equal(tag, o, w) for o, w in zip(out, want))),
     }
 
 
@@ -5162,12 +5420,12 @@ def phase_ops():
     differentiated, with one K1 and one K2 launch."""
     import torch
     from boxinstseg_tpu_torch.apis import export as tex
-    from boxinstseg_tpu_torch.ops import crf, lcm, lsa
+    from boxinstseg_tpu_torch.ops import crf, lcm, lsa, mst
     from boxinstseg_tpu_torch.ops import pairwise as pw
     from boxinstseg_tpu_torch.registry import build_detector
     gen = torch.Generator(device='cuda').manual_seed(11)
     small = dict(pairwise=(1, 3, 37, 53), lcm=(1, 3, 37, 53),
-                 crf=(1, 5, 37, 53), lsa=(3, 4, 6))
+                 crf=(1, 5, 37, 53), lsa=(3, 4, 6), mst=(2, 9, 11))
     for name, (op, args, _, _) in loss_op_cases(gen, small).items():
         result = torch.library.opcheck(op, args)
         if set(result.values()) != {'SUCCESS'}:
@@ -5175,7 +5433,7 @@ def phase_ops():
     print('opcheck on the card (schema, autograd registration, fake '
           'against real, AOT dispatch): pairwise_forward, '
           'pairwise_backward, lcm_forward, lcm_adjoint, crf_mean_field, '
-          'solve_lsa: every test SUCCESS')
+          'solve_lsa, grid_mst: every test SUCCESS')
 
     wrappers = {
         'pairwise_forward': lambda x, s, b, v, *cfg: pw.pairwise_forward_cuda(
@@ -5187,15 +5445,16 @@ def phase_ops():
         'lcm_adjoint': lambda a, g, flat, n: lcm.lcm_adjoint_cuda(
             a, g, lcm._pairs(flat), n),
         'crf_mean_field': crf.crf_mean_field_cuda,
-        'solve_lsa': lsa.solve_lsa_cuda}
+        'solve_lsa': lsa.solve_lsa_cuda,
+        'grid_mst': mst.grid_mst_cuda}
     main = dict(pairwise=MAIN_SHAPE, lcm=LCM_MAIN, crf=CRF_MAIN,
-                lsa=LSA_STEP)
+                lsa=LSA_STEP, mst=MST_RANDOM)
     for name, (op, args, want, check) in loss_op_cases(gen, main).items():
         out = op(*args)
         torch.cuda.synchronize()
-        err = check(f'boxinstseg::{name} at {main[name.split("_")[0]]}'
-                    if name != 'solve_lsa' else
-                    f'boxinstseg::solve_lsa at {LSA_STEP}', out, want)
+        key = {'solve_lsa': 'lsa', 'grid_mst': 'mst'}.get(
+            name, name.split('_')[0])
+        err = check(f'boxinstseg::{name} at {main[key]}', out, want)
         t = [cuda_ms(fn) for fn in (
             lambda: wrappers[name](*args), lambda: op(*args),
             lambda: op(*args), lambda: wrappers[name](*args))]
@@ -5273,7 +5532,7 @@ VOC_CLI = ('boxinst/boxinst_r50_fpn_1x_voc.py',
 
 def kernel_counters():
     """Every hand kernel's wrapper by the name of its launch count."""
-    from boxinstseg_tpu_torch.ops import crf, lcm, lsa, msda
+    from boxinstseg_tpu_torch.ops import crf, lcm, lsa, msda, mst
     from boxinstseg_tpu_torch.ops import pairwise as pw
     from boxinstseg_tpu_torch.ops import swin_attention as swa
     return {'pairwise_forward': pw.pairwise_forward_cuda,
@@ -5285,15 +5544,17 @@ def kernel_counters():
             'swin_attention_forward': swa.window_attention_forward_cuda,
             'swin_attention_backward': swa.window_attention_backward_cuda,
             'crf_mean_field': crf.crf_mean_field_cuda,
-            'lsa_solve': lsa.solve_lsa_cuda}
+            'lsa_solve': lsa.solve_lsa_cuda,
+            'grid_mst': mst.grid_mst_cuda}
 
 
 def config_kernels(cfg):
     """The hand kernels' launches a training step of ``cfg``'s model (the
     rest launch 0 times): BoxInst's pairwise pair; DiscoBox's CRF;
     Box2Mask's MSDA pair (one launch an encoder layer each way), the LCM
-    pair, the LSA solve and, on a Swin, K5 and K6 once a block;
-    BoxLevelset none."""
+    pair, the LSA solve, the grid MST (both trees of every image in one
+    launch) and, on a Swin, K5 and K6 once a block; BoxLevelset the grid
+    MST."""
     m = cfg.model
     if m.type == 'CondInst':
         return {'pairwise_forward': 1, 'pairwise_backward': 1}
@@ -5302,12 +5563,15 @@ def config_kernels(cfg):
     if 'panoptic_head' in m:
         layers = m.panoptic_head.pixel_decoder.num_encoder_layers
         out = {'msda_forward': layers, 'msda_backward': layers,
-               'lcm_forward': 1, 'lcm_adjoint': 1, 'lsa_solve': 1}
+               'lcm_forward': 1, 'lcm_adjoint': 1, 'lsa_solve': 1,
+               'grid_mst': 1}
         if m.backbone.type == 'SwinTransformer':
             blocks = sum(m.backbone.depths)
             out.update(swin_attention_forward=blocks,
                        swin_attention_backward=blocks)
         return out
+    if m.type == 'BoxLevelSet':
+        return {'grid_mst': 1}
     return {}
 
 
@@ -5549,7 +5813,12 @@ def main(argv=None):
                         help='more than 1: only the data-parallel check '
                              'across this many cards (nccl), after the '
                              'build; 1 (the default): every phase')
+    parser.add_argument('--cudnn-log', metavar='DIR',
+                        help='cuDNN\'s API log (level 3) of each evaluation '
+                             'process of the ddp phase, gzipped into DIR')
     args = parser.parse_args(argv)
+    global CUDNN_LOG_DIR
+    CUDNN_LOG_DIR = args.cudnn_log and os.path.abspath(args.cudnn_log)
     if not os.path.isdir(os.path.join(ROOT, 'boxinstseg_tpu_torch')):
         fail(f'the boxinstseg_tpu_torch package is not beside {__file__}')
     sys.path.insert(0, ROOT)
@@ -5571,7 +5840,9 @@ def main(argv=None):
           f'CUDA {torch.version.cuda}, device '
           f'{torch.cuda.get_device_name(0)}; TF32 matmul '
           f'{torch.backends.cuda.matmul.allow_tf32}, cudnn '
-          f'{torch.backends.cudnn.allow_tf32}')
+          f'{torch.backends.cudnn.allow_tf32}; cuDNN '
+          f'{torch.backends.cudnn.version()}, benchmark mode '
+          f'{torch.backends.cudnn.benchmark}')
     print('image decoders on this machine (reading JPEGs without cv2): ' +
           ', '.join(image_decoders().values()))
 
@@ -5579,9 +5850,9 @@ def main(argv=None):
     from boxinstseg_tpu_torch.ops import _native
     t0 = time.perf_counter()
     _native.build_all(['pairwise', 'msda', 'lcm', 'swin_attention', 'crf',
-                       'lsa', *BASELINES.values()])
-    print(f'pairwise.cu, msda.cu, lcm.cu, swin_attention.cu, crf.cu, lsa.cu '
-          f'and the baselines of pairwise.cu, lcm.cu and crf.cu: '
+                       'lsa', 'mst', *BASELINES.values()])
+    print(f'pairwise.cu, msda.cu, lcm.cu, swin_attention.cu, crf.cu, lsa.cu, '
+          f'mst.cu and the baselines of pairwise.cu, lcm.cu and crf.cu: '
           f'{time.perf_counter() - t0:.2f} s (nvcc ' + ', '.join(
               f'{os.path.basename(k)} {v:.2f} s'
               for k, v in _native.BUILD_SECONDS.items()) + ')')
@@ -5622,11 +5893,11 @@ def run_phases(tool, work_dir, report, smi, t_start):
     phase_reference()
 
     phase('box2mask')
-    lsa_kept = {}
+    lsa_kept, b2m_mst = {}, {}
     b2m_launches, _, _ = phase_box2mask(
         tool, B2M_CONFIG, 2, ('backbone.', 'panoptic_head.pixel_decoder.'
                               'encoder.', 'panoptic_head.transformer_decoder.'),
-        lsa_kept)
+        lsa_kept, b2m_mst)
     launches.update(b2m_launches)
 
     phase('box2mask reference')
@@ -5685,12 +5956,20 @@ def run_phases(tool, work_dir, report, smi, t_start):
 
     phase('boxlevelset')
     boxls_dir = os.path.join(work_dir, 'boxlevelset')
-    boxls_cfg, boxls_ckpt = phase_boxlevelset(tool, boxls_dir)
+    boxls_mst = {}
+    boxls_cfg, boxls_ckpt, boxls_mst_a_step = phase_boxlevelset(
+        tool, boxls_dir, boxls_mst)
     phase_boxlevelset_predict(boxls_cfg, boxls_ckpt)
     shutil.rmtree(boxls_dir, ignore_errors=True)
 
     phase('boxlevelset reference')
     phase_boxlevelset_reference()
+
+    phase('mst kernel')
+    mst_report = phase_mst_kernel(b2m_mst, boxls_mst, {
+        'box2mask r-50': b2m_launches['grid_mst'] / STEPS,
+        'boxlevelset r-50': boxls_mst_a_step})
+    del b2m_mst, boxls_mst
 
     phase('files')
     files = write_coco_files(os.path.join(work_dir, 'files'), FILE_SHAPES)
@@ -5725,11 +6004,28 @@ def run_phases(tool, work_dir, report, smi, t_start):
     phase('voc cli')
     phase_voc_cli(tool, work_dir, files)
 
+    mst_steps = CONFIGS_STEPS * sum(
+        1 for rel in SHIPPED_UNRUN if rel.split('/')[0] in ('boxlevelset',
+                                                            'box2mask'))
+    mst_report['launches_a_step']['configs'] = \
+        config_launches['grid_mst'] / mst_steps
+    if config_launches['grid_mst'] != mst_steps:
+        fail(f'the MST kernel launched {config_launches["grid_mst"]} times '
+             f'in the configs phase\'s {mst_steps} BoxLevelset and Box2Mask '
+             f'steps')
     kernels = [dict(name=name, route='cuda', source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     **report[name]) for name in REPLACES]
+    for row, n in ((lsa_report, b2m_launches['lsa_solve']),
+                   (mst_report, b2m_launches['grid_mst']
+                    + round(boxls_mst_a_step * STEPS))):
+        kernels.append(dict(launches=n, library_ms=None, **{
+            k: row[k] for k in ('name', 'route', 'source', 'replaces',
+                                'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                                'bound_by')}))
     print(f'smoke wall time {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'lsa': lsa_report}))
+    print(json.dumps({'mst': mst_report}))
     print(json.dumps({'configs': {'step_ms': config_ms,
                                   'launches': config_launches}}))
     print(json.dumps({'kernels': kernels}))

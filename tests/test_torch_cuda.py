@@ -20,7 +20,12 @@ the plain version and to autograd through the plain forward. The Swin window
 attention pair K5/K6 is held to the same bound; its dbias sums the windows
 in a fixed order, so it gives the same bits from run to run. The CRF fixed
 point K7 sums its exact products in the plain version's order: it must give
-the plain version's bits.
+the plain version's bits. The LSA and the grid MST kernels compute integers
+(an assignment; parents and depths): they must equal their plain versions
+element for element, the MST at 9x11, 16x16 and 96x96 (flat-block ties and
+distinct weights, uncapped and under a binding depth cap), on negative
+weights, signed zeros and NaN, and the MST wrapper must refuse a grid past
+its shared-memory limit.
 """
 import numpy as np
 import pytest
@@ -660,3 +665,81 @@ def test_lsa_wrapper_rejects_what_it_does_not_take(cuda):
              torch.ones(2, dtype=torch.int32, device=cuda))):
         with pytest.raises(ValueError):
             lsa.solve_lsa_cuda(cost, n_rows)
+
+
+def _mst_weights(case, seed):
+    """(w_right, w_down) of four trees: squared differences of a flat
+    3x3-block guide (many exact ties, most of them 0) or of a random one
+    (distinct weights), as the heads' tree filter makes them."""
+    b, h, w, kind = case
+    rng = np.random.RandomState(seed)
+    if kind == 'blocks':
+        blocks = rng.randint(0, 3, (b, h // 3 + 1, w // 3 + 1, 3))
+        g = np.repeat(np.repeat(blocks, 3, 1), 3, 2)[:, :h, :w] * 0.5
+    else:
+        g = rng.rand(b, h, w, 3)
+    g = g.astype(np.float32)
+    return (torch.from_numpy(((g[:, :, 1:] - g[:, :, :-1]) ** 2).sum(-1)),
+            torch.from_numpy(((g[:, 1:] - g[:, :-1]) ** 2).sum(-1)))
+
+
+@pytest.mark.parametrize('case', [(4, 9, 11, 'blocks'), (4, 16, 16, 'random'),
+                                  (4, 96, 96, 'blocks'),
+                                  (8, 96, 96, 'random')])
+@pytest.mark.parametrize('capped', [False, True])
+def test_mst_kernel_equals_plain(cuda, case, capped):
+    from boxinstseg_tpu_torch.ops import mst
+    wr, wd = _mst_weights(case, 0)
+    n = case[1] * case[2]
+    md = max(n // 40, 3) if capped else n
+    want = mst.grid_mst_plain(wr, wd, md)
+    before = mst.grid_mst_cuda.launches
+    stats = torch.zeros((case[0], 2), dtype=torch.int32, device=cuda)
+    got = mst.grid_mst_cuda(wr.to(cuda), wd.to(cuda), md, stats)
+    torch.cuda.synchronize()
+    assert mst.grid_mst_cuda.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    if capped:
+        assert int(want[1].max()) == md
+        assert (stats[:, 1].cpu() == md).all()
+    else:
+        assert (stats[:, 1].cpu() == want[1].max(dim=1).values).all()
+    assert (stats[:, 0].cpu() >= 1).all()
+    # through the op, as the heads call it
+    op = mst.grid_mst(wr.to(cuda), wd.to(cuda), md)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(op, want))
+
+
+def test_mst_kernel_on_negative_weights_and_signed_zeros(cuda):
+    from boxinstseg_tpu_torch.ops import mst
+    rng = np.random.RandomState(3)
+    wr = np.round(rng.randn(3, 13, 16) * 1.5).astype(np.float32)
+    wd = np.round(rng.randn(3, 12, 17) * 1.5).astype(np.float32)
+    wr[(wr == 0) & (rng.rand(*wr.shape) < 0.5)] = -0.0
+    wd[(wd == 0) & (rng.rand(*wd.shape) < 0.5)] = -0.0
+    wr[0, 0, :3] = np.nan
+    wr, wd = torch.from_numpy(wr), torch.from_numpy(wd)
+    want = mst.grid_mst_plain(wr, wd, 13 * 17)
+    got = mst.grid_mst_cuda(wr.to(cuda), wd.to(cuda), 13 * 17)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_mst_wrapper_rejects_what_it_does_not_take(cuda):
+    from boxinstseg_tpu_torch.ops import mst
+    side = int(mst.MAX_NODES ** 0.5) + 1           # one node too many a side
+    for wr, wd in (
+            (torch.zeros(2, 5, 4, device=cuda),
+             torch.zeros(2, 4, 4, device=cuda)),              # w_down shape
+            (torch.zeros(2, 5, 4, device=cuda, dtype=torch.float64),
+             torch.zeros(2, 4, 5, device=cuda, dtype=torch.float64)),
+            (torch.zeros(2, 4, 5, device=cuda).transpose(1, 2),
+             torch.zeros(2, 4, 5, device=cuda)),
+            (torch.zeros(1, side, side - 1, device=cuda),
+             torch.zeros(1, side - 1, side, device=cuda))):
+        with pytest.raises(ValueError):
+            mst.grid_mst_cuda(wr, wd, 10)
+    with pytest.raises(ValueError, match=f'at most {mst.MAX_NODES} nodes'):
+        mst.grid_mst_cuda(torch.zeros(1, 129, 129, device=cuda),
+                          torch.zeros(1, 128, 130, device=cuda), 10)

@@ -25,7 +25,7 @@
   ``apis.export.export_loss``: the graph holds the loss path's kernels as
   ``boxinstseg`` ops (BoxInst one ``pairwise_forward``; Box2Mask one
   ``lcm_forward``, one ``solve_lsa`` and one ``msda_forward`` an encoder
-  layer, with the host ``grid_mst``; DiscoBox one ``crf_mean_field``), and
+  layer, with one ``grid_mst``; DiscoBox one ``crf_mean_field``), and
   the train step's graph of the program (``loss_grad_graph``) holds their
   backward ops too (one ``pairwise_backward``, one ``lcm_adjoint``, one
   ``msda_backward`` a layer). The program's loss dict equals eager within

@@ -2,7 +2,7 @@
 plain implementations; the card's are the kernels, held to the same plain
 versions by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``): MSDA and
 Swin window attention, and the loss path's BoxInst pairwise pair (K1/K2),
-LCM (K3), CRF (K7) and LSA, with the host MST solve as an op beside them.
+LCM (K3), CRF (K7), LSA and the grid MST.
 
 - ``torch.library.opcheck`` (schema, autograd registration, the fake
   implementation against the real one, AOT dispatch with dynamic shapes)
@@ -12,7 +12,8 @@ LCM (K3), CRF (K7) and LSA, with the host MST solve as an op beside them.
   ``crf_mean_field``, ``solve_lsa`` and ``grid_mst`` at small shapes;
 - ``boxinst_pairwise_loss`` and ``lcm_refine`` against autograd through
   their plain versions, value and gradient within atol 1e-6;
-  ``crf_mean_field`` and ``solve_lsa`` element for element against theirs;
+  ``crf_mean_field``, ``solve_lsa`` and ``grid_mst`` element for element
+  against theirs; each loss-path op has a CUDA and a CPU implementation;
   the pairwise op's denominator is this process's (no collective in the
   op);
 - their flop formulas against a hand count (pairwise 90 and 120
@@ -202,8 +203,18 @@ def lcm_case():
     return out, ref, (got,), (want,), g
 
 
+@pytest.mark.parametrize('op', LOSS_OPS)
+def test_loss_op_has_a_cuda_and_a_cpu_implementation(op):
+    # the kernel on a CUDA tensor, the plain version on a CPU tensor
+    name = f'boxinstseg::{op}'
+    for key in ('CUDA', 'CPU'):
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(name, key), (
+            name, key)
+
+
 @pytest.mark.parametrize('caller', ['boxinst_pairwise_loss', 'lcm_refine',
-                                    'crf_mean_field', 'solve_lsa'])
+                                    'crf_mean_field', 'solve_lsa',
+                                    'grid_mst'])
 def test_loss_path_callers_match_their_plain_versions(caller):
     if caller == 'crf_mean_field':
         args = crf_inputs(3)
@@ -211,6 +222,14 @@ def test_loss_path_callers_match_their_plain_versions(caller):
         want = crf.crf_mean_field_plain(*args, 5)
         assert torch.equal(got, want)
         assert not torch.equal(want, args[2])          # the rounds moved
+        return
+    if caller == 'grid_mst':
+        w_right, w_down = mst_inputs(3)
+        got = mst.grid_mst(w_right, w_down, 4)
+        want = mst.grid_mst_plain(w_right, w_down, 4)
+        assert all(g.dtype == torch.int64 for g in got)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert (want[1] == 4).any()                # the cap binds
         return
     if caller == 'solve_lsa':
         cost, n_rows = lsa_inputs(3)

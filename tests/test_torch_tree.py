@@ -1,9 +1,13 @@
 """The port's grid MST and tree filter against the JAX package, on the CPU.
 
-- ``grid_mst``: parent and depth EXACTLY equal to ``grid_mst_device``, on
-  guides with many tied weights (flat colour blocks, where the tree depends
-  on the (weight, edge index) tie order) and on guides with distinct
-  weights, with ``max_depth`` uncapped and binding;
+- ``grid_mst`` (the op's CPU kernel, ``grid_mst_plain``): parent and depth
+  EXACTLY equal to ``grid_mst_device``, on guides with many tied weights
+  (flat colour blocks, where the tree depends on the (weight, edge index)
+  tie order) and on guides with distinct weights, with ``max_depth``
+  uncapped and binding; at the heads' 96 x 96 on four flat-block trees;
+  on negative weights with ties between -0.0 and 0.0;
+- the plain version against scipy's MST (``mst_witness.py``) at 96 x 96;
+  the module imports no scipy;
 - ``grid_mst_pair`` on two guides at once;
 - ``tree_filter2d``: output and gradients (feature and guide) in both
   ``low_tree`` modes, uncapped and with a binding depth cap.
@@ -23,7 +27,9 @@ from boxinstseg_tpu.ops.mst import grid_mst_device
 from boxinstseg_tpu.ops.tree_filter import (grid_mst_pair as j_pair,
                                             tree_filter2d as j_filter)
 
-from boxinstseg_tpu_torch.ops.mst import grid_mst
+from boxinstseg_tpu_torch.ops import mst
+from boxinstseg_tpu_torch.ops.mst import grid_mst, grid_mst_plain
+from mst_witness import host_grid_mst
 from boxinstseg_tpu_torch.ops.tree_filter import grid_mst_pair, tree_filter2d
 
 
@@ -59,6 +65,64 @@ def test_grid_mst_matches_jax_exactly(kind, max_depth, hw):
     if max_depth:
         assert np.asarray(want_d).max() <= max_depth
         assert (np.asarray(want_p) == np.arange(h * w)).sum() > 3  # detached
+
+
+def _assert_tree_equal(got, want):
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def test_grid_mst_matches_jax_at_96x96_on_flat_blocks():
+    # the heads' tf_size (96, 96), uncapped, four trees of ~270-470 levels
+    rng = np.random.RandomState(0)
+    wr, wd = _weights(_guide('blocks', rng, 4, 96, 96))
+    assert (wr == 0).mean() > 0.3
+    want = grid_mst_device(jnp.asarray(wr), jnp.asarray(wd), 96 * 96)
+    got = grid_mst(torch.from_numpy(wr), torch.from_numpy(wd), 96 * 96)
+    _assert_tree_equal(got, want)
+    assert got[1].max() > 200
+
+
+@pytest.mark.parametrize('max_depth', [0, 4])
+def test_grid_mst_matches_jax_on_negative_weights_and_signed_zeros(
+        max_depth):
+    # the op takes any fp32: negative weights order below 0, and -0.0
+    # ties with 0.0 (broken by edge index, as the stable argsort does)
+    rng = np.random.RandomState(11 + max_depth)
+    h, w = 7, 9
+    wr = np.round(rng.randn(2, h, w - 1) * 1.5).astype(np.float32)
+    wd = np.round(rng.randn(2, h - 1, w) * 1.5).astype(np.float32)
+    signs = rng.rand(*wr.shape) < 0.5
+    wr[(wr == 0) & signs] = -0.0
+    wd[(wd == 0) & (rng.rand(*wd.shape) < 0.5)] = -0.0
+    assert np.signbit(wr[wr == 0]).any() and (~np.signbit(wr[wr == 0])).any()
+    assert (wr < 0).any() and (wd < 0).any()
+    md = max_depth or h * w
+    want = grid_mst_device(jnp.asarray(wr), jnp.asarray(wd), md)
+    got = grid_mst(torch.from_numpy(wr), torch.from_numpy(wd), md)
+    _assert_tree_equal(got, want)
+
+
+@pytest.mark.parametrize('kind', ['blocks', 'distinct'])
+def test_grid_mst_plain_matches_scipy_at_96x96(kind):
+    rng = np.random.RandomState(5)
+    wr, wd = (torch.from_numpy(a) for a in _weights(
+        _guide(kind, rng, 2, 96, 96)))
+    for md in (96 * 96, 100):
+        got = grid_mst_plain(wr, wd, md)
+        want = host_grid_mst(wr, wd, md)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_mst_module_imports_no_scipy():
+    import ast
+    import inspect
+    tree = ast.parse(inspect.getsource(mst))
+    names = [a.name for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names]
+    names += [node.module or '' for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom)]
+    assert names and not any(n.split('.')[0] == 'scipy' for n in names)
 
 
 def test_grid_mst_pair_matches_jax():
