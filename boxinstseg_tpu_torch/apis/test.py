@@ -40,6 +40,7 @@ from ..native import rle_lib
 from ..ops.upsample import aligned_bilinear, interpolate_bilinear
 from ..parallel import dist as pdist
 from ..utils.env import set_tf32, tf32_from_cfg
+from ..utils.profiling import span
 from .train import apply_precision_policy, batch_to_device, get_logger
 
 
@@ -102,60 +103,72 @@ def format_detection(out: Dict, i: int, img_shape, ori_shape,
     panoptic fusion. Returns an ``InstanceData`` with bboxes (n, 5) incl.
     the score, labels (n,) and masks, a list of (oh, ow) uint8."""
     test_cfg = test_cfg or {}
-    valid = _host(out['valid'][i])
-    labels = _host(out['labels'][i])[valid]
-    scores = _host(out['scores'][i])[valid]
-    ih, iw = int(img_shape[0]), int(img_shape[1])
-    oh, ow = int(ori_shape[0]), int(ori_shape[1])
-    meta = dict(img_shape=(ih, iw), ori_shape=(oh, ow))
-    if 'pan_cls' in out and test_cfg.get('panoptic_on', False):
-        # the panoptic fusion at the original resolution (reference
-        # maskformer_fusion_head.py simple_test :211-226 interpolates the
-        # per-query logits to ori_shape, then panoptic_postprocess)
-        logits = upsample_masks(out['pan_masks_logit'][i], img_shape,
-                                ori_shape, aligned=False)
-        fusion = dict(test_cfg.get('panoptic_fusion', {}))
-        meta['pan_results'] = panoptic_postprocess(
-            torch.as_tensor(out['pan_cls'][i]).float().to(logits.device),
-            logits,
-            num_things_classes=int(fusion.get('num_things_classes', 80)),
-            num_stuff_classes=int(fusion.get('num_stuff_classes', 53)),
-            object_mask_thr=float(test_cfg.get('object_mask_thr', 0.8)),
-            iou_thr=float(test_cfg.get('iou_thr', 0.8)),
-            filter_low_score=bool(test_cfg.get('filter_low_score', False))
-        ).cpu().numpy()
-    keep = torch.from_numpy(np.flatnonzero(valid))
-    if 'masks_logit' in out:
-        # the MaskFormer / Box2Mask fusion-head chain (maskformer_fusion_
-        # head.py simple_test :200-232, instance_postprocess :112-162):
-        # logits to the original resolution, binarised at 0, rescored by
-        # the mean sigmoid inside the mask
-        m = torch.as_tensor(out['masks_logit'][i])
-        full = upsample_masks(m[keep.to(m.device)], img_shape, ori_shape,
-                              aligned=False)
-        binary = full > 0
-        pos = binary.sum(dim=(1, 2)).double()
-        rescore = (torch.sigmoid(full) * binary).sum(dim=(1, 2)).double() \
-            / (pos + 1e-6)
-        scores = scores * rescore.cpu().numpy().astype(scores.dtype)
-        # the reference gives an empty mask score 0; it is dropped here
-        # (its RLE is empty and it cannot match anything in COCOeval)
-        nonempty = (pos > 0).cpu().numpy()
-        labels, scores = labels[nonempty], scores[nonempty]
-        binary = binary[torch.from_numpy(nonempty).to(binary.device)]
-        is_solo = True
-    else:
-        is_solo = 'bboxes' not in out
-        thresh = float(test_cfg.get('mask_thr', 0.5)) if is_solo else 0.5
-        m = torch.as_tensor(out['masks'][i])
-        binary = upsample_masks(m[keep.to(m.device)], img_shape, ori_shape,
-                                aligned=not is_solo) > thresh
-    if is_solo:
-        boxes = np.concatenate([_mask_extents(binary), scores[:, None]], -1)
-    else:
-        boxes = np.concatenate([_host(out['bboxes'][i])[valid],
-                                scores[:, None]], -1)
-    masks = list(binary.to(torch.uint8).cpu().numpy())
+    with span('format'):
+        with span('format.copy_out'):
+            valid = _host(out['valid'][i])
+            labels = _host(out['labels'][i])[valid]
+            scores = _host(out['scores'][i])[valid]
+        ih, iw = int(img_shape[0]), int(img_shape[1])
+        oh, ow = int(ori_shape[0]), int(ori_shape[1])
+        meta = dict(img_shape=(ih, iw), ori_shape=(oh, ow))
+        if 'pan_cls' in out and test_cfg.get('panoptic_on', False):
+            # the panoptic fusion at the original resolution (reference
+            # maskformer_fusion_head.py simple_test :211-226 interpolates
+            # the per-query logits to ori_shape, then panoptic_postprocess)
+            with span('format.resize'):
+                logits = upsample_masks(out['pan_masks_logit'][i],
+                                        img_shape, ori_shape, aligned=False)
+            fusion = dict(test_cfg.get('panoptic_fusion', {}))
+            meta['pan_results'] = panoptic_postprocess(
+                torch.as_tensor(out['pan_cls'][i]).float().to(logits.device),
+                logits,
+                num_things_classes=int(fusion.get('num_things_classes', 80)),
+                num_stuff_classes=int(fusion.get('num_stuff_classes', 53)),
+                object_mask_thr=float(test_cfg.get('object_mask_thr', 0.8)),
+                iou_thr=float(test_cfg.get('iou_thr', 0.8)),
+                filter_low_score=bool(test_cfg.get('filter_low_score',
+                                                   False))
+            ).cpu().numpy()
+        keep = torch.from_numpy(np.flatnonzero(valid))
+        if 'masks_logit' in out:
+            # the MaskFormer / Box2Mask fusion-head chain (maskformer_
+            # fusion_head.py simple_test :200-232, instance_postprocess
+            # :112-162): logits to the original resolution, binarised at
+            # 0, rescored by the mean sigmoid inside the mask
+            with span('format.resize'):
+                m = torch.as_tensor(out['masks_logit'][i])
+                full = upsample_masks(m[keep.to(m.device)], img_shape,
+                                      ori_shape, aligned=False)
+                binary = full > 0
+                pos = binary.sum(dim=(1, 2)).double()
+                rescore = (torch.sigmoid(full) * binary).sum(
+                    dim=(1, 2)).double() / (pos + 1e-6)
+            with span('format.copy_out'):
+                scores = scores * rescore.cpu().numpy().astype(scores.dtype)
+                # the reference gives an empty mask score 0; it is dropped
+                # here (its RLE is empty and it cannot match anything in
+                # COCOeval)
+                nonempty = (pos > 0).cpu().numpy()
+            labels, scores = labels[nonempty], scores[nonempty]
+            binary = binary[torch.from_numpy(nonempty).to(binary.device)]
+            is_solo = True
+        else:
+            is_solo = 'bboxes' not in out
+            thresh = float(test_cfg.get('mask_thr', 0.5)) if is_solo \
+                else 0.5
+            with span('format.resize'):
+                m = torch.as_tensor(out['masks'][i])
+                binary = upsample_masks(m[keep.to(m.device)], img_shape,
+                                        ori_shape,
+                                        aligned=not is_solo) > thresh
+        with span('format.copy_out'):
+            if is_solo:
+                boxes = np.concatenate([_mask_extents(binary),
+                                        scores[:, None]], -1)
+            else:
+                boxes = np.concatenate([_host(out['bboxes'][i])[valid],
+                                        scores[:, None]], -1)
+            masks = list(binary.to(torch.uint8).cpu().numpy())
     return InstanceData(metainfo=meta, bboxes=boxes.astype(np.float64),
                         labels=labels.astype(np.int64), masks=masks)
 
@@ -196,11 +209,12 @@ def predict_batch(model: torch.nn.Module, batch: Dict[str, np.ndarray],
     """``predict`` on one host batch of ``eval_batcher``: its image,
     img_shape and scale_factor on the model's device, under
     ``torch.inference_mode()`` and, with ``bf16``, bf16 autocast."""
-    device = next(model.parameters()).device
-    inputs = batch_to_device({k: batch[k] for k in (
-        'image', 'img_shape', 'scale_factor')}, device)
-    with torch.inference_mode(), autocast_bf16(device, bf16):
-        return model.predict(inputs)
+    with span('predict'):
+        device = next(model.parameters()).device
+        inputs = batch_to_device({k: batch[k] for k in (
+            'image', 'img_shape', 'scale_factor')}, device)
+        with torch.inference_mode(), autocast_bf16(device, bf16):
+            return model.predict(inputs)
 
 
 def shard_indices(n: int, rank: int, world: int) -> List[int]:

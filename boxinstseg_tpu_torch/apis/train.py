@@ -54,6 +54,7 @@ from ..engine.train_state import TSTrainStep, make_train_step
 from ..models.detectors.single_stage_ts import SingleStageWSInsTSDetector
 from ..parallel import dist as pdist
 from ..utils.env import set_tf32, tf32_from_cfg
+from ..utils.profiling import span
 
 
 def _train_resize_cfg(cfg):
@@ -158,13 +159,14 @@ def batch_to_device(batch: Dict[str, np.ndarray], device
     """numpy batch from ``StaticBatcher`` -> tensors on ``device``; the
     NHWC image canvas becomes NCHW. A host tensor in pinned memory is
     copied without blocking the host."""
-    out = {}
-    for k, v in batch.items():
-        t = v if torch.is_tensor(v) else torch.from_numpy(
-            np.ascontiguousarray(v))
-        out[k] = t.to(device, non_blocking=t.is_pinned())
-    out['image'] = out['image'].permute(0, 3, 1, 2).contiguous()
-    return out
+    with span('batch_to_device'):
+        out = {}
+        for k, v in batch.items():
+            t = v if torch.is_tensor(v) else torch.from_numpy(
+                np.ascontiguousarray(v))
+            out[k] = t.to(device, non_blocking=t.is_pinned())
+        out['image'] = out['image'].permute(0, 3, 1, 2).contiguous()
+        return out
 
 
 def build_object_bank(cfg, device):

@@ -48,7 +48,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..parallel import dist as pdist
-from ..utils.profiling import device_memory_stats, trace
+from ..utils.profiling import device_memory_stats, record, trace
 
 CKPT_NAME = re.compile(r'^iter_(\d+)\.pth$')
 
@@ -370,7 +370,11 @@ class ProfilerHook(Hook):
     """A ``torch.profiler`` trace (``utils.profiling.trace``) of the steps
     after step ``start`` up to step ``stop`` (1-based, the JAX hook's
     window), written to ``log_dir/trace.json`` after a sync of the card, so
-    that the last step's kernels are in it; ``path`` names the file."""
+    that the last step's kernels are in it; ``path`` names the file. The
+    port's spans show in the trace as ``bis:<name>`` ranges; the window is
+    also recorded (``utils.profiling.record`` with its host syncs), and at
+    its end each span's self host ms a step and the host syncs a step, with
+    their three commonest call sites, go to the log."""
 
     def __init__(self, start: int = 50, stop: int = 55,
                  log_dir: str = './profile', logger=None):
@@ -380,16 +384,34 @@ class ProfilerHook(Hook):
         self.logger = logger or logging.getLogger('boxinstseg_tpu_torch')
         self.path: Optional[str] = None
         self._trace: Optional[contextlib.ExitStack] = None
+        self._record = None
 
     def after_step(self, i, state, logs):
         if (i + 1) == self.start and self._trace is None:
             self._trace = contextlib.ExitStack()
             self.path = self._trace.enter_context(trace(self.log_dir))
+            self._record = self._trace.enter_context(record(syncs=True))
             self.logger.info(f'profiler trace started -> {self.log_dir}')
         elif (i + 1) == self.stop and self._trace is not None:
             self._trace.close()
             self._trace = None
             self.logger.info(f'profiler trace stopped: {self.path}')
+            self._log_record(self._record, self.stop - self.start)
+
+    def _log_record(self, rec, steps: int) -> None:
+        steps = max(steps, 1)
+        own = sorted(rec.self_ns().items(), key=lambda kv: -kv[1])
+        self.logger.info('host ms a step by span (self): ' + (', '.join(
+            f'{name} {ns / 1e6 / steps:.2f}' for name, ns in own)
+            or 'no spans'))
+        if not rec.syncs_watched:
+            self.logger.info('host syncs: not counted (no CUDA card)')
+            return
+        sites = ', '.join(f'{site} {n / steps:g}'
+                          for site, n in rec.sync_sites.most_common(3))
+        self.logger.info(f'host syncs a step: '
+                         f'{rec.counts["host_sync"] / steps:g}'
+                         + (f' (most at {sites})' if sites else ''))
 
 
 class WandbLoggerHook(Hook):

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..parallel import dist as pdist
+from ..utils.profiling import span
 
 
 def _make_update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -31,21 +32,24 @@ def _make_update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     max_norm = float(grad_clip['max_norm']) if grad_clip else None
 
     def update(total: torch.Tensor, step: int):
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        pdist.average_gradients(grads)
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
-        if max_norm is not None:
-            torch.nn.utils.clip_grad_norm_(params, max_norm)
-        lr = lr_fn(step)
-        for group in optimizer.param_groups:
-            group['lr'] = lr * group['lr_mult']
-        optimizer.step()
+        with span('backward'):
+            optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        with span('grad_norm'):
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            pdist.average_gradients(grads)
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            if max_norm is not None:
+                torch.nn.utils.clip_grad_norm_(params, max_norm)
+        with span('optimizer'):
+            lr = lr_fn(step)
+            for group in optimizer.param_groups:
+                group['lr'] = lr * group['lr_mult']
+            optimizer.step()
         return grad_norm, lr
 
     return update
@@ -79,16 +83,17 @@ def make_train_step(model: torch.nn.Module,
 
     def train_step(batch: Dict[str, torch.Tensor], step: int
                    ) -> Dict[str, torch.Tensor]:
-        model.train()
-        with autocast_bf16(batch['image'].device, bf16):
-            losses = model.loss(batch, step)
-        total = sum(v for k, v in losses.items() if 'loss' in k)
-        grad_norm, lr = update(total, step)
-        logs = {k: v.detach() for k, v in losses.items()}
-        logs['loss'] = total.detach()
-        logs['grad_norm'] = grad_norm.detach()
-        logs['lr'] = torch.tensor(lr)
-        return logs
+        with span('step'):
+            model.train()
+            with autocast_bf16(batch['image'].device, bf16):
+                losses = model.loss(batch, step)
+            total = sum(v for k, v in losses.items() if 'loss' in k)
+            grad_norm, lr = update(total, step)
+            logs = {k: v.detach() for k, v in losses.items()}
+            logs['loss'] = total.detach()
+            logs['grad_norm'] = grad_norm.detach()
+            logs['lr'] = torch.tensor(lr)
+            return logs
 
     return train_step
 
@@ -171,6 +176,10 @@ class TSTrainStep:
 
     def __call__(self, batch: Dict[str, torch.Tensor], step: int
                  ) -> Dict[str, torch.Tensor]:
+        with span('step'):
+            return self._step(batch, step)
+
+    def _step(self, batch, step):
         avg = self.avg_loss_ins
         gates = dict(ts=(avg < self.ts_thresh).float(),
                      corr=(avg < self.corr_thresh).float())
@@ -185,7 +194,8 @@ class TSTrainStep:
         append = losses.pop('_corr_append', None)
         total = sum(v for k, v in losses.items() if 'loss' in k)
         grad_norm, lr = self.update(total, step)
-        self._ema(step)
+        with span('ema'):
+            self._ema(step)
         loss_ins = losses['loss_ins'].detach()
         if pdist.is_distributed():
             loss_ins = pdist.all_reduce_sum(loss_ins) / pdist.world_size()

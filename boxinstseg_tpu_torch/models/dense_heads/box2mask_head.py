@@ -39,6 +39,7 @@ from ...ops.tree_filter import grid_mst_pair, tree_filter2d
 from ...ops.upsample import interpolate_bilinear
 from ...parallel import dist as pdist
 from ...registry import HEADS
+from ...utils.profiling import span
 
 
 def _nhwc(x):
@@ -199,8 +200,9 @@ class Box2MaskHead(nn.Module):
         lst96 = interpolate_bilinear(outs['levelset_feat'], (th, tw))
         box96 = interpolate_bilinear(k_masks, (th, tw))
         tf_md = self.tf_max_depth or th * tw
-        (parent_i, depth_i), (parent_l, depth_l) = grid_mst_pair(
-            _nhwc(img96), _nhwc(lst96), tf_md)
+        with span('loss.mst'):
+            (parent_i, depth_i), (parent_l, depth_l) = grid_mst_pair(
+                _nhwc(img96), _nhwc(lst96), tf_md)
 
         cls_stack = outs['cls']
         n_layers = len(cls_stack)
@@ -209,7 +211,7 @@ class Box2MaskHead(nn.Module):
 
         # the Hungarian match of all decoder outputs: one LSA solve on the
         # costs' device (the LSA kernel on the card)
-        with torch.no_grad():
+        with torch.no_grad(), span('loss.match'):
             costs = torch.stack([
                 cls_cost_w * classification_cost(cp, k_labels)
                 + dice_cost_w * box_matching_cost(mp, k_masks)
@@ -219,76 +221,82 @@ class Box2MaskHead(nn.Module):
                 k_valid.repeat(n_layers, 1))
             assigned = assigned.reshape(n_layers, B, K)
 
-        pix = torch.clamp(k_masks.sum(dim=(2, 3)), min=1.0)
-        bidx = torch.arange(B, device=dev)[:, None]
-        per_layer: List[Dict[str, torch.Tensor]] = []
-        layer_m96 = []
-        for cls_pred, mask_pred, asg in zip(cls_stack, mask_preds,
-                                            assigned):
-            # labels per query; unmatched queries are background
-            aq = torch.where(k_valid, asg, torch.full_like(asg, Q))
-            labels = torch.full((B, Q + 1), self.num_classes,
-                                dtype=torch.long, device=dev)
-            labels.scatter_(1, aq, k_labels)
-            labels = labels[:, :Q]
-            ce = -torch.gather(F.log_softmax(cls_pred, dim=-1), 2,
-                               labels[..., None])[..., 0]
-            wts = class_weight[labels]
-            loss_cls = cls_w * (ce * wts).sum() \
-                / pdist.reduce_mean_denominator(wts.sum(), 1.0)
+        with span('loss.layers'):
+            pix = torch.clamp(k_masks.sum(dim=(2, 3)), min=1.0)
+            bidx = torch.arange(B, device=dev)[:, None]
+            per_layer: List[Dict[str, torch.Tensor]] = []
+            layer_m96 = []
+            for cls_pred, mask_pred, asg in zip(cls_stack, mask_preds,
+                                                assigned):
+                # labels per query; unmatched queries are background
+                aq = torch.where(k_valid, asg, torch.full_like(asg, Q))
+                labels = torch.full((B, Q + 1), self.num_classes,
+                                    dtype=torch.long, device=dev)
+                labels.scatter_(1, aq, k_labels)
+                labels = labels[:, :Q]
+                ce = -torch.gather(F.log_softmax(cls_pred, dim=-1), 2,
+                                   labels[..., None])[..., 0]
+                wts = class_weight[labels]
+                loss_cls = cls_w * (ce * wts).sum() \
+                    / pdist.reduce_mean_denominator(wts.sum(), 1.0)
 
-            mscore = torch.sigmoid(mask_pred[bidx, asg])     # (B, K, H, W)
+                mscore = torch.sigmoid(mask_pred[bidx, asg])     # (B, K, H, W)
 
-            def d1(a, t):
-                inter = (a * t).sum(-1)
-                den = (a ** 2).sum(-1) + (t ** 2).sum(-1) + 1e-5
-                return 1.0 - 2.0 * inter / den
+                def d1(a, t):
+                    inter = (a * t).sum(-1)
+                    den = (a ** 2).sum(-1) + (t ** 2).sum(-1) + 1e-5
+                    return 1.0 - 2.0 * inter / den
 
-            proj = d1(mscore.amax(dim=2), k_masks.amax(dim=2)) \
-                + d1(mscore.amax(dim=3), k_masks.amax(dim=3))
-            loss_project = box_w * (proj * mv).sum() / mdenom
-            ls_img = region_levelset_shared(mscore, k_masks, img4) / pix
-            loss_img = 0.05 * ls_w * (ls_img * mv).sum() / mdenom
-            per_layer.append(dict(loss_cls=loss_cls,
-                                  loss_project=loss_project,
-                                  loss_img=loss_img))
-            layer_m96.append(interpolate_bilinear(mscore, (th, tw)))
+                proj = d1(mscore.amax(dim=2), k_masks.amax(dim=2)) \
+                    + d1(mscore.amax(dim=3), k_masks.amax(dim=3))
+                loss_project = box_w * (proj * mv).sum() / mdenom
+                ls_img = region_levelset_shared(mscore, k_masks, img4) / pix
+                loss_img = 0.05 * ls_w * (ls_img * mv).sum() / mdenom
+                per_layer.append(dict(loss_cls=loss_cls,
+                                      loss_project=loss_project,
+                                      loss_img=loss_img))
+                layer_m96.append(interpolate_bilinear(mscore, (th, tw)))
 
         # the tree-filtered structural term, all outputs in one call each
-        all96 = torch.cat(layer_m96, dim=1)                 # (B, L*K, t, t)
-        deep_img = tree_filter2d(_nhwc(all96), _nhwc(img96), parent_i,
-                                 depth_i, sigma=0.02, low_tree=True,
-                                 max_depth=tf_md)
-        deep_lst = tree_filter2d(deep_img, _nhwc(lst96), parent_l, depth_l,
-                                 low_tree=False, max_depth=tf_md)
-        # LCM, all outputs batched (affinity from the image only)
-        refined = LocalConsistencyModule(dilations=(2,), num_iter=10)(
-            img96, all96)
+        with span('loss.tree_filter'):
+            all96 = torch.cat(layer_m96, dim=1)             # (B, L*K, t, t)
+            deep_img = tree_filter2d(_nhwc(all96), _nhwc(img96), parent_i,
+                                     depth_i, sigma=0.02, low_tree=True,
+                                     max_depth=tf_md)
+            deep_lst = tree_filter2d(deep_img, _nhwc(lst96), parent_l, depth_l,
+                                     low_tree=False, max_depth=tf_md)
 
-        def to_lk(x):          # (B, t, t, L*K) -> (L, B, K, t, t)
-            return x.reshape(B, th, tw, n_layers, K).permute(3, 0, 4, 1, 2)
+        with span('loss.levelset'):
+            # LCM, all outputs batched (affinity from the image only)
+            refined = LocalConsistencyModule(dilations=(2,), num_iter=10)(
+                img96, all96)
 
-        di_stack, dl_stack = to_lk(deep_img), to_lk(deep_lst)
-        m96_stack = all96.reshape(B, n_layers, K, th, tw).transpose(0, 1)
-        ref_stack = refined.reshape(B, n_layers, K, th, tw).transpose(0, 1)
-        pix96 = torch.clamp(box96.sum(dim=(2, 3)), min=1.0).reshape(-1)
-        box_mv = box96 * mv[..., None, None]
-        lcm_den = pdist.reduce_mean_denominator(box_mv.sum(), 1.0)
+            def to_lk(x):          # (B, t, t, L*K) -> (L, B, K, t, t)
+                return x.reshape(B, th, tw, n_layers, K).permute(3, 0, 4, 1, 2)
 
-        losses: Dict[str, torch.Tensor] = {}
-        for li in range(n_layers):
-            di, dl, m96, ref = (di_stack[li], dl_stack[li], m96_stack[li],
-                                ref_stack[li])
-            high = torch.stack([di, dl], dim=2) * box96[:, :, None]
-            phi96 = torch.stack([m96, 1.0 - m96], dim=2) * box96[:, :, None]
-            ls_hi = region_levelset(phi96.reshape(B * K, 2, th, tw),
-                                    high.reshape(B * K, 2, th, tw)) / pix96
-            loss_feat = 5.0 * ls_w * (ls_hi * mv.reshape(-1)).sum() / mdenom
-            loss_lcm = 0.2 * ((ref - m96).abs() * box_mv).sum() / lcm_den
-            pl = per_layer[li]
-            prefix = '' if li == n_layers - 1 else f'd{li}.'
-            losses[f'{prefix}loss_cls'] = pl['loss_cls']
-            losses[f'{prefix}loss_project'] = pl['loss_project']
-            losses[f'{prefix}loss_levelset'] = pl['loss_img'] + (
-                loss_feat + loss_lcm)
+            di_stack, dl_stack = to_lk(deep_img), to_lk(deep_lst)
+            m96_stack = all96.reshape(B, n_layers, K, th, tw).transpose(0, 1)
+            ref_stack = refined.reshape(B, n_layers, K, th, tw).transpose(0, 1)
+            pix96 = torch.clamp(box96.sum(dim=(2, 3)), min=1.0).reshape(-1)
+            box_mv = box96 * mv[..., None, None]
+            lcm_den = pdist.reduce_mean_denominator(box_mv.sum(), 1.0)
+
+            losses: Dict[str, torch.Tensor] = {}
+            for li in range(n_layers):
+                di, dl, m96, ref = (di_stack[li], dl_stack[li], m96_stack[li],
+                                    ref_stack[li])
+                high = torch.stack([di, dl], dim=2) * box96[:, :, None]
+                phi96 = torch.stack([m96, 1.0 - m96], dim=2) \
+                    * box96[:, :, None]
+                ls_hi = region_levelset(phi96.reshape(B * K, 2, th, tw),
+                                        high.reshape(B * K, 2, th, tw)) / pix96
+                loss_feat = 5.0 * ls_w * (ls_hi * mv.reshape(-1)).sum() \
+                    / mdenom
+                loss_lcm = 0.2 * ((ref - m96).abs() * box_mv).sum() / lcm_den
+                pl = per_layer[li]
+                prefix = '' if li == n_layers - 1 else f'd{li}.'
+                losses[f'{prefix}loss_cls'] = pl['loss_cls']
+                losses[f'{prefix}loss_project'] = pl['loss_project']
+                losses[f'{prefix}loss_levelset'] = pl['loss_img'] + (
+                    loss_feat + loss_lcm)
         return losses

@@ -35,6 +35,7 @@ from ...ops.points import concat_points_and_meta
 from ...ops.upsample import aligned_bilinear, avg_pool_stride
 from ...parallel import dist as pdist
 from ...registry import HEADS, LOSSES
+from ...utils.profiling import span
 
 DEFAULT_REGRESS_RANGES = ((-1, 64), (64, 128), (128, 256), (256, 512),
                           (512, INF))
@@ -133,35 +134,39 @@ class CondInstBoxHead(nn.Module):
              ) -> Tuple[Dict[str, torch.Tensor], FcosTargets, dict]:
         """Box losses over the batch; the normalisers are the global
         batch's under a process group (``parallel.dist``)."""
-        featmap_sizes = [tuple(x.shape[-2:]) for x in outs['cls']]
-        pts = self.points_meta(featmap_sizes, gt_bboxes.device)
-        targets = fcos_targets(
-            pts['points'], pts['strides'], pts['regress_ranges'],
-            gt_bboxes, gt_labels, gt_valid, self.num_classes,
-            self.center_sampling, self.center_sample_radius,
-            self.norm_on_bbox)
+        with span('loss.targets'):
+            featmap_sizes = [tuple(x.shape[-2:]) for x in outs['cls']]
+            pts = self.points_meta(featmap_sizes, gt_bboxes.device)
+            targets = fcos_targets(
+                pts['points'], pts['strides'], pts['regress_ranges'],
+                gt_bboxes, gt_labels, gt_valid, self.num_classes,
+                self.center_sampling, self.center_sample_radius,
+                self.norm_on_bbox)
 
-        cls = flatten_levels(outs['cls'])               # (B, P, C)
-        bbox = flatten_levels(outs['bbox'])             # (B, P, 4)
-        ctr = flatten_levels(outs['ctr'])[..., 0]       # (B, P)
+        with span('loss.box'):
+            cls = flatten_levels(outs['cls'])               # (B, P, C)
+            bbox = flatten_levels(outs['bbox'])             # (B, P, 4)
+            ctr = flatten_levels(outs['ctr'])[..., 0]       # (B, P)
 
-        is_pos = targets.labels < self.num_classes
-        num_pos = pdist.reduce_mean_denominator(is_pos.sum().float(), 1.0)
-        loss_cls = self.loss_cls(cls, targets.labels, avg_factor=num_pos)
+            is_pos = targets.labels < self.num_classes
+            num_pos = pdist.reduce_mean_denominator(is_pos.sum().float(),
+                                                    1.0)
+            loss_cls = self.loss_cls(cls, targets.labels,
+                                     avg_factor=num_pos)
 
-        pos_w = is_pos.float()
-        ctr_targets = targets.centerness
-        ctr_denorm = pdist.reduce_mean_denominator(
-            (ctr_targets * pos_w).sum(), 1e-6)
-        points = pts['points'][None]                    # (1, P, 2)
-        loss_bbox = self.loss_bbox(
-            distance2bbox(points, bbox),
-            distance2bbox(points, targets.bbox_targets),
-            weight=ctr_targets * pos_w, avg_factor=ctr_denorm)
-        loss_ctr = self.loss_centerness(ctr, ctr_targets, weight=pos_w,
-                                        avg_factor=num_pos)
-        losses = dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
-                      loss_centerness=loss_ctr)
+            pos_w = is_pos.float()
+            ctr_targets = targets.centerness
+            ctr_denorm = pdist.reduce_mean_denominator(
+                (ctr_targets * pos_w).sum(), 1e-6)
+            points = pts['points'][None]                    # (1, P, 2)
+            loss_bbox = self.loss_bbox(
+                distance2bbox(points, bbox),
+                distance2bbox(points, targets.bbox_targets),
+                weight=ctr_targets * pos_w, avg_factor=ctr_denorm)
+            loss_ctr = self.loss_centerness(ctr, ctr_targets, weight=pos_w,
+                                            avg_factor=num_pos)
+            losses = dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
+                          loss_centerness=loss_ctr)
         return losses, targets, pts
 
 

@@ -24,6 +24,7 @@ from ...ops.boxes import distance2bbox
 from ...ops.nms import greedy_nms, top_k
 from ...parallel import dist as pdist
 from ...registry import BACKBONES, DETECTORS, HEADS, NECKS
+from ...utils.profiling import span
 
 DEFAULT_MEAN = (123.675, 116.28, 103.53)
 DEFAULT_STD = (58.395, 57.12, 57.375)
@@ -58,9 +59,11 @@ class CondInst(nn.Module):
         self.img_norm_std = tuple(img_norm_std)
 
     def extract_feat(self, images):
-        x = self.backbone(images)
+        with span('forward.backbone'):
+            x = self.backbone(images)
         if self.neck is not None:
-            x = self.neck(x)
+            with span('forward.neck'):
+                x = self.neck(x)
         return x
 
     def forward(self, images):
@@ -69,10 +72,13 @@ class CondInst(nn.Module):
         return self._forward(self.extract_feat(images))
 
     def _forward(self, feats):
-        outs = self.bbox_head(feats)
-        outs['param'] = [self.mask_head.param_conv(f)
-                         for f in outs.pop('reg_feat')]
-        return outs, self.mask_branch(feats)
+        with span('forward.bbox_head'):
+            outs = self.bbox_head(feats)
+        with span('forward.mask_head'):
+            outs['param'] = [self.mask_head.param_conv(f)
+                             for f in outs.pop('reg_feat')]
+        with span('forward.mask_branch'):
+            return outs, self.mask_branch(feats)
 
     # ------------------------------------------------------------------ train
     def loss(self, batch: Dict[str, torch.Tensor], iteration
@@ -89,8 +95,9 @@ class CondInst(nn.Module):
         outs, mask_feat = f32_tree(self._forward(feats))
         segm_pred = None
         if self.segm_head is not None and 'gt_masks' in batch:
-            segm_pred = self.segm_head(feats[0]).float()
-        with fp32_region(mask_feat.device):
+            with span('forward.segm_head'):
+                segm_pred = self.segm_head(feats[0]).float()
+        with fp32_region(mask_feat.device), span('loss'):
             losses = self._loss(outs, mask_feat, batch, iteration)
             if segm_pred is not None:
                 # the masks are at stride 1 (apis.train.mask_stride)
@@ -104,33 +111,37 @@ class CondInst(nn.Module):
         losses, targets, pts = self.bbox_head.loss(
             outs, batch['gt_bboxes'], batch['gt_labels'], batch['gt_valid'])
 
-        # fixed-capacity positive sampling (reference training_sample,
-        # condinst_head.py:1166-1232)
-        cls = flatten_levels(outs['cls'])
-        ctr = flatten_levels(outs['ctr'])[..., 0]
-        score = (torch.sigmoid(cls).amax(-1) * torch.sigmoid(ctr)).detach()
-        point_idx, sample_gt, sample_valid = sample_positives_per_gt(
-            score, targets.gt_inds, batch['gt_valid'],
-            self.mask_head.capacity)
+        with span('loss.mask'):
+            # fixed-capacity positive sampling (reference training_sample,
+            # condinst_head.py:1166-1232)
+            cls = flatten_levels(outs['cls'])
+            ctr = flatten_levels(outs['ctr'])[..., 0]
+            score = (torch.sigmoid(cls).amax(-1)
+                     * torch.sigmoid(ctr)).detach()
+            point_idx, sample_gt, sample_valid = sample_positives_per_gt(
+                score, targets.gt_inds, batch['gt_valid'],
+                self.mask_head.capacity)
 
-        params_flat = flatten_levels(outs['param'])             # (B, P, Np)
-        params = torch.gather(
-            params_flat, 1,
-            point_idx[..., None].expand(-1, -1, params_flat.shape[-1]))
-        coors = pts['points'][point_idx]                        # (B, K, 2)
-        levels = pts['level_inds'][point_idx]                   # (B, K)
-        mask_logits = self.mask_head.decode(mask_feat, params, coors, levels)
-        if not self.mask_head.boxinst_enabled:
-            losses.update(self.dice_loss(mask_logits, batch['gt_masks'],
-                                         sample_gt, sample_valid))
-            return losses
-        boxes = torch.gather(batch['gt_bboxes'], 1,
-                             sample_gt[..., None].expand(-1, -1, 4))
-        sim, _ = self.mask_head.color_similarity_targets(
-            batch['image'], self.img_norm_mean, self.img_norm_std,
-            batch['img_shape'], batch['pixels_removed'])
-        losses.update(self.mask_head.loss(mask_logits, boxes, sample_valid,
-                                          sim.detach(), iteration))
+            params_flat = flatten_levels(outs['param'])         # (B, P, Np)
+            params = torch.gather(
+                params_flat, 1,
+                point_idx[..., None].expand(-1, -1, params_flat.shape[-1]))
+            coors = pts['points'][point_idx]                    # (B, K, 2)
+            levels = pts['level_inds'][point_idx]               # (B, K)
+            mask_logits = self.mask_head.decode(mask_feat, params, coors,
+                                                levels)
+            if not self.mask_head.boxinst_enabled:
+                losses.update(self.dice_loss(mask_logits, batch['gt_masks'],
+                                             sample_gt, sample_valid))
+                return losses
+            boxes = torch.gather(batch['gt_bboxes'], 1,
+                                 sample_gt[..., None].expand(-1, -1, 4))
+            sim, _ = self.mask_head.color_similarity_targets(
+                batch['image'], self.img_norm_mean, self.img_norm_std,
+                batch['img_shape'], batch['pixels_removed'])
+            losses.update(self.mask_head.loss(mask_logits, boxes,
+                                              sample_valid, sim.detach(),
+                                              iteration))
         return losses
 
     def dice_loss(self, mask_logits, gt_masks, sample_gt, sample_valid):
@@ -163,7 +174,7 @@ class CondInst(nn.Module):
         ``format_detection`` crops and rescales. The caller puts the model
         in ``eval()``."""
         outs, mask_feat = f32_tree(self(batch['image']))
-        with fp32_region(mask_feat.device):
+        with fp32_region(mask_feat.device), span('postprocess'):
             return self._predict(outs, mask_feat, batch)
 
     def _predict(self, outs, mask_feat, batch):

@@ -17,6 +17,7 @@ import torch.nn as nn
 
 from ..layers import f32_tree, fp32_region
 from ...registry import BACKBONES, DETECTORS, HEADS, NECKS
+from ...utils.profiling import span
 
 # reference: mmdet/core/evaluation/panoptic_utils.py:6 —
 # pan_id = cat_id + ins_id * INSTANCE_OFFSET
@@ -118,20 +119,24 @@ class MaskFormer(nn.Module):
         self.test_cfg = test_cfg
 
     def extract_feat(self, images):
-        x = self.backbone(images)
+        with span('forward.backbone'):
+            x = self.backbone(images)
         if self.neck is not None:
-            x = self.neck(x)
+            with span('forward.neck'):
+                x = self.neck(x)
         return x
 
     def forward(self, images):
-        return self.panoptic_head(self.extract_feat(images))
+        feats = self.extract_feat(images)
+        with span('forward.panoptic_head'):
+            return self.panoptic_head(feats)
 
     def loss(self, batch: Dict[str, torch.Tensor], iteration=None
              ) -> Dict[str, torch.Tensor]:
         """batch keys: image (B, 3, H, W) normalised RGB; gt_labels (B, G);
         gt_valid (B, G); gt_masks (B, G, H/4, W/4) box bitmasks."""
         outs = f32_tree(self(batch['image']))
-        with fp32_region(batch['image'].device):
+        with fp32_region(batch['image'].device), span('loss'):
             return self.panoptic_head.loss(outs, batch)
 
     @torch.no_grad()
@@ -145,8 +150,10 @@ class MaskFormer(nn.Module):
         ``eval()``."""
         outs = self(batch['image'])
         test_cfg = dict(self.test_cfg or {})
-        out = instance_postprocess(outs['cls'][-1], outs['masks'][-1],
-                                   int(test_cfg.get('max_per_image', 100)))
+        with span('postprocess'):
+            out = instance_postprocess(
+                outs['cls'][-1], outs['masks'][-1],
+                int(test_cfg.get('max_per_image', 100)))
         if test_cfg.get('panoptic_on', False):
             out['pan_cls'] = outs['cls'][-1]
             out['pan_masks_logit'] = outs['masks'][-1]

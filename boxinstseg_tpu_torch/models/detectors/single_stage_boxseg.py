@@ -15,6 +15,7 @@ import torch.nn as nn
 
 from ..layers import f32_tree, fp32_region
 from ...registry import BACKBONES, DETECTORS, HEADS, NECKS
+from ...utils.profiling import span
 
 
 @DETECTORS.register_module()
@@ -35,21 +36,25 @@ class SingleStageBoxInsDetector(nn.Module):
         self.test_cfg = test_cfg
 
     def extract_feat(self, images):
-        x = self.backbone(images)
+        with span('forward.backbone'):
+            x = self.backbone(images)
         if self.neck is not None:
-            x = self.neck(x)
+            with span('forward.neck'):
+                x = self.neck(x)
         return x
 
     def forward(self, images, train: bool = True):
         """The head's raw outputs (logits with ``train``)."""
-        return self.bbox_head(self.extract_feat(images), train=train)
+        feats = self.extract_feat(images)
+        with span('forward.bbox_head'):
+            return self.bbox_head(feats, train=train)
 
     def loss(self, batch: Dict[str, torch.Tensor], iteration=None
              ) -> Dict[str, torch.Tensor]:
         """The head's losses, its outputs in fp32 (the bf16 policy's loss
         boundary)."""
-        outs = f32_tree(self.bbox_head(self.extract_feat(batch['image'])))
-        with fp32_region(outs['mask_feat'].device):
+        outs = f32_tree(self(batch['image']))
+        with fp32_region(outs['mask_feat'].device), span('loss'):
             return self.bbox_head.loss(outs, batch)
 
     @torch.no_grad()
@@ -59,9 +64,8 @@ class SingleStageBoxInsDetector(nn.Module):
         labels, valid (B, D) and masks (B, D, H/4, W/4) sigmoid scores on
         the padded canvas, the selection in fp32 under the bf16 policy.
         The caller puts the model in ``eval()``."""
-        outs = f32_tree(self.bbox_head(self.extract_feat(batch['image']),
-                                       train=False))
-        with fp32_region(outs['mask_feat'].device):
+        outs = f32_tree(self(batch['image'], train=False))
+        with fp32_region(outs['mask_feat'].device), span('postprocess'):
             return self.bbox_head.get_seg(outs, self.test_cfg)
 
 

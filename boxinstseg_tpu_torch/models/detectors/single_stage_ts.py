@@ -15,6 +15,7 @@ import torch.nn as nn
 
 from ..layers import f32_tree, fp32_region
 from ...registry import BACKBONES, DETECTORS, HEADS, NECKS
+from ...utils.profiling import span
 
 
 @DETECTORS.register_module()
@@ -39,9 +40,11 @@ class SingleStageWSInsDetector(nn.Module):
         self.test_cfg = test_cfg
 
     def extract_feat(self, images):
-        x = self.backbone(images)
+        with span('forward.backbone'):
+            x = self.backbone(images)
         if self.neck is not None:
-            x = self.neck(x)
+            with span('forward.neck'):
+                x = self.neck(x)
         return x
 
     def _mask_feat_inputs(self, feats):
@@ -50,18 +53,22 @@ class SingleStageWSInsDetector(nn.Module):
 
     def forward(self, images):
         """Raw head outputs (kernels, cates) and the unified mask feature."""
-        feats = self.extract_feat(images)
-        return (self.bbox_head(feats),
-                self.mask_feat_head(self._mask_feat_inputs(feats)))
+        return self._heads(self.extract_feat(images))
+
+    def _heads(self, feats, **kwargs):
+        """The head's raw outputs and the unified mask feature."""
+        with span('forward.bbox_head'):
+            outs = self.bbox_head(feats, **kwargs)
+        with span('forward.mask_feat_head'):
+            return outs, self.mask_feat_head(self._mask_feat_inputs(feats))
 
     @torch.no_grad()
     def teacher_outputs(self, images) -> Dict[str, torch.Tensor]:
         """Raw kernels, the mask feature and P2, for the EMA replica
         (reference teacher forward, single_stage_ts.py:195-199)."""
         feats = self.extract_feat(images)
-        return dict(kernels=self.bbox_head(feats)['kernels'],
-                    mask_feat=self.mask_feat_head(
-                        self._mask_feat_inputs(feats)),
+        outs, mask_feat = self._heads(feats)
+        return dict(kernels=outs['kernels'], mask_feat=mask_feat,
                     p2=feats[0])
 
     def loss(self, batch: Dict[str, torch.Tensor], iteration=None,
@@ -76,12 +83,12 @@ class SingleStageWSInsDetector(nn.Module):
         correspondence terms. A ``'_corr_append'`` entry, when present,
         holds the bank's append entries and is no loss."""
         feats = self.extract_feat(batch['image'])
-        outs = f32_tree(self.bbox_head(feats))
-        mask_feat = self.mask_feat_head(self._mask_feat_inputs(feats)).float()
+        outs, mask_feat = self._heads(feats)
+        outs, mask_feat = f32_tree(outs), mask_feat.float()
         feats = f32_tree(feats)       # P2 feeds the correspondence loss
         teacher_out = f32_tree(teacher_out)
         gates = gates or {}
-        with fp32_region(mask_feat.device):
+        with fp32_region(mask_feat.device), span('loss'):
             return self.bbox_head.loss(
                 outs, mask_feat, batch, teacher=teacher_out,
                 use_ts_gate=gates.get('ts'), corr_gate=gates.get('corr'),
@@ -96,10 +103,10 @@ class SingleStageWSInsDetector(nn.Module):
         the padded canvas. Under the bf16 policy the selection and the
         matrix NMS run in fp32 (its mask products count pixels). The
         caller puts the model in ``eval()``."""
-        feats = self.extract_feat(batch['image'])
-        outs = f32_tree(self.bbox_head(feats, train=False))
-        mask_feat = self.mask_feat_head(self._mask_feat_inputs(feats)).float()
-        with fp32_region(mask_feat.device):
+        outs, mask_feat = self._heads(self.extract_feat(batch['image']),
+                                      train=False)
+        outs, mask_feat = f32_tree(outs), mask_feat.float()
+        with fp32_region(mask_feat.device), span('postprocess'):
             return self.bbox_head.get_seg(outs, mask_feat, self.test_cfg)
 
 

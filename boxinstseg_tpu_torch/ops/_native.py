@@ -19,6 +19,8 @@ import time
 
 import torch
 
+from ..utils.profiling import count, span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
@@ -60,8 +62,9 @@ def _library_path(name: str) -> str:
 def build_all(names) -> None:
     """Compile every source of ``names`` (``csrc/<name>.cu``, or a path to
     a .cu file) that is not built yet, one ``nvcc`` process per source, all
-    started together; then load them."""
-    with _LOCK:
+    started together (each counted as ``native_build``); then load
+    them."""
+    with _LOCK, span('build_kernels'):
         procs = {}
         for name in names:
             out = _library_path(name)
@@ -76,6 +79,7 @@ def build_all(names) -> None:
                                [_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
                                stdout=subprocess.PIPE,
                                stderr=subprocess.PIPE, text=True))
+            count('native_build')
         errors = []
         for name, (out, tmp, src, t0, proc) in procs.items():
             _, stderr = proc.communicate()
@@ -94,8 +98,11 @@ def build_all(names) -> None:
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``name``'s source (as ``build_all``) if needed and return the
     loaded library."""
-    build_all([name])
-    return _LIBS[name]
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _LIBS[name]
+    return lib
 
 
 def as_fp32(t):

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from ._native import as_fp32, check, load_library
+from ..utils.profiling import count
 
 # the 3x3 stencil, row-major from (-1, -1): the JAX package's order
 OFFSETS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
@@ -207,11 +208,8 @@ def crf_mean_field_cuda(kern, thresh, bin0, targets, num_iter,
             plan['band_rows'], plan['bands'], int(vec4), int(num_iter),
             stream)
     check(err, 'crf_mean_field')
-    crf_mean_field_cuda.launches += 1
+    count('kernel.crf_mean_field')
     return out
-
-
-crf_mean_field_cuda.launches = 0
 
 
 # --------------------------------------------------- registered torch op

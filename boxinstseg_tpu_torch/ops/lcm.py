@@ -29,6 +29,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from ._native import as_fp32, check, load_library
+from ..utils.profiling import count
 
 Offsets = Sequence[Tuple[int, int]]
 
@@ -233,21 +234,15 @@ def _launch(transpose, name, aff, phi, offsets, num_iter):
 def lcm_forward_cuda(aff, phi, offsets, num_iter):
     """LCM forward kernel: ``num_iter`` refinement rounds of phi."""
     out = _launch(False, 'lcm_forward', aff, phi, offsets, num_iter)
-    lcm_forward_cuda.launches += 1
+    count('kernel.lcm_forward')
     return out
-
-
-lcm_forward_cuda.launches = 0
 
 
 def lcm_adjoint_cuda(aff, g, offsets, num_iter):
     """LCM adjoint kernel: ``num_iter`` transposed rounds of g."""
     out = _launch(True, 'lcm_adjoint', aff, g, offsets, num_iter)
-    lcm_adjoint_cuda.launches += 1
+    count('kernel.lcm_adjoint')
     return out
-
-
-lcm_adjoint_cuda.launches = 0
 
 
 # --------------------------------------------------- registered torch ops

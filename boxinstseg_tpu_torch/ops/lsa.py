@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from ._native import check, load_library
+from ..utils.profiling import count
 
 # the unused columns' initial slack (the JAX package's _INF)
 INF = 1e30
@@ -181,11 +182,8 @@ def solve_lsa_cuda(cost: torch.Tensor, n_rows: torch.Tensor,
             steps.data_ptr() if steps is not None else None, p, n, m,
             stream)
     check(err, 'lsa_solve')
-    solve_lsa_cuda.launches += 1
+    count('kernel.lsa')
     return out
-
-
-solve_lsa_cuda.launches = 0
 
 
 # --------------------------------------------------- registered torch op

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from ._native import as_fp32, check, load_library
+from ..utils.profiling import count
 
 
 # ------------------------------------------------------------ plain version
@@ -254,11 +255,8 @@ def msda_forward_cuda(value, spatial_shapes, reference_points, offsets,
             offsets.data_ptr(), attn.data_ptr(), out.data_ptr(),
             _shapes_arg(shapes), len(shapes), b, s, l, h, d, p, stream)
     check(err, 'msda_forward')
-    msda_forward_cuda.launches += 1
+    count('kernel.msda_forward')
     return out
-
-
-msda_forward_cuda.launches = 0
 
 
 def msda_backward_cuda(value, spatial_shapes, reference_points, offsets,
@@ -281,11 +279,8 @@ def msda_backward_cuda(value, spatial_shapes, reference_points, offsets,
             d_value.data_ptr(), d_offsets.data_ptr(), d_attn.data_ptr(),
             _shapes_arg(shapes), len(shapes), b, s, l, h, d, p, stream)
     check(err, 'msda_backward')
-    msda_backward_cuda.launches += 1
+    count('kernel.msda_backward')
     return d_value, d_offsets, d_attn
-
-
-msda_backward_cuda.launches = 0
 
 
 # --------------------------------------------------- registered torch ops

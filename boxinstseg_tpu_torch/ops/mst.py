@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ._native import check, load_library
+from ..utils.profiling import count
 
 # dynamic shared memory a block may use on sm_90
 MAX_SHARED_BYTES = 232448
@@ -251,11 +252,8 @@ def grid_mst_cuda(w_right: torch.Tensor, w_down: torch.Tensor,
             depth.data_ptr(), stats.data_ptr() if stats is not None else None,
             b, h, wm1 + 1, md, stream)
     check(err, 'grid_mst')
-    grid_mst_cuda.launches += 1
+    count('kernel.grid_mst')
     return parent, depth
-
-
-grid_mst_cuda.launches = 0
 
 
 # --------------------------------------------------- registered torch op

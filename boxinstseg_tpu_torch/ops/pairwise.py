@@ -31,6 +31,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from ..parallel import dist as pdist
 from ._native import as_fp32, check, load_library
+from ..utils.profiling import count
 from .color import neighbor_offsets, shift2d
 
 
@@ -235,11 +236,8 @@ def _forward_launch(mask_logits, color_sim, bitmasks, valid, color_thresh,
             bitmasks.data_ptr(), valid.data_ptr(), part.data_ptr(),
             out.data_ptr(), live.data_ptr() if keep_live else None, *args)
     check(err, 'pairwise_forward')
-    pairwise_forward_cuda.launches += 1
+    count('kernel.pairwise_forward')
     return out, live
-
-
-pairwise_forward_cuda.launches = 0
 
 
 def pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid, scale,
@@ -272,11 +270,8 @@ def pairwise_grad_cuda(mask_logits, color_sim, bitmasks, valid, scale,
             grad.data_ptr(), None if live is None else live.data_ptr(),
             *args)
     check(err, 'pairwise_backward')
-    pairwise_grad_cuda.launches += 1
+    count('kernel.pairwise_backward')
     return grad
-
-
-pairwise_grad_cuda.launches = 0
 
 
 # --------------------------------------------------- registered torch ops

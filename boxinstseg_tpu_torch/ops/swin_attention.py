@@ -41,6 +41,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from ._native import as_fp32, check, load_library
+from ..utils.profiling import count
 
 NEG = -100.0                 # the additive constant of the shift mask
 MAX_N, MAX_D = 256, 128      # the kernels' limits (csrc/swin_attention.cu)
@@ -281,11 +282,8 @@ def window_attention_forward_cuda(q, k, v, bias_hnn, regions, scale):
             bias_hnn.data_ptr(), regions.data_ptr(), out.data_ptr(), bw, n,
             h, d, nw, float(scale), groups, int(plan[0]), stream)
     check(err, 'swin_attention_forward')
-    window_attention_forward_cuda.launches += 1
+    count('kernel.window_attention_forward')
     return out
-
-
-window_attention_forward_cuda.launches = 0
 
 
 def padded_heads(g, h):
@@ -320,11 +318,8 @@ def window_attention_backward_cuda(q, k, v, bias_hnn, regions, scale, g):
             dqkv.data_ptr(), partial.data_ptr(), dbias.data_ptr(), bw, n, h,
             d, nw, float(scale), groups, int(plan[0]), stream)
     check(err, 'swin_attention_backward')
-    window_attention_backward_cuda.launches += 1
+    count('kernel.window_attention_backward')
     return dqkv, dbias
-
-
-window_attention_backward_cuda.launches = 0
 
 
 # --------------------------------------------------- registered torch ops

@@ -11,6 +11,8 @@ import copy
 import inspect
 from typing import Any, Callable, Dict, Optional
 
+from .utils.profiling import span
+
 
 class Registry:
     """A name -> class mapping with a decorator-based registration API."""
@@ -119,12 +121,13 @@ def build_loss(cfg):
 def build_detector(cfg, train_cfg=None, test_cfg=None):
     """Build a detector; train/test cfg may come from the top-level config
     (reference surface: mmdet/models/builder.py:42-59)."""
-    cfg = copy.deepcopy(dict(cfg))
-    if train_cfg is not None:
-        cfg.setdefault('train_cfg', train_cfg)
-    if test_cfg is not None:
-        cfg.setdefault('test_cfg', test_cfg)
-    return DETECTORS.build(cfg)
+    with span('build_detector'):
+        cfg = copy.deepcopy(dict(cfg))
+        if train_cfg is not None:
+            cfg.setdefault('train_cfg', train_cfg)
+        if test_cfg is not None:
+            cfg.setdefault('test_cfg', test_cfg)
+        return DETECTORS.build(cfg)
 
 
 def build_dataset(cfg, default_args=None):

@@ -1082,6 +1082,7 @@ def check_msda(tag, levels, value, ref, offsets, attn, grad):
     ``boxinstseg::msda_forward`` and its autograd; whether two
     backward runs give the same bits. Returns the forward and backward max
     abs errors and the largest difference between two backward runs."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     import torch
     from boxinstseg_tpu_torch.ops import msda
     out_k = msda.msda_forward_cuda(value, levels, ref, offsets, attn)
@@ -1100,12 +1101,12 @@ def check_msda(tag, levels, value, ref, offsets, attn, grad):
     for name, gk, gp, ga in zip(names, grads_k, grads_p, grads_a):
         b_err = max(b_err, compare(f'MSDA backward {name} {tag}', gk, gp))
         compare(f'MSDA backward {name} {tag} vs autograd', gk, ga)
-    before = (msda.msda_forward_cuda.launches,
-              msda.msda_backward_cuda.launches)
+    before = (COUNTS['kernel.msda_forward'],
+              COUNTS['kernel.msda_backward'])
     out_f = msda.ms_deform_attn(leaves[0], levels, ref, leaves[1], leaves[2])
     grads_f = torch.autograd.grad(out_f, leaves, grad)
-    if (msda.msda_forward_cuda.launches - before[0],
-            msda.msda_backward_cuda.launches - before[1]) != (1, 1):
+    if (COUNTS['kernel.msda_forward'] - before[0],
+            COUNTS['kernel.msda_backward'] - before[1]) != (1, 1):
         fail(f'the msda_forward op {tag} did not launch the pair once')
     compare(f'msda_forward op {tag}', out_f.detach(), out_p)
     for name, gf, gp in zip(names, grads_f, grads_p):
@@ -1372,6 +1373,7 @@ def check_swin(tag, case, gen):
     op ``boxinstseg::window_attention`` and its autograd (what the backbone
     calls), and K6 against autograd through the plain forward. Returns the
     inputs and the forward / backward max abs errors."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     import torch
     from boxinstseg_tpu_torch.ops import swin_attention as swa
     qkv, bias, regions, g = swin_inputs(case, gen)
@@ -1394,12 +1396,12 @@ def check_swin(tag, case, gen):
         b_err = max(b_err, compare(f'K6 {name} {tag}', gk, gp))
         compare(f'K6 {name} {tag} vs autograd', gk, ga)
     leaves = [t.clone().requires_grad_(True) for t in (qkv, bias)]
-    before = (swa.window_attention_forward_cuda.launches,
-              swa.window_attention_backward_cuda.launches)
+    before = (COUNTS['kernel.window_attention_forward'],
+              COUNTS['kernel.window_attention_backward'])
     out_f = swa.window_attention_qkv(leaves[0], leaves[1], regions, scale)
     out_f.backward(g)
-    if (swa.window_attention_forward_cuda.launches - before[0],
-            swa.window_attention_backward_cuda.launches - before[1]) \
+    if (COUNTS['kernel.window_attention_forward'] - before[0],
+            COUNTS['kernel.window_attention_backward'] - before[1]) \
             != (1, 1):
         fail(f'the window_attention op {tag} did not launch K5 and K6 once')
     compare(f'window_attention op forward {tag}', out_f.detach(), out_p)
@@ -1647,8 +1649,8 @@ def phase_slice(tool, work_dir):
     the checkpoint written under ``work_dir``. Returns the pairwise
     kernels' launches, the inputs (and config) of the last step's pairwise
     call, the checkpoint's path and the median step ms."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     import torch
-    from boxinstseg_tpu_torch.ops import pairwise as pw
     register_dataset()
     seed = 0
     opts = ['model.mask_head.pairwise_warmup=1',
@@ -1663,13 +1665,13 @@ def phase_slice(tool, work_dir):
           f'params, {head.num_classes} classes, topk_per_img '
           f'{cfg.model.mask_head.topk_per_img}')
     torch.cuda.reset_peak_memory_stats()
-    pw.pairwise_forward_cuda.launches = 0
-    pw.pairwise_grad_cuda.launches = 0
+    COUNTS['kernel.pairwise_forward'] = 0
+    COUNTS['kernel.pairwise_backward'] = 0
     with live_gt_counts() as gts, capture_pairwise_inputs() as kept:
         result = train_tool(tool, CONFIG, work_dir, seed, opts)
     torch.cuda.synchronize()
-    launches = {'pairwise_forward': pw.pairwise_forward_cuda.launches,
-                'pairwise_backward': pw.pairwise_grad_cuda.launches}
+    launches = {'pairwise_forward': COUNTS['kernel.pairwise_forward'],
+                'pairwise_backward': COUNTS['kernel.pairwise_backward']}
     peak = torch.cuda.max_memory_allocated()
     check_history(result, STEPS, required=('loss_pairwise',))
     for name, n in launches.items():
@@ -1705,9 +1707,8 @@ def phase_box2mask(tool, config, samples, parts, lsa_kept=None,
     the run, the config and the trained model (on the CPU). Fails unless a
     tensor of each of ``parts`` changed. ``lsa_kept`` and ``mst_kept``,
     dicts, receive the last LSA and MST calls' inputs."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     import torch
-    from boxinstseg_tpu_torch.ops import lcm, lsa, msda, mst
-    from boxinstseg_tpu_torch.ops import swin_attention as swa
     register_dataset()
     work_dir = tempfile.mkdtemp(prefix='chip_smoke_b2m_')
     seed = 0
@@ -1715,12 +1716,12 @@ def phase_box2mask(tool, config, samples, parts, lsa_kept=None,
             f'data.samples_per_gpu={samples}',
             'data.train.type=SyntheticBoxDataset',
             'data.train.img_h=1024', 'data.train.img_w=1024']
-    counters = {'msda_forward': msda.msda_forward_cuda,
-                'msda_backward': msda.msda_backward_cuda,
-                'lcm_forward': lcm.lcm_forward_cuda,
-                'lcm_adjoint': lcm.lcm_adjoint_cuda,
-                'lsa_solve': lsa.solve_lsa_cuda,
-                'grid_mst': mst.grid_mst_cuda}
+    counters = {'msda_forward': 'kernel.msda_forward',
+                'msda_backward': 'kernel.msda_backward',
+                'lcm_forward': 'kernel.lcm_forward',
+                'lcm_adjoint': 'kernel.lcm_adjoint',
+                'lsa_solve': 'kernel.lsa',
+                'grid_mst': 'kernel.grid_mst'}
     try:
         cfg = tool.load_config(config, opts, work_dir, seed)
         head = cfg.model.panoptic_head
@@ -1746,21 +1747,21 @@ def phase_box2mask(tool, config, samples, parts, lsa_kept=None,
                     'grid_mst': 1}
         if bb.type == 'SwinTransformer':
             counters['swin_attention_forward'] = \
-                swa.window_attention_forward_cuda
+                'kernel.window_attention_forward'
             counters['swin_attention_backward'] = \
-                swa.window_attention_backward_cuda
+                'kernel.window_attention_backward'
             per_step['swin_attention_forward'] = sum(bb.depths)
             per_step['swin_attention_backward'] = sum(bb.depths)
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
+        for key in counters.values():
+            COUNTS[key] = 0
         kept = {} if lsa_kept is None else lsa_kept
         with live_gt_counts() as gts, no_scipy_lsa(), \
                 capture_lsa_inputs(kept), \
                 capture_mst_inputs({} if mst_kept is None else mst_kept):
             result = train_tool(tool, config, work_dir, seed, opts)
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = {name: COUNTS[key] for name, key in counters.items()}
         peak = torch.cuda.max_memory_allocated()
         check_history(result, STEPS,
                       required=('loss_cls', 'loss_project',
@@ -1790,22 +1791,22 @@ def phase_swin_predict(cfg, model):
     K5 once per block a call, K6 never; the instance candidates' shapes;
     the median wall time of 3 calls after 1 warm-up; then
     ``format_detection`` and the RLE codec on its output."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     import torch
     from boxinstseg_tpu_torch.apis.test import format_detection
     from boxinstseg_tpu_torch.data.coco_api import rle_encode
-    from boxinstseg_tpu_torch.ops import swin_attention as swa
-    fwd, bwd = (swa.window_attention_forward_cuda,
-                swa.window_attention_backward_cuda)
+    fwd, bwd = ('kernel.window_attention_forward',
+                'kernel.window_attention_backward')
     blocks = sum(cfg.model.backbone.depths)
     k = cfg.model.test_cfg.max_per_image
     model = model.cuda().eval()
     gen = torch.Generator().manual_seed(0)
     batch = {'image': torch.randn((1, 3, 1024, 1024), generator=gen).cuda()}
-    fwd.launches = bwd.launches = 0
+    COUNTS[fwd] = COUNTS[bwd] = 0
     out = model.predict(batch)
     torch.cuda.synchronize()
-    if (fwd.launches, bwd.launches) != (blocks, 0):
-        fail(f'predict launched K5 {fwd.launches} and K6 {bwd.launches} '
+    if (COUNTS[fwd], COUNTS[bwd]) != (blocks, 0):
+        fail(f'predict launched K5 {COUNTS[fwd]} and K6 {COUNTS[bwd]} '
              f'times, expected {blocks} and 0')
     want = {'scores': (1, k), 'labels': (1, k), 'valid': (1, k),
             'masks_logit': (1, k, 256, 256)}
@@ -1821,9 +1822,9 @@ def phase_swin_predict(cfg, model):
         model.predict(batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    if (fwd.launches, bwd.launches) != (4 * blocks, 0):
-        fail(f'4 predict calls launched K5 {fwd.launches} and K6 '
-             f'{bwd.launches} times')
+    if (COUNTS[fwd], COUNTS[bwd]) != (4 * blocks, 0):
+        fail(f'4 predict calls launched K5 {COUNTS[fwd]} and K6 '
+             f'{COUNTS[bwd]} times')
     print(f'predict: {k} candidates, scores {out["scores"][0, :3].tolist()}'
           f', labels {out["labels"][0, :3].tolist()}, masks_logit '
           f'{tuple(out["masks_logit"].shape)}; K5 {blocks} launches a call,'
@@ -1984,10 +1985,10 @@ def tiny_box2mask_cfg():
 def phase_box2mask_reference():
     """Small Box2Mask: loss dict on the card (kernels) vs the CPU (plain
     versions), in fp32."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     print('fp32: the precision policy is off (no fp16 / bf16 key), so the '
           'card and the CPU compute the same function')
     import numpy as np
-    from boxinstseg_tpu_torch.ops import lcm, msda
     rng = np.random.RandomState(0)
     b, h, w, g = 2, 128, 128, 4
     masks = np.zeros((b, g, h // 4, w // 4), np.float32)
@@ -2001,9 +2002,9 @@ def phase_box2mask_reference():
     batch = dict(image=rng.rand(b, 3, h, w).astype(np.float32) * 4 - 2,
                  gt_masks=masks, gt_labels=rng.randint(0, 4, (b, g)),
                  gt_valid=valid)
-    before = msda.msda_forward_cuda.launches, lcm.lcm_forward_cuda.launches
+    before = COUNTS['kernel.msda_forward'], COUNTS['kernel.lcm_forward']
     compare_loss_dicts(tiny_box2mask_cfg(), batch)
-    if (msda.msda_forward_cuda.launches, lcm.lcm_forward_cuda.launches) \
+    if (COUNTS['kernel.msda_forward'], COUNTS['kernel.lcm_forward']) \
             == before:
         fail('the small Box2Mask on the card launched no MSDA / LCM kernel')
 
@@ -2013,10 +2014,10 @@ def phase_swin_reference():
     30x34, 15x17, 8x9 and 4x5 token maps, all padded, with shifted blocks in
     every stage): loss dict and backbone gradients on the card (K5, K6)
     against the CPU (plain versions), in fp32."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     print('fp32: the precision policy is off (no fp16 / bf16 key), so the '
           'card and the CPU compute the same function')
     import numpy as np
-    from boxinstseg_tpu_torch.ops import swin_attention as swa
     rng = np.random.RandomState(1)
     b, h, w, g = 2, 120, 136, 4
     masks = np.zeros((b, g, h // 4, w // 4), np.float32)
@@ -2035,13 +2036,13 @@ def phase_swin_reference():
                            depths=(2, 2, 2, 2), num_heads=(2, 2, 4, 4),
                            window_size=4)
     cfg['panoptic_head']['in_channels'] = [32, 64, 128, 256]
-    fwd, bwd = (swa.window_attention_forward_cuda,
-                swa.window_attention_backward_cuda)
-    fwd.launches = bwd.launches = 0
+    fwd, bwd = ('kernel.window_attention_forward',
+                'kernel.window_attention_backward')
+    COUNTS[fwd] = COUNTS[bwd] = 0
     compare_loss_dicts(cfg, batch, grads_of='backbone.')
-    if (fwd.launches, bwd.launches) != (8, 8):
+    if (COUNTS[fwd], COUNTS[bwd]) != (8, 8):
         fail(f'the small Swin Box2Mask on the card launched K5 '
-             f'{fwd.launches} and K6 {bwd.launches} times, expected 8 each')
+             f'{COUNTS[fwd]} and K6 {COUNTS[bwd]} times, expected 8 each')
 
 
 SWIN_RECIPE_STEPS = 4
@@ -2169,10 +2170,10 @@ def phase_swin_recipe(tool, device='cuda', narrow=None):
     parameters after steps 1 and 4, the trace of step 3 naming K5 and K6,
     one memory line a step, K5 / K6 launches. ``device`` and ``narrow``
     rehearse it on the CPU (no kernel, no card: no memory line)."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     import torch
     from boxinstseg_tpu_torch.apis import train
     from boxinstseg_tpu_torch.engine import hooks
-    from boxinstseg_tpu_torch.ops import swin_attention as swa
     register_dataset()
     work_dir = tempfile.mkdtemp(prefix='chip_smoke_recipe_')
     seed, steps = 0, SWIN_RECIPE_STEPS
@@ -2187,19 +2188,19 @@ def phase_swin_recipe(tool, device='cuda', narrow=None):
               f'{dict(cfg.optimizer.paramwise_cfg)}; lr_config '
               f'{dict(cfg.lr_config)}; custom_hooks '
               f'{[dict(h) for h in cfg.custom_hooks]}')
-        fwd, bwd = (swa.window_attention_forward_cuda,
-                    swa.window_attention_backward_cuda)
+        fwd, bwd = ('kernel.window_attention_forward',
+                    'kernel.window_attention_backward')
         if card:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        fwd.launches = bwd.launches = 0
+        COUNTS[fwd] = COUNTS[bwd] = 0
         with recorded_optimizer(train) as seen, \
                 recorded_ema(hooks, device) as ema, \
                 logged_lines('GiB in use') as memory, live_gt_counts() as gts:
             result = tool.main([SWIN_CONFIG, '--work-dir', work_dir,
                                 '--seed', str(seed), '--device', device,
                                 '--no-validate', '--cfg-options', *opts])
-        launches = (fwd.launches, bwd.launches)
+        launches = (COUNTS[fwd], COUNTS[bwd])
         check_history(result, steps, required=('loss_cls', 'loss_project'))
         per_step = sum(cfg.model.backbone.depths)
         if card and launches != (per_step * steps,) * 2:
@@ -2372,9 +2373,9 @@ def phase_discobox(tool, config=DISCO_CONFIG, extra=(), parts=DISCO_PARTS):
     step DISCO_START_ITER; fails unless a tensor of each of ``parts``
     changed. Returns the CRF kernel's launches, the config and the trained
     model (on the CPU)."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     import torch
     from boxinstseg_tpu_torch.engine.train_state import TSTrainStep
-    from boxinstseg_tpu_torch.ops import crf
     register_dataset()
     work_dir = tempfile.mkdtemp(prefix='chip_smoke_disco_')
     seed = 0
@@ -2405,14 +2406,14 @@ def phase_discobox(tool, config=DISCO_CONFIG, extra=(), parts=DISCO_PARTS):
         torch.cuda.reset_peak_memory_stats()
         gaps = []
         call = record_ema_gaps(TSTrainStep, gaps)
-        crf.crf_mean_field_cuda.launches = 0
+        COUNTS['kernel.crf_mean_field'] = 0
         try:
             with live_gt_counts() as gts:
                 result = train_tool(tool, config, work_dir, seed, opts)
         finally:
             TSTrainStep.__call__ = call
         torch.cuda.synchronize()
-        launches = {'crf_mean_field': crf.crf_mean_field_cuda.launches}
+        launches = {'crf_mean_field': COUNTS['kernel.crf_mean_field']}
         peak = torch.cuda.max_memory_allocated()
         gaps = [g.item() for g in gaps]
         check_history(result, STEPS, required=('loss_ins', 'loss_cate'))
@@ -2476,13 +2477,13 @@ def phase_discobox_reference():
     the mask scores sit away from the CRF's 0.5 threshold; the LR is 1e-4
     (see tests/test_torch_discobox.py). In fp32: the step's bf16 switch is
     off."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     print('fp32: the precision policy is off (no fp16 / bf16 key), so the '
           'card and the CPU compute the same function')
     import numpy as np
     import torch
     from boxinstseg_tpu_torch.engine.optimizers import build_optimizer
     from boxinstseg_tpu_torch.engine.train_state import TSTrainStep
-    from boxinstseg_tpu_torch.ops import crf
     from boxinstseg_tpu_torch.ops.correspondence import create_object_bank
     from boxinstseg_tpu_torch.registry import build_detector
     rng = np.random.RandomState(0)
@@ -2519,15 +2520,15 @@ def phase_discobox_reference():
             bank=create_object_bank(4, 16, (7, 7), (14, 14), 32,
                                     device=dev))
         tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        before = crf.crf_mean_field_cuda.launches
+        before = COUNTS['kernel.crf_mean_field']
         logs = []
         for i in range(2):
             step.avg_loss_ins = torch.tensor(0.1, device=dev)
             logs.append({k: v.item() for k, v in step(tb, i).items()})
-        if (crf.crf_mean_field_cuda.launches - before) != (
+        if (COUNTS['kernel.crf_mean_field'] - before) != (
                 2 if dev == 'cuda' else 0):
             fail(f'the small DiscoBox on {dev} launched K7 '
-                 f'{crf.crf_mean_field_cuda.launches - before} times')
+                 f'{COUNTS["kernel.crf_mean_field"] - before} times')
         runs[dev] = (logs, {k: v.cpu() for k, v in
                             step.bank._asdict().items()},
                      {k: v.detach().cpu() for k, v in
@@ -2943,7 +2944,6 @@ def phase_boxlevelset(tool, work_dir, mst_kept=None):
     ``mst_kept``, a dict, receives the last MST call's inputs. Returns the
     config, the last checkpoint's path and the MST launches a step."""
     import torch
-    from boxinstseg_tpu_torch.ops import mst
     register_dataset()
     seed = 0
     opts = [*TRAIN_OPTS, 'data.samples_per_gpu=2',
@@ -2963,7 +2963,7 @@ def phase_boxlevelset(tool, work_dir, mst_kept=None):
           f'off')
     torch.cuda.reset_peak_memory_stats()
     with live_gt_counts() as gts, \
-            launches_of({'grid_mst': mst.grid_mst_cuda}) as launches, \
+            launches_of({'grid_mst': 'kernel.grid_mst'}) as launches, \
             capture_mst_inputs({} if mst_kept is None else mst_kept):
         result = train_tool(tool, BOXLS_CONFIG, work_dir, seed, opts)
     torch.cuda.synchronize()
@@ -2990,7 +2990,7 @@ def phase_boxlevelset(tool, work_dir, mst_kept=None):
     print(f'MST kernel launches a step: {launches["grid_mst"] / STEPS:g} '
           f'(the image\'s and the level-set feature\'s trees of both images '
           f'in one launch)')
-    with launches_of({'grid_mst': mst.grid_mst_cuda}) as resumed_launches:
+    with launches_of({'grid_mst': 'kernel.grid_mst'}) as resumed_launches:
         resumed = train_tool(tool, BOXLS_CONFIG, work_dir, seed, opts,
                              '--resume-from',
                              os.path.join(work_dir, 'iter_4.pth'))
@@ -3166,28 +3166,28 @@ def loader_rate(cfg):
 
 @contextlib.contextmanager
 def launches_of(counters):
-    """The launches of ``counters`` (name: the wrapper whose ``launches``
-    counts them) within: set to 0 on entry; the dict is filled on exit."""
+    """The launches of ``counters`` (name: the hand kernel's key in the
+    port's launch counts, ``utils.profiling.COUNTS``) within: set to 0 on
+    entry; the dict is filled on exit."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     counts = {}
-    for fn in counters.values():
-        fn.launches = 0
+    for key in counters.values():
+        COUNTS[key] = 0
     yield counts
-    counts.update({name: fn.launches for name, fn in counters.items()})
+    counts.update({name: COUNTS[key] for name, key in counters.items()})
 
 
 def pairwise_launches():
     """The pairwise kernels' launches within (``launches_of``)."""
-    from boxinstseg_tpu_torch.ops import pairwise as pw
-    return launches_of({'pairwise_forward': pw.pairwise_forward_cuda,
-                        'pairwise_backward': pw.pairwise_grad_cuda})
+    return launches_of({'pairwise_forward': 'kernel.pairwise_forward',
+                        'pairwise_backward': 'kernel.pairwise_backward'})
 
 
 def swin_launches():
     """The window-attention kernels' launches within (``launches_of``)."""
-    from boxinstseg_tpu_torch.ops import swin_attention as swa
     return launches_of(
-        {'swin_attention_forward': swa.window_attention_forward_cuda,
-         'swin_attention_backward': swa.window_attention_backward_cuda})
+        {'swin_attention_forward': 'kernel.window_attention_forward',
+         'swin_attention_backward': 'kernel.window_attention_backward'})
 
 
 def print_data_times(result):
@@ -4466,8 +4466,6 @@ def phase_public_surface(work_dir, files, files_checkpoint, checkpoint,
     import torch
     from boxinstseg_tpu_torch.apis.export import ExportedDetector
     from boxinstseg_tpu_torch.apis.inference import init_detector, load_config
-    from boxinstseg_tpu_torch.ops import msda
-    from boxinstseg_tpu_torch.ops import swin_attention as swa
     narrow = narrow or {}
     canvases = canvases or {}
     boxinst_canvas = canvases.get(CONFIG, BOXINST_CANVAS)
@@ -4522,8 +4520,8 @@ def phase_public_surface(work_dir, files, files_checkpoint, checkpoint,
     # under its fp16 key, exported in fp32: against eager fp32 predict)
     export = load_script('tools/deployment/export_model_torch.py')
     gen = torch.Generator(device=device).manual_seed(0)
-    counters = {'msda_forward': msda.msda_forward_cuda,
-                'swin_attention_forward': swa.window_attention_forward_cuda}
+    counters = {'msda_forward': 'kernel.msda_forward',
+                'swin_attention_forward': 'kernel.window_attention_forward'}
     params = {}
     for name, config, ckpt, opts in (
             ('boxinst', CONFIG, [checkpoint], EVAL_OPTS),
@@ -5418,6 +5416,7 @@ def phase_ops():
     the small CondInst's forward and loss
     exported on the card (``apis.export.export_loss``), run and
     differentiated, with one K1 and one K2 launch."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     import torch
     from boxinstseg_tpu_torch.apis import export as tex
     from boxinstseg_tpu_torch.ops import crf, lcm, lsa, mst
@@ -5475,13 +5474,13 @@ def phase_ops():
     if ops != {'pairwise_forward': 1}:
         fail(f'the exported BoxInst loss holds {ops}')
     model.load_state_dict(state)
-    before = (pw.pairwise_forward_cuda.launches,
-              pw.pairwise_grad_cuda.launches)
+    before = (COUNTS['kernel.pairwise_forward'],
+              COUNTS['kernel.pairwise_backward'])
     got = program.module()(batch)
     sum(v for k, v in got.items() if 'loss' in k).backward()
     torch.cuda.synchronize()
-    moved = (pw.pairwise_forward_cuda.launches - before[0],
-             pw.pairwise_grad_cuda.launches - before[1])
+    moved = (COUNTS['kernel.pairwise_forward'] - before[0],
+             COUNTS['kernel.pairwise_backward'] - before[1])
     model.load_state_dict(state)
     eager = model.loss(batch, 50)
     for k, v in eager.items():
@@ -5531,21 +5530,19 @@ VOC_CLI = ('boxinst/boxinst_r50_fpn_1x_voc.py',
 
 
 def kernel_counters():
-    """Every hand kernel's wrapper by the name of its launch count."""
-    from boxinstseg_tpu_torch.ops import crf, lcm, lsa, msda, mst
-    from boxinstseg_tpu_torch.ops import pairwise as pw
-    from boxinstseg_tpu_torch.ops import swin_attention as swa
-    return {'pairwise_forward': pw.pairwise_forward_cuda,
-            'pairwise_backward': pw.pairwise_grad_cuda,
-            'msda_forward': msda.msda_forward_cuda,
-            'msda_backward': msda.msda_backward_cuda,
-            'lcm_forward': lcm.lcm_forward_cuda,
-            'lcm_adjoint': lcm.lcm_adjoint_cuda,
-            'swin_attention_forward': swa.window_attention_forward_cuda,
-            'swin_attention_backward': swa.window_attention_backward_cuda,
-            'crf_mean_field': crf.crf_mean_field_cuda,
-            'lsa_solve': lsa.solve_lsa_cuda,
-            'grid_mst': mst.grid_mst_cuda}
+    """Every hand kernel's key in ``utils.profiling.COUNTS`` by the name
+    of its launch count."""
+    return {'pairwise_forward': 'kernel.pairwise_forward',
+            'pairwise_backward': 'kernel.pairwise_backward',
+            'msda_forward': 'kernel.msda_forward',
+            'msda_backward': 'kernel.msda_backward',
+            'lcm_forward': 'kernel.lcm_forward',
+            'lcm_adjoint': 'kernel.lcm_adjoint',
+            'swin_attention_forward': 'kernel.window_attention_forward',
+            'swin_attention_backward': 'kernel.window_attention_backward',
+            'crf_mean_field': 'kernel.crf_mean_field',
+            'lsa_solve': 'kernel.lsa',
+            'grid_mst': 'kernel.grid_mst'}
 
 
 def config_kernels(cfg):
@@ -5600,13 +5597,14 @@ def per_step(counters):
     """Each training step's hand-kernel launches, peak memory and live GT
     count: a snapshot at every step's batch copy (the step before it has
     synced in its log) and one on exit; the counts start at 0."""
+    from boxinstseg_tpu_torch.utils.profiling import COUNTS
     import torch
     from boxinstseg_tpu_torch.apis import train
     to_device = train.batch_to_device
     marks, gts, peaks = [], [], []
 
     def snapshot():
-        marks.append({name: fn.launches for name, fn in counters.items()})
+        marks.append({name: COUNTS[key] for name, key in counters.items()})
 
     def counted(batch, device):
         if marks:
@@ -5615,8 +5613,8 @@ def per_step(counters):
         torch.cuda.reset_peak_memory_stats()
         gts.append(int(batch['gt_valid'].sum()))
         return to_device(batch, device)
-    for fn in counters.values():
-        fn.launches = 0
+    for key in counters.values():
+        COUNTS[key] = 0
     train.batch_to_device = counted
     steps = []
     try:

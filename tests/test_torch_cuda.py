@@ -25,7 +25,9 @@ the plain version's bits. The LSA and the grid MST kernels compute integers
 element for element, the MST at 9x11, 16x16 and 96x96 (flat-block ties and
 distinct weights, uncapped and under a binding depth cap), on negative
 weights, signed zeros and NaN, and the MST wrapper must refuse a grid past
-its shared-memory limit.
+its shared-memory limit. Each kernel's launches are counted in
+``utils.profiling.COUNTS``, and the host syncs of a recorded block by their
+call site.
 """
 import numpy as np
 import pytest
@@ -38,6 +40,7 @@ from boxinstseg_tpu_torch.models.dense_heads.discobox_head import \
 from boxinstseg_tpu_torch.ops import crf, lcm, msda
 from boxinstseg_tpu_torch.ops import pairwise as pw
 from boxinstseg_tpu_torch.ops import swin_attention as swa
+from boxinstseg_tpu_torch.utils.profiling import COUNTS
 from test_torch_pairwise_plan import BOX_SHAPES, box_inputs, gate_sim
 
 pytestmark = pytest.mark.cuda
@@ -107,11 +110,12 @@ def test_largest_halo_matches_plain(cuda, shape):
 
 def test_dispatch_launches_kernels_for_cuda_tensors(cuda):
     logits, sim, masks, valid = _inputs((1, 3, 37, 53), 1, cuda)
-    fwd, bwd = pw.pairwise_forward_cuda.launches, pw.pairwise_grad_cuda.launches
+    fwd, bwd = (COUNTS['kernel.pairwise_forward'],
+                COUNTS['kernel.pairwise_backward'])
     x = logits.requires_grad_(True)
     pw.boxinst_pairwise_loss(x, sim, masks, valid).backward()
-    assert pw.pairwise_forward_cuda.launches == fwd + 1
-    assert pw.pairwise_grad_cuda.launches == bwd + 1
+    assert COUNTS['kernel.pairwise_forward'] == fwd + 1
+    assert COUNTS['kernel.pairwise_backward'] == bwd + 1
 
 
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
@@ -308,17 +312,17 @@ def test_box2mask_ops_launch_kernels_for_cuda_tensors(cuda):
     value, ref, _, _, _ = _msda_inputs(2, cuda, 2, 8, 32, 4, levels, None, 0)
     module = MultiScaleDeformableAttention(256, 8, 2, 4).to(cuda)
     x = value.reshape(2, -1, 256).requires_grad_(True)
-    fwd, bwd = msda.msda_forward_cuda.launches, msda.msda_backward_cuda.launches
+    fwd, bwd = COUNTS['kernel.msda_forward'], COUNTS['kernel.msda_backward']
     module(x, x, levels, ref).sum().backward()
-    assert (msda.msda_forward_cuda.launches,
-            msda.msda_backward_cuda.launches) == (fwd + 1, bwd + 1)
+    assert (COUNTS['kernel.msda_forward'],
+            COUNTS['kernel.msda_backward']) == (fwd + 1, bwd + 1)
     assert module.sampling_offsets.weight.grad.abs().max() > 0
     offs, aff, x, _ = _lcm_inputs(3, cuda, (1, 2, 9, 11))
-    fwd, adj = lcm.lcm_forward_cuda.launches, lcm.lcm_adjoint_cuda.launches
+    fwd, adj = COUNTS['kernel.lcm_forward'], COUNTS['kernel.lcm_adjoint']
     x.requires_grad_(True)
     lcm.lcm_refine(aff, x, offs, 10).sum().backward()
-    assert (lcm.lcm_forward_cuda.launches,
-            lcm.lcm_adjoint_cuda.launches) == (fwd + 1, adj + 1)
+    assert (COUNTS['kernel.lcm_forward'],
+            COUNTS['kernel.lcm_adjoint']) == (fwd + 1, adj + 1)
 
 
 def test_box2mask_wrappers_reject_what_they_do_not_take(cuda):
@@ -420,13 +424,13 @@ def test_swin_attention_kernels_match_plain(cuda, case):
 
 def test_swin_attention_launches_kernels_for_cuda_tensors(cuda):
     qkv, bias, regions, g = _swin_inputs(1, cuda, 8, 8, 4, 2, 2, 2, 16)
-    fwd = swa.window_attention_forward_cuda.launches
-    bwd = swa.window_attention_backward_cuda.launches
+    fwd = COUNTS['kernel.window_attention_forward']
+    bwd = COUNTS['kernel.window_attention_backward']
     qkv.requires_grad_(True)
     bias.requires_grad_(True)
     swa.window_attention_qkv(qkv, bias, regions, 0.25).backward(g)
-    assert (swa.window_attention_forward_cuda.launches,
-            swa.window_attention_backward_cuda.launches) == (fwd + 1, bwd + 1)
+    assert (COUNTS['kernel.window_attention_forward'],
+            COUNTS['kernel.window_attention_backward']) == (fwd + 1, bwd + 1)
     leaves = [t.detach().cpu().requires_grad_(True) for t in (qkv, bias)]
     swa.window_attention_qkv(leaves[0], leaves[1], regions.cpu(),
                              0.25).backward(g.cpu())
@@ -513,11 +517,11 @@ def test_crf_dispatch_launches_the_kernel_for_cuda_tensors(cuda):
     kern, thresh, bin0, targets = _crf_inputs(7, cuda, 2, 3, 24, 40)
     x = torch.rand(bin0.shape, device=cuda, generator=torch.Generator(
         device=cuda).manual_seed(0))
-    before = crf.crf_mean_field_cuda.launches
+    before = COUNTS['kernel.crf_mean_field']
     got = MeanFieldCRF(num_iter=5)(kern, x, targets)
-    assert crf.crf_mean_field_cuda.launches == before + 1
+    assert COUNTS['kernel.crf_mean_field'] == before + 1
     want = MeanFieldCRF(num_iter=5)(kern.cpu(), x.cpu(), targets.cpu())
-    assert crf.crf_mean_field_cuda.launches == before + 1
+    assert COUNTS['kernel.crf_mean_field'] == before + 1
     assert torch.equal(got.cpu(), want)
 
 
@@ -542,12 +546,13 @@ def test_crf_wrapper_rejects_what_it_does_not_take(cuda):
 
 
 def _launches():
-    return (pw.pairwise_forward_cuda.launches, pw.pairwise_grad_cuda.launches,
-            msda.msda_forward_cuda.launches, msda.msda_backward_cuda.launches,
-            lcm.lcm_forward_cuda.launches, lcm.lcm_adjoint_cuda.launches,
-            swa.window_attention_forward_cuda.launches,
-            swa.window_attention_backward_cuda.launches,
-            crf.crf_mean_field_cuda.launches)
+    return (COUNTS['kernel.pairwise_forward'],
+            COUNTS['kernel.pairwise_backward'],
+            COUNTS['kernel.msda_forward'], COUNTS['kernel.msda_backward'],
+            COUNTS['kernel.lcm_forward'], COUNTS['kernel.lcm_adjoint'],
+            COUNTS['kernel.window_attention_forward'],
+            COUNTS['kernel.window_attention_backward'],
+            COUNTS['kernel.crf_mean_field'])
 
 
 def _bf16_case(kind, cuda):
@@ -643,11 +648,11 @@ def test_lsa_kernel_equals_plain(cuda, case):
     c = torch.from_numpy(cost)
     nr = torch.from_numpy(n_rows.astype(np.int32))
     want, steps = lsa.solve_lsa_plain(c, nr, return_steps=True)
-    before = lsa.solve_lsa_cuda.launches
+    before = COUNTS['kernel.lsa']
     got_steps = torch.zeros(len(n_rows), dtype=torch.int32, device=cuda)
     got = lsa.solve_lsa_cuda(c.to(cuda), nr.to(cuda), got_steps)
     torch.cuda.synchronize()
-    assert lsa.solve_lsa_cuda.launches == before + 1
+    assert COUNTS['kernel.lsa'] == before + 1
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got_steps.cpu().long(), steps)
     assert torch.equal(lsa.solve_lsa(c.to(cuda), nr.to(cuda)).cpu(), want)
@@ -693,11 +698,11 @@ def test_mst_kernel_equals_plain(cuda, case, capped):
     n = case[1] * case[2]
     md = max(n // 40, 3) if capped else n
     want = mst.grid_mst_plain(wr, wd, md)
-    before = mst.grid_mst_cuda.launches
+    before = COUNTS['kernel.grid_mst']
     stats = torch.zeros((case[0], 2), dtype=torch.int32, device=cuda)
     got = mst.grid_mst_cuda(wr.to(cuda), wd.to(cuda), md, stats)
     torch.cuda.synchronize()
-    assert mst.grid_mst_cuda.launches == before + 1
+    assert COUNTS['kernel.grid_mst'] == before + 1
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
     if capped:
@@ -743,3 +748,23 @@ def test_mst_wrapper_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match=f'at most {mst.MAX_NODES} nodes'):
         mst.grid_mst_cuda(torch.zeros(1, 129, 129, device=cuda),
                           torch.zeros(1, 128, 130, device=cuda), 10)
+
+
+def test_host_syncs_are_counted_by_their_call_site(cuda):
+    """Each synchronizing call that CUDA's sync debug mode reports inside
+    ``utils.profiling.record(syncs=True)`` is one ``host_sync``, under the
+    open span and by the port's frame that made it; the mode comes back on
+    exit."""
+    from boxinstseg_tpu_torch.apis.test import _host
+    from boxinstseg_tpu_torch.utils.profiling import record, span
+    x = torch.arange(8.0, device=cuda)
+    mode = torch.cuda.get_sync_debug_mode()
+    with record(syncs=True) as rec:
+        with span('copy'):
+            _host(x * 2)
+            _host(x + 1)
+    assert torch.cuda.get_sync_debug_mode() == mode
+    assert rec.syncs_watched
+    assert rec.counts['host_sync'] == rec.spans[0].counts['host_sync'] >= 2
+    (site, n), = rec.sync_sites.items()
+    assert site.startswith('boxinstseg_tpu_torch/apis/test.py:') and n >= 2

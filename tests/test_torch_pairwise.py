@@ -22,6 +22,7 @@ from boxinstseg_tpu.ops.pairwise import boxinst_pairwise_loss as jax_loss
 from boxinstseg_tpu.ops.pallas_kernels import boxinst_pairwise_loss_pallas
 from boxinstseg_tpu_torch.ops import pairwise as pw
 from boxinstseg_tpu_torch.ops.color import neighbor_offsets
+from boxinstseg_tpu_torch.utils.profiling import COUNTS
 
 SHAPES = [(2, 8, 32, 48), (1, 3, 37, 53), (2, 4, 18, 22)]
 
@@ -120,10 +121,11 @@ def test_kernel_gather_formula_matches_plain():
 
 def test_cpu_tensor_takes_plain_path():
     logits, sim, masks, valid = _inputs((1, 3, 37, 53), 4)
-    fwd, bwd = pw.pairwise_forward_cuda.launches, pw.pairwise_grad_cuda.launches
+    fwd, bwd = (COUNTS['kernel.pairwise_forward'],
+                COUNTS['kernel.pairwise_backward'])
     _port_value_grad(logits, sim, masks, valid)
-    assert (pw.pairwise_forward_cuda.launches,
-            pw.pairwise_grad_cuda.launches) == (fwd, bwd)
+    assert (COUNTS['kernel.pairwise_forward'],
+            COUNTS['kernel.pairwise_backward']) == (fwd, bwd)
 
 
 def test_kernel_wrappers_reject_cpu_tensors():

@@ -314,16 +314,27 @@ def test_set_epoch_info_and_yolox_mode_switch(pkg):
 
 # ------------------------------------------------------ profiler, wandb
 
-def test_profiler_hook_writes_a_trace_on_the_cpu(tmp_path):
+def test_profiler_hook_writes_a_trace_on_the_cpu(tmp_path, caplog):
+    from boxinstseg_tpu_torch.utils.profiling import span
     hook = H.ProfilerHook(start=2, stop=3, log_dir=str(tmp_path / 'prof'))
     x = torch.randn(64, 64)
-    for i in range(4):
-        hook.after_step(i, None, {})
-        x = torch.mm(x, x).tanh()
+    with caplog.at_level(logging.INFO, logger='boxinstseg_tpu_torch'):
+        for i in range(4):
+            hook.after_step(i, None, {})
+            with span('step'), span('step.mm'):
+                x = torch.mm(x, x).tanh()
     assert hook.path == str(tmp_path / 'prof' / 'trace.json')
     text = open(hook.path).read()
-    # the window holds the ops run after step 2 and before step 3 ends
+    # the window holds the ops run after step 2 and before step 3 ends,
+    # and the port's spans around them
     assert text.count('"aten::mm"') == 1 and '"aten::tanh"' in text
+    assert text.count('"bis:step"') == 1 and '"bis:step.mm"' in text
+    # the window's recording: each span's self host ms a step, the syncs
+    spans = next(r.getMessage() for r in caplog.records
+                 if r.getMessage().startswith('host ms a step by span'))
+    assert 'step.mm ' in spans and 'step ' in spans
+    assert any(r.getMessage().startswith('host syncs')
+               for r in caplog.records)
 
 
 def test_profile_time_and_memory_stats_on_the_cpu(capsys):
