@@ -5,7 +5,8 @@ to the step count BEFORE the update (reference: the ``_iter`` buffer,
 condinst_head.py:1104,1331). Each parameter group's LR is the scheduled LR
 times its ``lr_mult`` (``engine.optimizers``), as optax scales a paramwise
 update. The teacher-student step adds DiscoBox's EMA teacher, its
-``avg_loss_ins`` gates and the object bank.
+``avg_loss_ins`` gates and the object bank. Both steps run whole, the
+backward included, under ``utils.env.cudnn_autotune``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..parallel import dist as pdist
+from ..utils.env import cudnn_autotune
 from ..utils.profiling import span
 
 
@@ -83,7 +85,7 @@ def make_train_step(model: torch.nn.Module,
 
     def train_step(batch: Dict[str, torch.Tensor], step: int
                    ) -> Dict[str, torch.Tensor]:
-        with span('step'):
+        with span('step'), cudnn_autotune(batch['image'], bf16):
             model.train()
             with autocast_bf16(batch['image'].device, bf16):
                 losses = model.loss(batch, step)
@@ -176,7 +178,7 @@ class TSTrainStep:
 
     def __call__(self, batch: Dict[str, torch.Tensor], step: int
                  ) -> Dict[str, torch.Tensor]:
-        with span('step'):
+        with span('step'), cudnn_autotune(batch['image'], self.bf16):
             return self._step(batch, step)
 
     def _step(self, batch, step):

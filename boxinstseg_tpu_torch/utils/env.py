@@ -7,9 +7,16 @@ them. Without a card the card's entries say so; nothing raises.
 ``set_tf32`` is the one place that sets the TF32 flags: every entry point
 calls it with the config's ``tf32`` key (``tf32_from_cfg``, off by
 default, as every parity test and every timed step ran).
+
+``cudnn_autotune`` is the one place that picks how cuDNN chooses its
+convolution algorithms: the train steps run inside it. Prediction keeps
+cuDNN's instant heuristic, whose pick depends on the shape and the free
+memory alone, so that ranks sharing a card pick the engines of one process
+and evaluation across ranks gives one process's results bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import platform
@@ -20,9 +27,22 @@ from typing import Dict
 
 import torch
 
+from .profiling import count
+
 NO_CARD = 'no card'
 
 _TF32_LOGGED = False
+# the (image shape, bf16) pairs that cudnn_autotune has met in this process
+_AUTOTUNED = set()
+# cudnn_autotune times at most this many candidate engines a convolution
+# key, in the heuristic's order (PyTorch's default, 10, times slow FFT
+# candidates of the large maps for seconds). BoxInst R-50 train on an H100
+# (700 W), a process each: its two canvases' first steps took 10.8 s under
+# the heuristic alone, 26.1 s timing up to 10 candidates, 11.6 s up to 4,
+# 12.1 s up to 2; a step then 525, 137, 144 and 150 ms (455 ms up to 1:
+# the heuristic's own pick). Box2Mask R-50 train: set-up 23.8-24.1 s and
+# 6.08-6.32 images/s up to 4, 30.8-32.9 s and 6.57-6.68 up to 10.
+AUTOTUNE_CANDIDATES = 4
 
 
 def set_tf32(enabled: bool) -> None:
@@ -39,6 +59,41 @@ def set_tf32(enabled: bool) -> None:
         logger.info(
             f'TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn '
             f'{torch.backends.cudnn.allow_tf32}')
+
+
+@contextlib.contextmanager
+def cudnn_autotune(image: torch.Tensor, bf16: bool):
+    """Run the block's cuDNN convolutions, forward and backward, under
+    cuDNN's benchmark mode: the first call of each convolution key times
+    the candidate engines and keeps the fastest, where the instant
+    heuristic's first pick ran the fp32 3x3 convolutions of the CondInst
+    mask branch as FFT tiles at several times the cost. The candidates are
+    the heuristic's first ``AUTOTUNE_CANDIDATES``. Only
+    ``torch.backends.cudnn.benchmark`` and ``benchmark_limit`` change, and
+    they come back on exit, also on an exception: ``enabled``,
+    ``deterministic``, ``allow_tf32`` and ``fp32_precision`` are left as
+    they are (TF32 stays as ``set_tf32`` set it, since cuDNN's candidates
+    are filtered by those flags), and code outside keeps the heuristic for
+    a key it meets first.
+    PyTorch caches a plan by the convolution's key but not by this flag,
+    so an unscoped call of a key tuned here reuses the tuned plan.
+
+    ``image`` is the step's image batch and ``bf16`` whether autocast is
+    on: the first block of such a pair in the process counts
+    ``cudnn.autotune_shapes``. That counts the blocks where tuning can run
+    (the port's canvases fix each convolution's shape), not cuDNN's own
+    timing. Off a CUDA device the flag changes nothing."""
+    signature = tuple(image.shape), bool(bf16)
+    if signature not in _AUTOTUNED:
+        _AUTOTUNED.add(signature)
+        count('cudnn.autotune_shapes')
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.benchmark_limit
+    cudnn.benchmark, cudnn.benchmark_limit = True, AUTOTUNE_CANDIDATES
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit = saved
 
 
 def tf32_from_cfg(cfg) -> bool:

@@ -27,7 +27,9 @@ distinct weights, uncapped and under a binding depth cap), on negative
 weights, signed zeros and NaN, and the MST wrapper must refuse a grid past
 its shared-memory limit. Each kernel's launches are counted in
 ``utils.profiling.COUNTS``, and the host syncs of a recorded block by their
-call site.
+call site. The CondInst mask branch gives under ``utils.env.cudnn_autotune``
+what it gives under cuDNN's instant heuristic, at rtol 1e-4 and atol 1e-5 of
+each tensor's largest entry.
 """
 import numpy as np
 import pytest
@@ -768,3 +770,77 @@ def test_host_syncs_are_counted_by_their_call_site(cuda):
     assert rec.counts['host_sync'] == rec.spans[0].counts['host_sync'] >= 2
     (site, n), = rec.sync_sites.items()
     assert site.startswith('boxinstseg_tpu_torch/apis/test.py:') and n >= 2
+
+
+def mask_branch_results(scoped: bool, path=None):
+    """Each convolution of the CondInst mask branch alone, forward and
+    backward (fp32, TF32 off) at the main path's inputs: the refines on P3
+    (2, 256, 100, 168), P4 and P5, a 128 -> 128 3x3 and the 1x1 on P3;
+    inside ``cudnn_autotune`` or outside. Returns each one's output and
+    the gradients of its input, weight and bias on the host, saved to
+    ``path`` if given. Weights from ``torch.manual_seed(0)``, inputs and
+    upstream gradients from a fixed seed. One convolution at a time, so
+    that no ReLU between them turns a rounding difference into a different
+    branch."""
+    import contextlib
+    from boxinstseg_tpu_torch.models.dense_heads.condinst_head import \
+        CondInstMaskBranch
+    from boxinstseg_tpu_torch.utils.env import cudnn_autotune, set_tf32
+    set_tf32(False)
+    torch.manual_seed(0)
+    branch = CondInstMaskBranch().cuda()
+    convs = [(f'refine{i}', branch.refines[i].conv, (256, 100 // s, 168 // s))
+             for i, s in enumerate((1, 2, 4))]
+    convs += [('branch0', branch.mask_branch[0].conv, (128, 100, 168)),
+              ('branch4', branch.mask_branch[4], (128, 100, 168))]
+    rng = np.random.RandomState(0)
+    scope = cudnn_autotune(torch.empty(2, 256, 100, 168, device='meta'),
+                           False) if scoped else contextlib.nullcontext()
+    results = {}
+    with scope:
+        for name, conv, (c, h, w) in convs:
+            x = torch.from_numpy(rng.randn(2, c, h, w).astype(
+                np.float32)).cuda().requires_grad_(True)
+            out = conv(x)
+            g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32))
+            out.backward(g.cuda())
+            results[f'{name}.out'] = out.detach().cpu()
+            results[f'{name}.dx'] = x.grad.cpu()
+            for pname, p in conv.named_parameters():
+                results[f'{name}.d{pname}'] = p.grad.cpu()
+    if path is not None:
+        torch.save(results, path)
+    return results
+
+
+def test_cudnn_autotune_keeps_mask_branch_results(cuda, tmp_path):
+    """The CondInst mask branch's convolutions under ``cudnn_autotune``
+    (cuDNN's timed pick of each engine: forward, dgrad and wgrad) give what
+    they give outside, under the instant heuristic (the P3 refine's forward
+    there is FFT tiling), to fp32 rounding: rtol 1e-4 and atol 1e-5 of
+    each tensor's largest entry, the bound this file holds other sums in
+    another order to. Through the whole branch (BN, ReLU) no such bound
+    holds between any two fp32 engines at this size: an activation near 0
+    that rounds to the other side of a ReLU moves its gradient by its own
+    size, and on the card the heuristic's gradients differ from a float64
+    run by up to 3% of their largest entry, the tuned ones by as much. The
+    heuristic's side runs in a fresh process: PyTorch keeps one plan a
+    convolution key, whatever mode met it first, so in one process the
+    second side would reuse the first's plans."""
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = tmp_path / 'heuristic.pt'
+    code = (f'import sys; sys.path[:0] = {[here, os.path.dirname(here)]!r}; '
+            f'from test_torch_cuda import mask_branch_results; '
+            f'mask_branch_results(False, {str(path)!r})')
+    subprocess.run([sys.executable, '-c', code], check=True)
+    heuristic = torch.load(path)
+    tuned = mask_branch_results(True)
+    assert tuned.keys() == heuristic.keys()
+    for name, value in heuristic.items():
+        torch.testing.assert_close(
+            tuned[name], value, rtol=1e-4,
+            atol=1e-5 * float(value.abs().max()),
+            msg=lambda m, name=name: f'{name}: {m}')
